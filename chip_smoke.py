@@ -1,0 +1,505 @@
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA card.
+
+    python3 chip_smoke.py            # needs one card; no arguments
+
+Phases, one JSON line each:
+
+1. ``device``   — the card (``nvidia-smi`` name and power limit), torch and
+   CUDA versions.
+2. ``build``    — nvcc builds the port's kernels from ``src/repro_torch/
+   kernels/csrc`` (at first use, all sources in parallel).
+3. ``kernels``  — every kernel against its plain PyTorch version on the
+   card at the main path's shapes (GF(2) exact; pairwise within
+   ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``).  Each is timed
+   two ways: device time from ``torch.profiler`` (the kernel alone; all
+   kernels and copies of the plain version and of one PyTorch library call
+   where one computes the same function), and the per-call time of
+   back-to-back calls between CUDA events, which includes the host's
+   dispatch.  Beside them, the least time the card could take.  A sweep of
+   the serial kernel over its number of dependent XORs follows.
+4. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
+   a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
+   ``engine="packed"``); the launch count of every kernel during that call
+   must be > 0, and the harvest must be identical to a second harvest of
+   the same cloud through the plain pairwise version on the card.  The
+   call runs under ``torch.profiler``, for the card's busy and idle share
+   and each kernel's device time on the path.
+5. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
+   maxdim 2) on the card with the kernels and on the CPU: identical
+   filtration arrays and diagrams.
+
+Then the ``nvidia-smi`` line, the kernels summary and, last, ``{"ok": true,
+"device": ...}``.  Any failed check raises and the script exits non-zero;
+without a card it exits 2 and prints no result.  It imports nothing of the
+JAX package.
+"""
+from __future__ import annotations
+
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
+FP32_OPS_PER_S = 67e12        # float32 / 32-bit ops outside the tensor cores
+MAIN_PATH_N = 50_000         # torus4 points, benchmarks/table1_datasets.py
+HERE = os.path.dirname(os.path.abspath(__file__))
+CSRC = "src/repro_torch/kernels/csrc"
+
+
+def emit(phase: str, **fields) -> None:
+    print(json.dumps({"phase": phase, **fields}), flush=True)
+
+
+def nvidia_smi() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60, check=True)
+    return out.stdout.strip().splitlines()[0]
+
+
+def wall_ms(fn, iters: int) -> float:
+    """Mean time of one call of ``fn`` over ``iters`` back-to-back calls,
+    between CUDA events after one warm-up call.  For a small kernel this is
+    the host's dispatch rate (Python, ctypes, allocation), not the kernel."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def profiled(fn):
+    """Run ``fn`` under ``torch.profiler`` (host and CUDA activity); return
+    its result and the device-side events (kernels, copies, memsets)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        out = fn()
+        torch.cuda.synchronize()
+    return out, [ev for ev in prof.events()
+                 if ev.device_type == DeviceType.CUDA]
+
+
+def device_ms(fn, iters: int, kernel: Optional[str] = None):
+    """Mean device time per call of ``fn``: the profiler's CUDA activity
+    over ``iters`` calls after a warm-up, summed over every kernel and copy;
+    or, where ``kernel`` names one, the mean of that kernel's launches
+    (at most one a call; the profiler may miss one).  None where the
+    profiler records no device activity."""
+    fn()
+    torch.cuda.synchronize()
+    _, evs = profiled(lambda: [fn() for _ in range(iters)])
+    per = iters
+    if kernel is not None:
+        evs = [ev for ev in evs if kernel in ev.name]
+        if len(evs) > iters:
+            raise AssertionError(f"{kernel}: {len(evs)} launches profiled "
+                                 f"in {iters} calls")
+        per = len(evs)
+    if not evs:
+        return None
+    return sum(ev.time_range.elapsed_us() for ev in evs) / per / 1e3
+
+
+def busy_us(evs) -> float:
+    """Length of the union of the events' device intervals (µs)."""
+    total, end = 0.0, -np.inf
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in evs):
+        if e > end:
+            total += e - max(s, end)
+            end = e
+    return total
+
+
+def timings(kernel: str, fn, plain, library, iters: int,
+            plain_iters: int) -> dict:
+    """The kernel's device time alone and its wrapper's per-call time, the
+    plain version's and the library call's device time per call (all their
+    kernels and copies) and their per-call times."""
+    out = dict(kernel_ms=device_ms(fn, iters, kernel),
+               wrapper_ms=wall_ms(fn, iters),
+               plain_ms=device_ms(plain, plain_iters),
+               plain_wall_ms=wall_ms(plain, plain_iters),
+               library_ms=None, library_wall_ms=None)
+    if library is not None:
+        out.update(library_ms=device_ms(library, iters),
+                   library_wall_ms=wall_ms(library, iters))
+    return out
+
+
+def bound(n_bytes: float, n_ops: float):
+    """Least time (ms) for the work, and which of bytes/operations sets it."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
+    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 3: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+def sparse_rows(rng, c: int, w: int) -> np.ndarray:
+    """Bit rows whose first set word lies anywhere in the row, some empty."""
+    rows = (rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+            & rng.integers(0, 2**32, size=(c, w), dtype=np.uint32))
+    first = rng.integers(0, w, size=c)
+    rows[np.arange(w)[None, :] < first[:, None]] = 0
+    rows[::9] = 0
+    return rows
+
+
+def serial_block(rng, c: int, cap: int, planted: int = 16) -> np.ndarray:
+    """The packed engine's serial pre-pass input: R words whose lows spread
+    over the row, ``planted`` rows planted onto an earlier row's low (a
+    batch's intra-block collisions), V identity words at the tail, padded
+    to a multiple of 128 words."""
+    vw = (c + 31) // 32
+    w = -(-(cap + vw) // 128) * 128
+    blk = np.zeros((c, w), dtype=np.uint32)
+    r = sparse_rows(rng, c, cap)
+    rows = np.arange(c)
+    first = rng.integers(0, cap, size=c)
+    r[np.arange(cap)[None, :] < first[:, None]] = 0
+    r[rows, first] |= np.uint32(1) << rng.integers(0, 32, size=c).astype(
+        np.uint32)
+    for i in rng.choice(np.arange(1, c), size=planted, replace=False):
+        j = int(rng.integers(0, i))
+        r[i, :first[j] + 1] = r[j, :first[j] + 1]
+    blk[:, :cap] = r
+    blk[rows, cap + (rows >> 5)] = np.uint32(1) << (rows & 31).astype(
+        np.uint32)
+    return blk
+
+
+def check_kernels(dev) -> dict:
+    from repro_torch.kernels import gf2
+    from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
+                                                   pairwise_sq_dists_plain)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    summary = {}
+
+    for d in (4, 9):
+        m = n = 2048
+        x = torch.as_tensor(rng.normal(size=(m, d)) / np.sqrt(d),
+                            dtype=torch.float32, device=dev)
+        y = torch.as_tensor(rng.normal(size=(n, d)) / np.sqrt(d),
+                            dtype=torch.float32, device=dev)
+        got = pairwise_sq_dists(x, y)
+        want = pairwise_sq_dists_plain(x, y)
+        torch.cuda.synchronize()
+        scale = max(1.0, float((x * x).sum(1).max()))
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * scale)
+        err = float((got - want).abs().max())
+        b_ms, b_by = bound((m * d + n * d + m * n) * 4.0,
+                           m * n * (2 * d + 3) + (m + n) * 2 * d)
+        entry = dict(
+            name="pairwise_sq_dists", shape=[m, n, d], max_abs_err=err,
+            atol=1e-4 * scale, rtol=1e-5,
+            **timings("pairwise_sq_dists_kernel",
+                      lambda: pairwise_sq_dists(x, y),
+                      lambda: pairwise_sq_dists_plain(x, y),
+                      lambda: torch.cdist(x, y) ** 2, 50, 50),
+            library="torch.cdist(x, y) ** 2 (two calls)",
+            bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **entry)
+        summary.setdefault("pairwise_sq_dists", entry)
+
+    for w in (128, 2048):
+        c = 128
+        cols = sparse_rows(rng, c, w)
+        t = gf2.to_tensor(cols, dev)
+        got = gf2.gf2_find_low(t)
+        want = gf2.gf2_find_low_plain(t)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gf2_find_low differs at W={w}")
+        nzw = cols != 0
+        scanned = np.where(nzw.any(1), nzw.argmax(1) + 1, w).sum()
+        b_ms, b_by = bound(scanned * 4.0 + c * 4.0, scanned)
+        entry = dict(
+            name="gf2_find_low", shape=[c, w], max_abs_err=0.0, exact=True,
+            **timings("gf2_find_low_kernel", lambda: gf2.gf2_find_low(t),
+                      lambda: gf2.gf2_find_low_plain(t), None, 200, 50),
+            bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **entry)
+        summary.setdefault("gf2_find_low", entry)
+
+    for w in (128, 2048):
+        c = 128
+        a = gf2.to_tensor(rng.integers(0, 2**32, size=(c, w),
+                                       dtype=np.uint32), dev)
+        b = gf2.to_tensor(rng.integers(0, 2**32, size=(c, w),
+                                       dtype=np.uint32), dev)
+        got = gf2.gf2_parallel_xor(a, b)
+        want = gf2.gf2_parallel_xor_plain(a, b)
+        torch.cuda.synchronize()
+        if not torch.equal(got, want):
+            raise AssertionError(f"gf2_parallel_xor differs at W={w}")
+        b_ms, b_by = bound(3 * c * w * 4.0, c * w)
+        entry = dict(
+            name="gf2_parallel_xor", shape=[c, w], max_abs_err=0.0,
+            exact=True,
+            **timings("gf2_parallel_xor_kernel",
+                      lambda: gf2.gf2_parallel_xor(a, b),
+                      lambda: gf2.gf2_parallel_xor_plain(a, b),
+                      lambda: torch.bitwise_xor(a, b), 200, 200),
+            library="torch.bitwise_xor", bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **entry)
+        summary.setdefault("gf2_parallel_xor", entry)
+
+    for cap in (128, 2048):
+        c = 128
+        blk = serial_block(rng, c, cap)[None]
+        t = gf2.to_tensor(blk, dev)
+        red, lows, reds = gf2.gf2_serial_reduce(t)
+        pred, plows, preds = gf2.gf2_serial_reduce_plain(t)
+        torch.cuda.synchronize()
+        if not (torch.equal(red, pred) and torch.equal(lows, plows)
+                and torch.equal(reds, preds)):
+            raise AssertionError(f"gf2_serial_reduce differs at W="
+                                 f"{blk.shape[2]}")
+        w = blk.shape[2]
+        n_red = int(preds[0])
+        if n_red == 0:
+            raise AssertionError("serial_reduce test block has no collisions")
+        b_ms, b_by = bound(2 * c * w * 4.0 + c * 4.0 + 4.0,
+                           n_red * w + c * w)
+        entry = dict(
+            name="gf2_serial_reduce", shape=[1, c, w], n_reductions=n_red,
+            max_abs_err=0.0, exact=True,
+            **timings("gf2_serial_reduce_kernel",
+                      lambda: gf2.gf2_serial_reduce(t),
+                      lambda: gf2.gf2_serial_reduce_plain(t), None, 50, 2),
+            bound_ms=b_ms, bound_by=b_by)
+        emit("kernels", **entry)
+        summary.setdefault("gf2_serial_reduce", entry)
+
+    # The serial kernel's cost against its dependent XOR steps, at one
+    # width: the fit's intercept is the 128 row scans, its slope one XOR
+    # and re-scan.
+    points = []
+    for planted in (0, 16, 48, 96):
+        t = gf2.to_tensor(serial_block(rng, 128, 128, planted)[None], dev)
+        red, lows, reds = gf2.gf2_serial_reduce(t)
+        want = gf2.gf2_serial_reduce_plain(t)
+        if not all(torch.equal(a, b) for a, b in zip((red, lows, reds),
+                                                      want)):
+            raise AssertionError(f"gf2_serial_reduce differs, {planted} "
+                                 "rows planted")
+        ms = device_ms(lambda: gf2.gf2_serial_reduce(t), 50,
+                       "gf2_serial_reduce_kernel")
+        points.append(dict(planted=planted, n_reductions=int(reds[0]),
+                           kernel_ms=ms))
+    fit = None
+    if all(p["kernel_ms"] is not None for p in points):
+        slope, icpt = np.polyfit([p["n_reductions"] for p in points],
+                                 [p["kernel_ms"] for p in points], 1)
+        fit = dict(us_per_reduction=slope * 1e3, us_at_zero=icpt * 1e3)
+    emit("serial_reduce_sweep", shape=[1, 128, int(t.shape[2])],
+         points=points, fit=fit)
+    return summary
+
+
+# ---------------------------------------------------------------------------
+# phases 4 and 5: the port's main path, and card vs CPU
+# ---------------------------------------------------------------------------
+
+def kernel_counters():
+    from repro_torch.kernels import gf2
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
+
+    return {"pairwise_sq_dists": pairwise_sq_dists,
+            "gf2_find_low": gf2.gf2_find_low,
+            "gf2_parallel_xor": gf2.gf2_parallel_xor,
+            "gf2_serial_reduce": gf2.gf2_serial_reduce}
+
+
+def assert_filtrations_equal(a, b, what: str) -> None:
+    fa, fb = dataclasses.asdict(a), dataclasses.asdict(b)
+    for k in fa:
+        va, vb = fa[k], fb[k]
+        same = (np.array_equal(va, vb) if isinstance(va, np.ndarray)
+                else va == vb)
+        if not same:
+            raise AssertionError(f"{what}: filtration field {k} differs")
+
+
+def n_pairs(res) -> dict:
+    return {str(d): int(pd.shape[0]) for d, pd in res.diagrams.items()}
+
+
+def main_path(dev, n: int) -> dict:
+    from repro_torch import compute_ph
+    from repro_torch.data.pointclouds import clifford_torus
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists_plain
+    from repro_torch.scale.tiles import harvest_edges
+
+    points = clifford_torus(n, seed=0)
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+
+    def run():
+        t0 = time.perf_counter()
+        out = compute_ph(points=points, maxdim=1, backend="tiled",
+                         engine="packed", memory_budget_bytes=96 * 2**20,
+                         tile_m=2048, tile_n=2048, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    # The whole call runs under the profiler: its device events give the
+    # card's busy time and each kernel's device time on the path.
+    (res, wall), evs = profiled(run)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    busy_s = busy_us(evs) / 1e6
+    per_kernel = {}
+    for k in counters:
+        kev = [ev for ev in evs if f"{k}_kernel" in ev.name]
+        per_kernel[k] = dict(
+            profiled_launches=len(kev),
+            device_s=sum(ev.time_range.elapsed_us() for ev in kev) / 1e6)
+    for name, count in launches.items():
+        if count <= 0:
+            raise AssertionError(f"main path never launched {name}")
+    for d, pd in res.diagrams.items():
+        if not np.isfinite(pd[:, 0]).all() or pd.shape[1] != 2:
+            raise AssertionError(f"H{d} diagram malformed")
+    if res.diagrams[1].shape[0] == 0:
+        raise AssertionError("no H1 pairs on the torus")
+    st = res.stats
+    tau = st["tau_max_estimated"]
+    kern = harvest_edges(points=points, tau_max=tau, tile_m=2048,
+                         tile_n=2048, backend="kernel", device=dev)
+    plain = harvest_edges(points=points, tau_max=tau, tile_m=2048,
+                          tile_n=2048, backend="kernel", device=dev,
+                          sq_dists=pairwise_sq_dists_plain)
+    for a, b, what in zip(kern, plain, ("i", "j", "length")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"harvest {what} differs between the "
+                                 "kernel and the plain version")
+    if kern[0].size != int(st["n_e"]):
+        raise AssertionError("harvest edge count differs from compute_ph's")
+    out = dict(n=n, n_e=int(st["n_e"]), tau_max=tau, wall_s=wall,
+               t_filtration=st["t_filtration"], t_h0=st["t_h0"],
+               t_h1=st["t_h1"], pairs=n_pairs(res), launches=launches,
+               h1_n_supersteps=st["h1_n_supersteps"],
+               h1_n_rounds=st["h1_n_rounds"],
+               h1_n_reductions=st["h1_n_reductions"],
+               device_events=len(evs), device_busy_s=busy_s,
+               device_idle_share=(1.0 - busy_s / wall) if evs else None,
+               kernels_on_path=per_kernel,
+               harvest_identical_to_plain=True)
+    emit("main_path", **out)
+    return out
+
+
+def cross_check(dev) -> None:
+    from repro_torch import compute_ph
+    from repro_torch.data.pointclouds import clifford_torus, o3_points
+    from repro_torch.scale.tiles import build_filtration_tiled
+
+    cases = [("torus4", clifford_torus(10_000, seed=0), 0.15, 1),
+             ("o3", o3_points(1024, seed=0), 1.1, 2)]
+    for name, points, tau, maxdim in cases:
+        times = {}
+        results = {}
+        for where in (dev, torch.device("cpu")):
+            t0 = time.perf_counter()
+            results[where.type] = compute_ph(
+                points=points, tau_max=tau, maxdim=maxdim, backend="tiled",
+                engine="packed", device=where)
+            times[where.type] = time.perf_counter() - t0
+        card, host = results["cuda"], results["cpu"]
+        for d in range(maxdim + 1):
+            if not np.array_equal(card.diagrams[d], host.diagrams[d]):
+                raise AssertionError(f"{name}: H{d} differs card vs CPU")
+        assert_filtrations_equal(
+            build_filtration_tiled(points=points, tau_max=tau, device=dev),
+            build_filtration_tiled(points=points, tau_max=tau, device="cpu"),
+            name)
+        emit("cross_check", case=name, n=len(points), tau_max=tau,
+             maxdim=maxdim, n_e=int(card.stats["n_e"]), pairs=n_pairs(card),
+             card_s=times["cuda"], cpu_s=times["cpu"],
+             card_use_kernels=card.stats["h1_use_kernels"], identical=True)
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
+        return 2
+    sys.path.insert(0, os.path.join(HERE, "src"))
+    from repro_torch.kernels import _build
+
+    dev = torch.device("cuda")
+    smi = nvidia_smi()
+    name = torch.cuda.get_device_name(0)
+    emit("device", nvidia_smi=smi, name=name,
+         count=torch.cuda.device_count(), torch=torch.__version__,
+         cuda=torch.version.cuda, python=sys.version.split()[0])
+
+    t0 = time.perf_counter()
+    build_s = _build.build()
+    ptxas = {src: [ln.strip() for ln in _build.build_log(src).splitlines()
+                   if "registers" in ln or "Compiling entry" in ln]
+             for src in _build.SOURCES}
+    emit("build", seconds=build_s, wall_s=time.perf_counter() - t0,
+         sources=[f"{CSRC}/{s}.cu" for s in _build.SOURCES], ptxas=ptxas)
+
+    summary = check_kernels(dev)
+    path = main_path(dev, MAIN_PATH_N)
+    cross_check(dev)
+
+    replaces = {
+        "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
+                              "src/repro/kernels/pairwise_dist.py:38"),
+        "gf2_find_low": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:230"),
+        "gf2_parallel_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
+        "gf2_serial_reduce": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:290"),
+    }
+    def first(*xs):
+        return next((x for x in xs if x is not None), None)
+
+    kernels = []
+    for kname, (src, ref) in replaces.items():
+        e = summary[kname]
+        # Device times from the profiler where it recorded them; else the
+        # per-call times, which ``times_from`` then names.
+        kernels.append(dict(
+            name=kname, route="cuda",
+            source="src/repro_torch/kernels/" + src, replaces=ref,
+            launches=path["launches"][kname], max_abs_err=e["max_abs_err"],
+            ms=first(e["kernel_ms"], e["wrapper_ms"]),
+            plain_ms=first(e["plain_ms"], e["plain_wall_ms"]),
+            bound_ms=e["bound_ms"], bound_by=e["bound_by"],
+            library_ms=first(e["library_ms"], e["library_wall_ms"]),
+            times_from=("profiler" if e["kernel_ms"] is not None
+                        else "per-call wall"),
+            wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
+    print(smi, flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": name,
+        "count": torch.cuda.device_count()}}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,116 @@
+"""The port's CUDA kernels against their plain versions on the card, at
+small shapes (the checks ``chip_smoke.py`` makes at the main path's shapes).
+
+Marked ``cuda``; every test skips, in the fixture, where there is no card.
+Run on a card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
+Tolerances: pairwise ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``
+(float32 sums in another order); GF(2) exact.
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch import compute_ph
+from repro_torch.kernels import gf2
+from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
+                                               pairwise_sq_dists_plain)
+
+pytestmark = pytest.mark.cuda
+
+
+@pytest.fixture
+def dev():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _bits(arr, dev):
+    return gf2.to_tensor(arr, dev)
+
+
+@pytest.mark.parametrize("m,n,d", [(256, 256, 4), (77, 45, 9), (130, 64, 64),
+                                   (1, 3, 1), (64, 63, 3)])
+def test_pairwise_kernel_matches_plain(dev, m, n, d):
+    rng = np.random.default_rng(0)
+    x = torch.as_tensor(rng.normal(size=(m, d)), dtype=torch.float32,
+                        device=dev)
+    y = torch.as_tensor(rng.normal(size=(n, d)), dtype=torch.float32,
+                        device=dev)
+    before = pairwise_sq_dists.launches
+    got = pairwise_sq_dists(x, y)
+    torch.cuda.synchronize()
+    assert pairwise_sq_dists.launches == before + 1
+    want = pairwise_sq_dists_plain(x, y)
+    scale = max(1.0, float((x * x).sum(1).max()))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * scale)
+
+
+def test_pairwise_kernel_rejects_wide_points(dev):
+    x = torch.zeros((4, 65), device=dev)
+    with pytest.raises(ValueError):
+        pairwise_sq_dists(x, x)
+
+
+@pytest.mark.parametrize("c,w", [(128, 128), (37, 130), (8, 1), (64, 2048)])
+def test_find_low_kernel_matches_plain(dev, c, w):
+    rng = np.random.default_rng(1)
+    cols = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    cols *= rng.integers(0, 2, size=(c, w), dtype=np.uint32)
+    cols[::5] = 0
+    cols[1::3, : w // 2] = 0
+    t = _bits(cols, dev)
+    got = gf2.gf2_find_low(t)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), gf2.gf2_find_low_plain(t.cpu()))
+
+
+@pytest.mark.parametrize("c,w", [(128, 128), (130, 3), (5, 7)])
+def test_parallel_xor_kernel_matches_plain(dev, c, w):
+    rng = np.random.default_rng(2)
+    a = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    b = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    got = gf2.to_numpy(gf2.gf2_parallel_xor(_bits(a, dev), _bits(b, dev)))
+    np.testing.assert_array_equal(got, a ^ b)
+    # an unaligned view takes the scalar path
+    ta, tb = _bits(a, dev).reshape(-1)[1:], _bits(b, dev).reshape(-1)[1:]
+    got = gf2.gf2_parallel_xor(ta[None], tb[None])
+    np.testing.assert_array_equal(gf2.to_numpy(got)[0],
+                                  (a ^ b).reshape(-1)[1:])
+
+
+@pytest.mark.parametrize("g,c,w", [(1, 32, 4), (2, 16, 40), (1, 128, 256)])
+def test_serial_reduce_kernel_matches_plain(dev, g, c, w):
+    rng = np.random.default_rng(3)
+    blocks = np.zeros((g, c, w), dtype=np.uint32)
+    blocks[:, :, 0] = np.uint32(1) << rng.integers(0, 6, size=(g, c)).astype(
+        np.uint32)                            # planted low collisions
+    blocks[:, :, 1:] = (rng.integers(0, 2**32, size=(g, c, w - 1),
+                                     dtype=np.uint32)
+                        & rng.integers(0, 2**32, size=(g, c, w - 1),
+                                       dtype=np.uint32))
+    t = _bits(blocks, dev)
+    red, lows, reds = gf2.gf2_serial_reduce(t)
+    torch.cuda.synchronize()
+    pred, plows, preds = gf2.gf2_serial_reduce_plain(t.cpu())
+    assert torch.equal(red.cpu(), pred)
+    assert torch.equal(lows.cpu(), plows)
+    assert torch.equal(reds.cpu(), preds)
+    assert int(preds.sum()) > 0
+
+
+def test_compute_ph_card_matches_cpu(dev):
+    pts = np.random.default_rng(4).normal(size=(60, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed",
+              backend="tiled", tile_m=32, tile_n=32, batch_size=32)
+    counts = [f.launches for f in (pairwise_sq_dists, gf2.gf2_find_low,
+                                   gf2.gf2_parallel_xor)]
+    card = compute_ph(device="cuda", **kw)
+    host = compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    after = [f.launches for f in (pairwise_sq_dists, gf2.gf2_find_low,
+                                  gf2.gf2_parallel_xor)]
+    assert all(b > a for a, b in zip(counts, after))
+    assert card.stats["h1_use_kernels"] == 1.0
