@@ -27,6 +27,21 @@ Phases, one JSON line each:
 5. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
+6. ``serve``    — token serving at the full width of qwen3-0.6b
+   (``repro_torch.serve.engine.ServeEngine``, seeded random weights): 16
+   requests of 1024–2048 prompt tokens and 32 new tokens through 8 slots
+   (two prefill epochs of 8 x 2048 tokens, 2 x 32 decode steps).  The flash
+   kernel must launch during the run.  One more epoch (a prefill and 8
+   decode steps) runs under ``torch.profiler`` for the card's busy and idle
+   share.  Then one epoch's prefill runs twice, through the flash kernel as
+   served and through ``_sdpa_masked`` (the same batch with its ``arange``
+   positions passed explicitly, which the model sends there), and the
+   logits must agree within ``3e-2 * max(1, max |logits|)``.
+
+Phase 3 holds the flash kernel against its plain version (``rtol = atol =
+2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
+serving prefill's shape and at gemma3-1b's local layers, with
+``scaled_dot_product_attention`` as the library yardstick.
 
 Then the ``nvidia-smi`` line, the kernels summary and, last, ``{"ok": true,
 "device": ...}``.  Any failed check raises and the script exits non-zero;
@@ -48,7 +63,16 @@ import torch
 
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # float32 / 32-bit ops outside the tensor cores
+BF16_TC_FLOPS_PER_S = 989e12  # bf16 dense tensor cores
 MAIN_PATH_N = 50_000         # torus4 points, benchmarks/table1_datasets.py
+# The flash kernel and its plain version both compute in float32 and round
+# the output to bfloat16 once, so they differ by at most an ulp, under
+# |o| / 128.  1e-2 holds that with room while staying below a typical |o|
+# at the serving shape (unit-normal inputs give outputs of standard
+# deviation about sqrt(e / S), some 0.04 at S = 1024), which the 3e-2 of
+# tests/test_kernels.py does not.
+FLASH_BF16_TOL = 1e-2
+FLASH_F32_TOL = 2e-4
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "src/repro_torch/kernels/csrc"
 
@@ -84,15 +108,25 @@ def wall_ms(fn, iters: int) -> float:
 def profiled(fn):
     """Run ``fn`` under ``torch.profiler`` (host and CUDA activity); return
     its result and the device-side events (kernels, copies, memsets)."""
-    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         out = fn()
         torch.cuda.synchronize()
-    return out, [ev for ev in prof.events()
-                 if ev.device_type == DeviceType.CUDA]
+    return out, device_events(prof.events())
+
+
+def device_events(evs, annotations=()):
+    """The device-side events (kernels, copies, memsets) of a profile,
+    without the device-lane copies of ``record_function`` ranges (named in
+    ``annotations``), which span a whole annotated region and are no device
+    work."""
+    from torch.autograd import DeviceType
+
+    return [ev for ev in evs if ev.device_type == DeviceType.CUDA
+            and not getattr(ev, "is_user_annotation", False)
+            and ev.name not in annotations]
 
 
 def device_ms(fn, iters: int, kernel: Optional[str] = None):
@@ -143,10 +177,10 @@ def timings(kernel: str, fn, plain, library, iters: int,
     return out
 
 
-def bound(n_bytes: float, n_ops: float):
+def bound(n_bytes: float, n_ops: float, ops_per_s: float = FP32_OPS_PER_S):
     """Least time (ms) for the work, and which of bytes/operations sets it."""
     t_bytes = n_bytes / HBM_BYTES_PER_S * 1e3
-    t_ops = n_ops / FP32_OPS_PER_S * 1e3
+    t_ops = n_ops / ops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
@@ -315,21 +349,104 @@ def check_kernels(dev) -> dict:
         fit = dict(us_per_reduction=slope * 1e3, us_at_zero=icpt * 1e3)
     emit("serial_reduce_sweep", shape=[1, 128, int(t.shape[2])],
          points=points, fit=fit)
+    summary["flash_attention"] = check_flash(dev, rng)
     return summary
+
+
+def attended_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, over S queries and S keys."""
+    i = np.arange(s)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+def check_flash(dev, rng) -> dict:
+    """The flash kernel against its plain version at the serving prefill's
+    shape (bf16, and f32) and at gemma3-1b's local layers (d = 256, window
+    1024); SDPA on the same inputs is the library yardstick.  Returns the
+    serving case's entry."""
+    from repro_torch.kernels.flash_attention import (flash_attention,
+                                                     flash_attention_plain)
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    first = None
+    for bh, s, d, dtype, window in ((128, 2048, 128, torch.bfloat16, -1),
+                                    (128, 2048, 128, torch.float32, -1),
+                                    (32, 2048, 256, torch.float32, 1024)):
+        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
+        q, k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)), dtype=dtype,
+                                   device=dev) for _ in range(3))
+        got = flash_attention(q, k, v, causal=True, window=window)
+        want = flash_attention_plain(q, k, v, causal=True, window=window)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(got.float(), want.float(), rtol=tol,
+                                   atol=tol)
+        err = float((got.float() - want.float()).abs().max())
+        typical = float(want.float().abs().median())
+        if window > 0:
+            i = torch.arange(s, device=dev)
+            diff = i[:, None] - i[None, :]
+            lib_kw = dict(attn_mask=(diff >= 0) & (diff < window))
+            lib_name = "scaled_dot_product_attention, boolean attn_mask"
+        else:
+            lib_kw = dict(is_causal=True)
+            lib_name = "scaled_dot_product_attention, is_causal=True"
+
+        def library():
+            return sdpa(q[:, None], k[:, None], v[:, None], **lib_kw)
+
+        pairs = attended_pairs(s, True, window)
+        peak = (BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16
+                else FP32_OPS_PER_S)
+        b_ms, b_by = bound(4 * bh * s * d * q.element_size(),
+                           4 * bh * d * pairs, peak)
+        entry = dict(
+            name="flash_attention", shape=[bh, s, d],
+            dtype=str(dtype).replace("torch.", ""), causal=True,
+            window=window, attended_pairs=pairs, max_abs_err=err,
+            median_abs_out=typical, rtol=tol, atol=tol,
+            **timings("flash_attention_kernel",
+                      lambda: flash_attention(q, k, v, causal=True,
+                                              window=window),
+                      lambda: flash_attention_plain(q, k, v, causal=True,
+                                                    window=window),
+                      library, 10, 3),
+            library=lib_name, bound_ms=b_ms, bound_by=b_by,
+            bound_peak_ops_per_s=peak)
+        emit("kernels", **entry)
+        first = first or entry
+        del q, k, v, got, want
+        torch.cuda.empty_cache()
+    return first
 
 
 # ---------------------------------------------------------------------------
 # phases 4 and 5: the port's main path, and card vs CPU
 # ---------------------------------------------------------------------------
 
+PH_KERNELS = ("pairwise_sq_dists", "gf2_find_low", "gf2_parallel_xor",
+              "gf2_serial_reduce")
+
+
 def kernel_counters():
+    """Every kernel wrapper, by name; each carries its ``launches``."""
     from repro_torch.kernels import gf2
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.pairwise_dist import pairwise_sq_dists
 
     return {"pairwise_sq_dists": pairwise_sq_dists,
             "gf2_find_low": gf2.gf2_find_low,
             "gf2_parallel_xor": gf2.gf2_parallel_xor,
-            "gf2_serial_reduce": gf2.gf2_serial_reduce}
+            "gf2_serial_reduce": gf2.gf2_serial_reduce,
+            "flash_attention": flash_attention}
+
+
+def reset_counters() -> dict:
+    counters = kernel_counters()
+    for fn in counters.values():
+        fn.launches = 0
+    return counters
 
 
 def assert_filtrations_equal(a, b, what: str) -> None:
@@ -353,9 +470,7 @@ def main_path(dev, n: int) -> dict:
     from repro_torch.scale.tiles import harvest_edges
 
     points = clifford_torus(n, seed=0)
-    counters = kernel_counters()
-    for fn in counters.values():
-        fn.launches = 0
+    counters = reset_counters()
 
     def run():
         t0 = time.perf_counter()
@@ -368,10 +483,10 @@ def main_path(dev, n: int) -> dict:
     # The whole call runs under the profiler: its device events give the
     # card's busy time and each kernel's device time on the path.
     (res, wall), evs = profiled(run)
-    launches = {k: fn.launches for k, fn in counters.items()}
+    launches = {k: counters[k].launches for k in PH_KERNELS}
     busy_s = busy_us(evs) / 1e6
     per_kernel = {}
-    for k in counters:
+    for k in PH_KERNELS:
         kev = [ev for ev in evs if f"{k}_kernel" in ev.name]
         per_kernel[k] = dict(
             profiled_launches=len(kev),
@@ -441,6 +556,197 @@ def cross_check(dev) -> None:
              card_use_kernels=card.stats["h1_use_kernels"], identical=True)
 
 
+# ---------------------------------------------------------------------------
+# phase 6: token serving at full width
+# ---------------------------------------------------------------------------
+
+SERVE_ARCH = "qwen3-0.6b"
+SERVE_SLOTS, SERVE_PROMPT, SERVE_S_MAX, SERVE_NEW = 8, 2048, 2112, 32
+SERVE_MIN_PROMPT = 1024
+SERVE_SPANS = ("serve/prefill", "serve/decode")
+# The kernel route and _sdpa_masked differ by design in one rounding: the
+# kernel keeps probabilities in float32, _sdpa rounds them to bf16 before
+# P.V.  Each attention output is held to the bf16 contract of 3e-2 (phase
+# 3); the prefill logits of the two routes, after 28 layers, are held to the
+# same relative contract: atol = 3e-2 * max(1, max |logits|).
+SERVE_CONTRACT = 3e-2
+
+
+def serve_requests(cfg, n: int, seed: int = 0):
+    from repro_torch.serve.engine import Request
+
+    rng = np.random.default_rng(seed)
+    return [Request(uid=uid, prompt=rng.integers(
+        0, cfg.vocab_size,
+        size=int(rng.integers(SERVE_MIN_PROMPT, SERVE_PROMPT + 1)),
+        dtype=np.int32), max_new=SERVE_NEW) for uid in range(n)]
+
+
+def busy_within(intervals, lo: float, hi: float) -> float:
+    """Length of the union of sorted (start, end) intervals inside [lo, hi]."""
+    total, end = 0.0, lo
+    for s, e in intervals:
+        s, e = max(s, end), min(e, hi)
+        if e > s:
+            total += e - s
+            end = e
+    return total
+
+
+def profiled_serving(engine, counters) -> dict:
+    """Drain ``engine`` under ``torch.profiler``: the window's wall (timed
+    inside the profiler), the card's busy and idle share over it and inside
+    the ``serve/prefill`` and ``serve/decode`` spans, the flash kernel's
+    launches and device seconds, and the kernels with the most device
+    time."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.obs.trace import Tracer, tracing
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with tracing(Tracer(bridge=True)):
+            engine.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    evs = prof.events()
+    dev = device_events(evs, SERVE_SPANS)
+    intervals = sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in dev)
+    busy_s = busy_us(dev) / 1e6
+    phases = {}
+    for name in SERVE_SPANS:
+        spans = [ev for ev in evs if ev.name == name
+                 and ev.device_type == DeviceType.CPU]
+        span_us = sum(ev.time_range.elapsed_us() for ev in spans)
+        busy = sum(busy_within(intervals, ev.time_range.start,
+                               ev.time_range.end) for ev in spans)
+        phases[name] = dict(n=len(spans), wall_s=span_us / 1e6,
+                            device_busy_s=busy / 1e6,
+                            device_idle_share=(1.0 - busy / span_us)
+                            if span_us else None)
+    by_name = {}
+    for ev in dev:
+        n, us = by_name.get(ev.name, (0, 0.0))
+        by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
+    flash = by_name.get(next((k for k in by_name
+                              if "flash_attention_kernel" in k), ""),
+                        (0, 0.0))
+    return dict(
+        wall_s=wall, device_busy_s=busy_s,
+        device_idle_share=(1.0 - busy_s / wall) if dev else None,
+        phases=phases, flash_launches=counters["flash_attention"].launches,
+        flash_profiled_launches=flash[0], flash_device_s=flash[1] / 1e6,
+        top_kernels=[dict(name=k[:100], launches=n, device_s=us / 1e6)
+                     for k, (n, us) in top])
+
+
+def serve(dev) -> dict:
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import count_params, init_params
+    from repro_torch.obs.trace import Tracer, tracing
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.steps import make_prefill_step, sample_greedy
+
+    cfg = get_config(SERVE_ARCH)
+    prefill = make_prefill_step(cfg)
+    model = init_params(cfg, seed=0, device=dev)
+    engine = ServeEngine(cfg, params=model, max_batch=SERVE_SLOTS,
+                         prompt_len=SERVE_PROMPT, s_max=SERVE_S_MAX,
+                         device=dev)
+    requests = serve_requests(cfg, 16)
+    for req in requests:
+        engine.submit(req)
+    counters = reset_counters()
+    tr = Tracer()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with tracing(tr):
+        done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = counters["flash_attention"].launches
+    if launches <= 0:
+        raise AssertionError("serving never launched flash_attention")
+    if sorted(done) != list(range(16)) or any(
+            len(t) != SERVE_NEW or not all(0 <= x < cfg.padded_vocab
+                                           for x in t)
+            for t in done.values()):
+        raise AssertionError("serving returned malformed generations")
+    prefill_s = [sp.dur for sp in tr.spans if sp.name == "serve/prefill"]
+    decode_s = [sp.dur for sp in tr.spans if sp.name == "serve/decode"]
+    n_tokens = sum(len(t) for t in done.values())
+    kv_bytes = (2 * cfg.n_layers * SERVE_SLOTS * SERVE_S_MAX
+                * cfg.n_kv_heads * cfg.head_dim_ * cfg.cdtype.itemsize)
+    out = dict(
+        arch=cfg.name, n_params=count_params(model),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        kv_cache_bytes=kv_bytes,
+        peak_device_bytes=torch.cuda.max_memory_allocated(),
+        requests=16, slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+        s_max=SERVE_S_MAX, max_new=SERVE_NEW, wall_s=wall,
+        prefill_s=prefill_s, decode_ms_mean=float(np.mean(decode_s)) * 1e3,
+        decode_ms_median=float(np.median(decode_s)) * 1e3,
+        n_decode_steps=len(decode_s), generated_tokens=n_tokens,
+        tokens_per_s=n_tokens / wall,
+        prompt_tokens=sum(min(len(r.prompt), SERVE_PROMPT)
+                          for r in requests),
+        flash_launches=launches, stats=engine.stats())
+
+    # One more epoch (a prefill and 8 decode steps) under the profiler; the
+    # serving spans show in its trace (record_function), so each phase's
+    # device busy share is read inside its own spans.
+    for req in serve_requests(cfg, SERVE_SLOTS, seed=1):
+        req.max_new = 9
+        engine.submit(req)
+    out["profiled_window"] = profiled_serving(engine, reset_counters())
+    # The first epoch's prefill through the kernel and through _sdpa_masked.
+    toks = np.zeros((SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)
+    for i, req in enumerate(requests[:SERVE_SLOTS]):
+        toks[i, -len(req.prompt):] = req.prompt[-SERVE_PROMPT:]
+    batch = {"tokens": torch.from_numpy(toks).to(dev)}
+    # Explicit positions, though they are arange, take _sdpa_masked.
+    seam = dict(batch, positions=torch.arange(
+        SERVE_PROMPT, device=dev).expand(SERVE_SLOTS, SERVE_PROMPT))
+
+    def timed_prefill(b):
+        prefill(model, b)                         # warm-up
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        logits = prefill(model, b)[0]
+        torch.cuda.synchronize()
+        return logits, time.perf_counter() - t0
+
+    with torch.inference_mode():
+        before = counters["flash_attention"].launches
+        flash_logits, flash_s = timed_prefill(batch)
+        mid = counters["flash_attention"].launches
+        sdpa_logits, sdpa_s = timed_prefill(seam)
+        if mid == before or counters["flash_attention"].launches != mid:
+            raise AssertionError("the seam's prefill routes are not the "
+                                 "flash kernel and _sdpa_masked")
+        diff = float((flash_logits - sdpa_logits).abs().max())
+        scale = max(1.0, float(sdpa_logits.abs().max()))
+        agree = float((sample_greedy(flash_logits) ==
+                       sample_greedy(sdpa_logits)).float().mean())
+    del flash_logits, sdpa_logits
+    torch.cuda.empty_cache()
+    tol = SERVE_CONTRACT * scale
+    out.update(seam=dict(prefill_s_flash=flash_s, prefill_s_sdpa=sdpa_s,
+                         logits_max_abs_diff=diff, logits_max_abs=scale,
+                         atol=tol, first_token_agreement=agree))
+    emit("serve", **out)
+    if not diff <= tol:
+        raise AssertionError(f"prefill logits: kernel route vs _sdpa_masked "
+                             f"differ by {diff} > {tol}")
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
@@ -466,6 +772,9 @@ def main() -> int:
     summary = check_kernels(dev)
     path = main_path(dev, MAIN_PATH_N)
     cross_check(dev)
+    served = serve(dev)
+    launches = dict(path["launches"],
+                    flash_attention=served["flash_launches"])
 
     replaces = {
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
@@ -473,6 +782,8 @@ def main() -> int:
         "gf2_find_low": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:230"),
         "gf2_parallel_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
         "gf2_serial_reduce": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:290"),
+        "flash_attention": ("csrc/flash_attention.cu",
+                            "src/repro/kernels/flash_attention.py:72"),
     }
     def first(*xs):
         return next((x for x in xs if x is not None), None)
@@ -485,7 +796,7 @@ def main() -> int:
         kernels.append(dict(
             name=kname, route="cuda",
             source="src/repro_torch/kernels/" + src, replaces=ref,
-            launches=path["launches"][kname], max_abs_err=e["max_abs_err"],
+            launches=launches[kname], max_abs_err=e["max_abs_err"],
             ms=first(e["kernel_ms"], e["wrapper_ms"]),
             plain_ms=first(e["plain_ms"], e["plain_wall_ms"]),
             bound_ms=e["bound_ms"], bound_by=e["bound_by"],

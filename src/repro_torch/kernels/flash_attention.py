@@ -1,0 +1,108 @@
+"""Blocked (flash) attention: CUDA kernel + plain version.
+
+Port of ``src/repro/kernels/flash_attention.py``.  The Pallas TPU kernel
+``_flash_kernel`` becomes ``csrc/flash_attention.cu`` (hand-written for
+sm_90a: one block per (bh, 64-query tile), K/V tiles of 64 rows staged in
+shared memory as float32, the online-softmax carries in registers, float32
+FMAs on the CUDA cores, causal tiles above the diagonal skipped, ragged S
+masked in the kernel with no padding copy).  :func:`flash_attention_plain`
+is the same function in plain PyTorch, as ``src/repro/kernels/ref.py``
+``attention_ref`` computes it: float32 scores, masked to -1e30, softmax,
+output in q's dtype.
+
+:func:`flash_attention` runs the kernel for CUDA tensors and the plain
+version for CPU tensors, and nothing else: a CUDA tensor it cannot take
+raises.  ``flash_attention.launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from . import _build
+
+NEG_INF = -1e30
+MAX_D = 256
+
+_SIGNATURES = {
+    "flash_attention": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p),
+}
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                          causal: bool = True,
+                          window: int = -1) -> torch.Tensor:
+    """Naive softmax attention over (BH, S, d): float32 scores scaled by
+    ``1/sqrt(d)``, keys masked to -1e30 (``causal``: j > i; ``window > 0``:
+    i - j >= window), output in q's dtype.
+
+    On a card, call it with ``torch.backends.cuda.matmul.allow_tf32 =
+    False`` (PyTorch's default) to keep its products in float32.
+    """
+    d = q.shape[-1]
+    s = torch.einsum("bqd,bkd->bqk", q.float(), k.float()) / math.sqrt(d)
+    sq, sk = q.shape[1], k.shape[1]
+    q_idx = torch.arange(sq, device=q.device)[:, None]
+    k_idx = torch.arange(sk, device=q.device)[None, :]
+    mask = torch.ones((sq, sk), dtype=torch.bool, device=q.device)
+    if causal:
+        mask &= k_idx <= q_idx
+    if window > 0:
+        mask &= (q_idx - k_idx) < window
+    s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bqk,bkd->bqd", p, v.float()).to(q.dtype)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                    causal: bool = True, window: int = -1) -> torch.Tensor:
+    """Attention over q, k, v (BH, S, d) with GQA pre-expanded.
+
+    ``window > 0`` masks keys at distance ``window`` or more; ``window <=
+    0`` is global (the TPU kernel's convention).  CUDA tensors go through
+    the kernel: float32 or bfloat16, contiguous, one shape, ``d <= 256``
+    and a multiple of 8; anything else raises.  CPU tensors go through
+    :func:`flash_attention_plain`.
+    """
+    if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
+        raise ValueError(f"expected q, k, v of one (BH, S, d) shape, got "
+                         f"{tuple(q.shape)}, {tuple(k.shape)}, "
+                         f"{tuple(v.shape)}")
+    if not (q.device == k.device == v.device):
+        raise ValueError(f"q on {q.device}, k on {k.device}, v on {v.device}")
+    if not (q.dtype == k.dtype == v.dtype):
+        raise TypeError(f"q, k, v dtypes differ: {q.dtype}, {k.dtype}, "
+                        f"{v.dtype}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"unsupported device {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"expected float32 or bfloat16, got {q.dtype}")
+    if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
+        raise ValueError("q, k and v must be contiguous")
+    bh, s, d = q.shape
+    if d > MAX_D or d % 8 != 0:
+        raise ValueError(f"d={d}: the kernel takes d <= {MAX_D}, a multiple "
+                         "of 8")
+    if bh > 65535:
+        raise ValueError(f"BH={bh} exceeds the kernel grid's limit of 65535")
+    out = torch.empty_like(q)
+    if bh and s:
+        lib = _build.library("flash_attention", _SIGNATURES)
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = lib.flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
+            d, int(q.dtype == torch.bfloat16), int(bool(causal)),
+            int(window), 1.0 / math.sqrt(d), stream)
+        flash_attention.launches += 1
+        _build.check_launch(err, "flash_attention")
+    return out
+
+
+flash_attention.launches = 0

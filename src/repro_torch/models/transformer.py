@@ -1,0 +1,234 @@
+"""Model assembly: the layer plan, the ``Transformer`` module, forward and
+decode.
+
+Port of ``src/repro/models/transformer.py`` for the dense decoder.  Where
+the reference scans one stacked parameter group over its repeats, the port
+holds an ``nn.ModuleList`` of blocks, each with its own window int (the
+reference's per-repeat window scalar).  Entry points:
+
+* :func:`init_params` — seeded init on the card (``device=None``) or the
+  CPU, returning the module;
+* :func:`params_from_arrays` — the module from the reference's parameter
+  tree as numpy arrays (``jax.tree.map(np.asarray, params)``): a copy, no
+  transpose, since both keep ``(in, out)`` weights;
+* :func:`forward` — tokens -> float32 logits (+ per-layer ``(K, V)`` with
+  ``return_caches``);
+* :func:`decode_step` — one token against the fixed-capacity cache.
+
+MoE, MLA, the recurrent blocks, enc-dec, M-RoPE and embedding inputs raise
+``NotImplementedError`` (ROADMAP.md §1, item 15), as does training.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, List, Mapping, Optional, Tuple
+
+import numpy as np
+import torch
+from torch import nn
+
+from repro_torch.device import DeviceLike, resolve_device
+
+from .attention import Attention, attn_params
+from .config import ModelConfig
+from .layers import MLP, RMSNorm, _param, dense_init, embed, unembed
+
+_NOT_PORTED = "not ported yet (ROADMAP.md §1, item 15, LM substrate)"
+
+
+@dataclasses.dataclass(frozen=True)
+class GroupSpec:
+    name: str
+    parts: Tuple[Tuple[str, int], ...]      # ((kind, count), ...)
+    repeats: int
+    windows: Optional[np.ndarray] = None    # (repeats, n_instances) int32
+    d_ff_override: int = 0
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` for what the port's model lacks."""
+    missing = [what for what, has in (
+        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
+        ("xlstm", cfg.xlstm is not None), ("rglru", cfg.rglru is not None),
+        ("enc_dec", cfg.enc_dec), ('rope_kind="mrope"',
+                                   cfg.rope_kind == "mrope"),
+        ('input_kind="embeddings"', cfg.input_kind != "tokens")) if has]
+    if missing:
+        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
+                                  f"{_NOT_PORTED}")
+
+
+def build_plan(cfg: ModelConfig) -> List[GroupSpec]:
+    """The dense branch of the reference's plan: one group of
+    ``attn_mlp`` blocks with per-layer windows."""
+    check_supported(cfg)
+    win = np.array([[cfg.window_for_layer(i)] for i in range(cfg.n_layers)],
+                   dtype=np.int32)
+    return [GroupSpec("blocks", (("attn_mlp", 1),), cfg.n_layers,
+                      windows=win)]
+
+
+class Block(nn.Module):
+    """Pre-norm attention + MLP, with this layer's window."""
+
+    def __init__(self, cfg: ModelConfig, p: Mapping[str, Any], window: int):
+        super().__init__()
+        self.window = int(window)
+        self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
+        self.attn = Attention(cfg, p["attn"])
+        self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
+        self.ffn = MLP(p["ffn"], cfg.cdtype)
+        self.cdtype = cfg.cdtype
+
+    def forward(self, x, positions, cache=None, cache_pos=None):
+        h = self.ln1(x.to(self.cdtype))
+        a_out, new_cache = self.attn(h, positions, self.window, cache=cache,
+                                     cache_pos=cache_pos)
+        x = x + a_out.to(x.dtype)
+        h = self.ln2(x.to(self.cdtype))
+        return x + self.ffn(h).to(x.dtype), new_cache
+
+
+class Transformer(nn.Module):
+    def __init__(self, cfg: ModelConfig, p: Mapping[str, Any]):
+        super().__init__()
+        plan = build_plan(cfg)
+        self.cfg = cfg
+        self.embed = _param(p["embed"])
+        self.final_norm = RMSNorm(p["final_norm"], cfg.norm_eps)
+        self.lm_head = _param(p["lm_head"]) if "lm_head" in p else None
+        windows = plan[0].windows[:, 0]
+        self.blocks = nn.ModuleList(
+            Block(cfg, bp, w) for bp, w in zip(p["blocks"], windows))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+
+def _block_init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+    kw = dict(dtype=cfg.pdtype, device=device)
+    ffn = {"w_up": dense_init(gen, (cfg.d_model, cfg.d_ff), **kw),
+           "w_down": dense_init(gen, (cfg.d_ff, cfg.d_model), **kw)}
+    if cfg.act in ("silu", "swiglu"):
+        ffn["w_gate"] = dense_init(gen, (cfg.d_model, cfg.d_ff), **kw)
+    return {"ln1": torch.ones(cfg.d_model, **kw),
+            "attn": attn_params(cfg, gen, device),
+            "ln2": torch.ones(cfg.d_model, **kw), "ffn": ffn}
+
+
+def init_params(cfg: ModelConfig, seed: int = 0,
+                device: DeviceLike = None) -> Transformer:
+    """Seeded random init (an explicit ``torch.Generator`` on the target
+    device; its numbers are not ``jax.random``'s)."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(seed)
+    kw = dict(dtype=cfg.pdtype, device=dev)
+    p: Dict[str, Any] = {
+        "embed": dense_init(gen, (cfg.padded_vocab, cfg.d_model), fan_in=1,
+                            **kw),
+        "final_norm": torch.ones(cfg.d_model, **kw),
+    }
+    if not cfg.tie_embeddings:
+        p["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model), **kw)
+    p["blocks"] = [_block_init(cfg, gen, dev) for _ in range(cfg.n_layers)]
+    return Transformer(cfg, p)
+
+
+def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
+                       device: DeviceLike = None) -> Transformer:
+    """The module from the reference's params as numpy arrays: ``embed``,
+    ``final_norm``, optional ``lm_head`` and ``groups[0]["attn_mlp_0"]``
+    stacked on a leading ``repeats`` axis."""
+    dev = resolve_device(device)
+
+    def t(a):
+        return torch.tensor(np.asarray(a), dtype=cfg.pdtype, device=dev)
+
+    stack = tree["groups"][0]["attn_mlp_0"]
+    blocks = []
+    for i in range(cfg.n_layers):
+        attn = {k: t(w[i]) for k, w in stack["attn"].items()
+                if k not in ("q_norm", "k_norm")}
+        for k in ("q_norm", "k_norm"):
+            if k in stack["attn"]:
+                attn[k] = t(stack["attn"][k]["scale"][i])
+        blocks.append({"ln1": t(stack["ln1"]["scale"][i]), "attn": attn,
+                       "ln2": t(stack["ln2"]["scale"][i]),
+                       "ffn": {k: t(w[i]) for k, w in stack["ffn"].items()}})
+    p: Dict[str, Any] = {"embed": t(tree["embed"]["table"]),
+                         "final_norm": t(tree["final_norm"]["scale"]),
+                         "blocks": blocks}
+    if "lm_head" in tree:
+        p["lm_head"] = t(tree["lm_head"]["table"])
+    return Transformer(cfg, p)
+
+
+def count_params(model: Transformer) -> int:
+    return int(sum(p.numel() for p in model.parameters()))
+
+
+def init_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device: DeviceLike = None) -> List[Tuple[torch.Tensor,
+                                                        torch.Tensor]]:
+    """Per-layer zero (K, V) of (batch, s_max, KV, head_dim) in the compute
+    dtype."""
+    check_supported(cfg)
+    dev = resolve_device(device)
+    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+    return [(torch.zeros(shape, dtype=cfg.cdtype, device=dev),
+             torch.zeros(shape, dtype=cfg.cdtype, device=dev))
+            for _ in range(cfg.n_layers)]
+
+
+def make_cache(cfg: ModelConfig, batch: int, s_max: int,
+               device: DeviceLike = None) -> Dict[str, Any]:
+    return {"layers": init_cache(cfg, batch, s_max, device), "enc_out": None}
+
+
+def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
+    cfg = model.cfg
+    x = model.final_norm(x)
+    table = model.lm_head if model.lm_head is not None else model.embed
+    return unembed(table, x, cfg.cdtype).float()
+
+
+def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
+            return_caches: bool = False):
+    """Prefill forward.  batch: ``tokens`` (B, S), optional ``positions``
+    (B, S); without them the positions are ``arange(S)`` and prefill
+    attention takes the flash-kernel route (``models/attention.py``).
+    Returns ``(logits, aux)``, or ``(logits, aux, {"layers": [(K, V), ...],
+    "enc_out": None})`` with ``return_caches``.  ``aux`` is the MoE
+    auxiliary loss of the reference, 0 for dense blocks."""
+    cfg = model.cfg
+    x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
+    positions = batch.get("positions")
+    caches = []
+    for blk in model.blocks:
+        x, kv = blk(x, positions)
+        caches.append(kv)
+    logits = _head(model, x)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if return_caches:
+        return logits, aux, {"layers": caches, "enc_out": None}
+    return logits, aux
+
+
+def decode_step(model: Transformer, cache: Dict[str, Any],
+                batch: Mapping[str, Any]):
+    """One-token serving step.  batch: ``tokens`` (B, 1), ``cache_pos``
+    int.  The cache's K/V are updated in place.  Returns (logits, cache)."""
+    cfg = model.cfg
+    x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
+    pos = int(batch["cache_pos"])
+    b = x.shape[0]
+    positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    new_layers = []
+    for blk, kv in zip(model.blocks, cache["layers"]):
+        x, kv = blk(x, positions, cache=kv, cache_pos=pos)
+        new_layers.append(kv)
+    return _head(model, x), {"layers": new_layers,
+                             "enc_out": cache.get("enc_out")}

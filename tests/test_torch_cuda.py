@@ -4,16 +4,27 @@ small shapes (the checks ``chip_smoke.py`` makes at the main path's shapes).
 Marked ``cuda``; every test skips, in the fixture, where there is no card.
 Run on a card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: pairwise ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``
-(float32 sums in another order); GF(2) exact.
+(float32 sums in another order); GF(2) exact; flash attention ``2e-4`` in
+float32 and ``1e-2`` in bfloat16, and a reduced prefill on the card
+against the CPU ``2e-4`` (float32 compute, TF32 off).  In bfloat16 both
+sides compute in float32 and round the output once, so they differ by at
+most an ulp, under ``|o| / 128``: ``1e-2`` holds that with room and stays
+below a typical ``|o|`` (unit-normal inputs give outputs of standard
+deviation about ``sqrt(e / S)``), which the ``3e-2`` of
+``tests/test_kernels.py`` does not at long S.
 """
 import numpy as np
 import pytest
 import torch
 
 from repro_torch import compute_ph
+from repro_torch.configs import get_config
 from repro_torch.kernels import gf2
+from repro_torch.kernels.flash_attention import (flash_attention,
+                                                 flash_attention_plain)
 from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
                                                pairwise_sq_dists_plain)
+from repro_torch.models.transformer import forward, init_params
 
 pytestmark = pytest.mark.cuda
 
@@ -114,3 +125,58 @@ def test_compute_ph_card_matches_cpu(dev):
                                   gf2.gf2_parallel_xor)]
     assert all(b > a for a, b in zip(counts, after))
     assert card.stats["h1_use_kernels"] == 1.0
+
+
+# ---------------------------------------------------------------------------
+# flash attention (2e-4 in float32, 1e-2 in bfloat16: module docstring)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-4),
+                                       (torch.bfloat16, 1e-2)])
+@pytest.mark.parametrize("bh,s,d,causal,window", [
+    (2, 128, 32, True, -1), (2, 128, 128, False, -1), (1, 256, 256, True, 64),
+    (3, 77, 128, True, -1), (1, 130, 32, False, 24), (2, 200, 256, True, 1),
+    (1, 1, 64, True, -1), (1, 64, 40, True, 16)])
+def test_flash_kernel_matches_plain(dev, dtype, tol, bh, s, d, causal,
+                                    window):
+    rng = np.random.default_rng(5)
+    q, k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)), dtype=dtype,
+                               device=dev) for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+def test_flash_kernel_rejects_what_it_cannot_take(dev):
+    q = torch.zeros((1, 8, 12), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                 # d not a multiple of 8
+    q = torch.zeros((1, 8, 264), device=dev)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                 # d > 256
+    q = torch.zeros((1, 16, 8), device=dev).transpose(1, 2)
+    with pytest.raises(ValueError):
+        flash_attention(q, q, q)                 # not contiguous
+    q = torch.zeros((1, 8, 16), device=dev, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash_attention(q, q, q)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
+def test_reduced_prefill_card_matches_cpu(dev, arch):
+    cfg = get_config(arch, reduced=True)
+    host = init_params(cfg, seed=0, device="cpu")
+    card = init_params(cfg, seed=0, device="cpu").to(dev)
+    toks = torch.as_tensor(np.random.default_rng(6).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got, _ = forward(card, {"tokens": toks.to(dev)})
+        want, _ = forward(host, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
+    torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)

@@ -46,7 +46,10 @@ def test_port_imports_with_jax_blocked():
             "sys.modules['repro'] = None; "
             "import repro_torch, repro_torch.core.packed_reduce, "
             "repro_torch.scale.tiles, repro_torch.kernels.gf2, "
-            "repro_torch.kernels.pairwise_dist, repro_torch.data.pointclouds; "
+            "repro_torch.kernels.pairwise_dist, repro_torch.data.pointclouds, "
+            "repro_torch.kernels.flash_attention, repro_torch.kernels.ops, "
+            "repro_torch.configs, repro_torch.models.transformer, "
+            "repro_torch.serve.engine, repro_torch.launch.serve; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -14,9 +14,11 @@ import torch
 import jax.numpy as jnp
 
 from repro.kernels import gf2 as jgf2
+from repro.kernels import ops as jops
 from repro.kernels import ref as kref
 from repro.kernels.pairwise_dist import pairwise_sq_dists as jax_pairwise
 from repro_torch.kernels import gf2 as tgf2
+from repro_torch.kernels import ops as tops
 from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
                                                pairwise_sq_dists_plain)
 
@@ -169,6 +171,63 @@ def test_tensor_handoff_roundtrip():
     t = tgf2.to_tensor(block, torch.device("cpu"))
     assert t.dtype == torch.int32
     np.testing.assert_array_equal(tgf2.to_numpy(t), block)
+
+
+# ---------------------------------------------------------------------------
+# kernels.ops: the dispatch wrappers against repro.kernels.ops
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("m,n,d", [(40, None, 3), (33, 17, 5), (64, None, 9)])
+def test_ops_pairwise_distances_matches_jax(m, n, d):
+    rng = np.random.default_rng(10)
+    x = rng.normal(size=(m, d)).astype(np.float32)
+    y = None if n is None else rng.normal(size=(n, d)).astype(np.float32)
+    want = np.asarray(jops.pairwise_distances(x, y, use_pallas=False))
+    got = tops.pairwise_distances(
+        torch.from_numpy(x), None if y is None else torch.from_numpy(y))
+    assert got.shape == want.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-4)
+
+
+def test_ops_pairwise_distances_zeroes_the_diagonal():
+    """Far from the origin, |x|^2 + |x|^2 - 2 x.x leaves float32 residue
+    on the diagonal; both packages zero it, and only for self-distances."""
+    rng = np.random.default_rng(11)
+    x = (rng.normal(size=(50, 16)) + 30.0).astype(np.float32)
+    tx = torch.from_numpy(x)
+    residue = torch.sqrt(pairwise_sq_dists(tx, tx)).diagonal()
+    assert float(residue.max()) > 0          # the residue is there to kill
+    got = tops.pairwise_distances(tx).numpy()
+    want = np.asarray(jops.pairwise_distances(x, use_pallas=False))
+    np.testing.assert_array_equal(np.diag(got), 0.0)
+    np.testing.assert_array_equal(np.diag(want), 0.0)
+    cross = tops.pairwise_distances(tx, tx).diagonal()
+    np.testing.assert_array_equal(cross.numpy(), residue.numpy())
+
+
+@pytest.mark.parametrize("c,w", [(16, 4), (37, 9)])
+def test_ops_find_low_matches_jax(c, w):
+    rng = np.random.default_rng(12)
+    cols = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    cols[::3, : w // 2] = 0
+    cols[::4] = 0
+    np.testing.assert_array_equal(
+        tops.find_low(_bits(cols)).numpy(),
+        np.asarray(jops.find_low(cols, use_pallas=False)))
+
+
+@pytest.mark.parametrize("g,c,w", [(1, 24, 3), (3, 8, 5)])
+def test_ops_serial_reduce_bits_matches_jax(g, c, w):
+    rng = np.random.default_rng(13)
+    blocks = (rng.integers(0, 2**32, size=(g, c, w), dtype=np.uint32)
+              & rng.integers(0, 2**32, size=(g, c, w), dtype=np.uint32)
+              & rng.integers(0, 2**32, size=(g, c, w), dtype=np.uint32))
+    red, lows, reds = tops.serial_reduce_bits(_bits(blocks))
+    wb, wl, wr = jops.serial_reduce_bits(blocks, use_pallas=False)
+    np.testing.assert_array_equal(_u32(red), np.asarray(wb))
+    np.testing.assert_array_equal(lows.numpy(), np.asarray(wl))
+    np.testing.assert_array_equal(reds.numpy(), np.asarray(wr))
+    assert int(reds.sum()) > 0
 
 
 # ---------------------------------------------------------------------------
