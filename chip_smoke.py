@@ -33,15 +33,23 @@ Phases, one JSON line each:
    (two prefill epochs of 8 x 2048 tokens, 2 x 32 decode steps).  The flash
    kernel must launch during the run.  One more epoch (a prefill and 8
    decode steps) runs under ``torch.profiler`` for the card's busy and idle
-   share.  Then one epoch's prefill runs twice, through the flash kernel as
-   served and through ``_sdpa_masked`` (the same batch with its ``arange``
-   positions passed explicitly, which the model sends there), and the
-   logits must agree within ``3e-2 * max(1, max |logits|)``.
+   share; each of its flash launches must be the tensor-core kernel, one a
+   layer (28 a prefill).  Then one epoch's prefill runs twice, through the
+   flash kernel as served and through ``_sdpa_masked`` (the same batch with
+   its ``arange`` positions passed explicitly, which the model sends
+   there), and the logits must agree within ``3e-2 * max(1, max
+   |logits|)``.
 
 Phase 3 holds the flash kernel against its plain version (``rtol = atol =
 2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
-serving prefill's shape and at gemma3-1b's local layers, with
-``scaled_dot_product_attention`` as the library yardstick.
+serving prefill's shape and at gemma3-1b's local layers (bfloat16: the
+tensor-core kernel of ``flash_attention_sm90.cu``; float32: the SIMT kernel
+of ``flash_attention.cu``), with ``scaled_dot_product_attention`` as the
+library yardstick, then in bfloat16 on ragged, non-causal, window-1,
+narrow-head and single-head cases for correctness alone.  Each timed case
+reports its TFLOP/s and its share of the bound.  The serving prefill's
+head expansion and layout copies around the kernel (``_flash_prefill``)
+are timed beside it.
 
 Then the ``nvidia-smi`` line, the kernels summary and, last, ``{"ok": true,
 "device": ...}``.  Any failed check raises and the script exits non-zero;
@@ -65,12 +73,13 @@ HBM_BYTES_PER_S = 3.35e12     # H100 SXM, NVIDIA data sheet
 FP32_OPS_PER_S = 67e12        # float32 / 32-bit ops outside the tensor cores
 BF16_TC_FLOPS_PER_S = 989e12  # bf16 dense tensor cores
 MAIN_PATH_N = 50_000         # torus4 points, benchmarks/table1_datasets.py
-# The flash kernel and its plain version both compute in float32 and round
-# the output to bfloat16 once, so they differ by at most an ulp, under
-# |o| / 128.  1e-2 holds that with room while staying below a typical |o|
-# at the serving shape (unit-normal inputs give outputs of standard
-# deviation about sqrt(e / S), some 0.04 at S = 1024), which the 3e-2 of
-# tests/test_kernels.py does not.
+# The bfloat16 flash kernel rounds the probabilities to bfloat16 for P.V,
+# where its plain version keeps them in float32; both round the output
+# once.  tests/test_torch_flash_numerics.py emulates that arithmetic on the
+# CPU and finds it inside 1e-2, which stays below a typical |o| at the
+# serving shape (unit-normal inputs give outputs of standard deviation about
+# sqrt(e / S), some 0.04 at S = 1024), as the 3e-2 of tests/test_kernels.py
+# does not.
 FLASH_BF16_TOL = 1e-2
 FLASH_F32_TOL = 2e-4
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -361,29 +370,45 @@ def attended_pairs(s: int, causal: bool, window: int) -> int:
     return int((hi - lo + 1).sum())
 
 
+FLASH_SM90 = "flash_attention_kernel_sm90"   # the bf16 kernel's symbol
+# Correctness-only bfloat16 cases: (BH, S, d, causal, window).
+FLASH_BF16_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
+                    (8, 1000, 128, True, 1), (16, 1000, 64, True, -1),
+                    (16, 1000, 40, True, 256), (1, 2048, 128, True, -1))
+
+
 def check_flash(dev, rng) -> dict:
     """The flash kernel against its plain version at the serving prefill's
     shape (bf16, and f32) and at gemma3-1b's local layers (d = 256, window
-    1024); SDPA on the same inputs is the library yardstick.  Returns the
-    serving case's entry."""
+    1024, bf16 and f32), timed, with SDPA on the same inputs as the library
+    yardstick; then bf16 cases held for correctness alone; then the copies
+    of ``_flash_prefill`` around the kernel at the serving shape.  Returns
+    the serving case's entry."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
-    first = None
-    for bh, s, d, dtype, window in ((128, 2048, 128, torch.bfloat16, -1),
-                                    (128, 2048, 128, torch.float32, -1),
-                                    (32, 2048, 256, torch.float32, 1024)):
-        tol = FLASH_BF16_TOL if dtype == torch.bfloat16 else FLASH_F32_TOL
-        q, k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)), dtype=dtype,
-                                   device=dev) for _ in range(3))
-        got = flash_attention(q, k, v, causal=True, window=window)
-        want = flash_attention_plain(q, k, v, causal=True, window=window)
+    def inputs(bh, s, d, dtype):
+        return [torch.as_tensor(rng.normal(size=(bh, s, d)), dtype=dtype,
+                                device=dev) for _ in range(3)]
+
+    def held(q, k, v, causal, window):
+        tol = FLASH_BF16_TOL if q.dtype == torch.bfloat16 else FLASH_F32_TOL
+        got = flash_attention(q, k, v, causal=causal, window=window)
+        want = flash_attention_plain(q, k, v, causal=causal, window=window)
         torch.cuda.synchronize()
         torch.testing.assert_close(got.float(), want.float(), rtol=tol,
                                    atol=tol)
-        err = float((got.float() - want.float()).abs().max())
-        typical = float(want.float().abs().median())
+        return (tol, float((got.float() - want.float()).abs().max()),
+                float(want.float().abs().median()))
+
+    first = None
+    for bh, s, d, dtype, window in ((128, 2048, 128, torch.bfloat16, -1),
+                                    (128, 2048, 128, torch.float32, -1),
+                                    (32, 2048, 256, torch.bfloat16, 1024),
+                                    (32, 2048, 256, torch.float32, 1024)):
+        q, k, v = inputs(bh, s, d, dtype)
+        tol, err, typical = held(q, k, v, True, window)
         if window > 0:
             i = torch.arange(s, device=dev)
             diff = i[:, None] - i[None, :]
@@ -397,28 +422,77 @@ def check_flash(dev, rng) -> dict:
             return sdpa(q[:, None], k[:, None], v[:, None], **lib_kw)
 
         pairs = attended_pairs(s, True, window)
+        flops = 4 * bh * d * pairs
         peak = (BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16
                 else FP32_OPS_PER_S)
-        b_ms, b_by = bound(4 * bh * s * d * q.element_size(),
-                           4 * bh * d * pairs, peak)
+        b_ms, b_by = bound(4 * bh * s * d * q.element_size(), flops, peak)
+        t = timings("flash_attention_kernel",
+                    lambda: flash_attention(q, k, v, causal=True,
+                                            window=window),
+                    lambda: flash_attention_plain(q, k, v, causal=True,
+                                                  window=window),
+                    library, 10, 3)
+        kernel_ms = t["kernel_ms"] or t["wrapper_ms"]
         entry = dict(
             name="flash_attention", shape=[bh, s, d],
             dtype=str(dtype).replace("torch.", ""), causal=True,
-            window=window, attended_pairs=pairs, max_abs_err=err,
-            median_abs_out=typical, rtol=tol, atol=tol,
-            **timings("flash_attention_kernel",
-                      lambda: flash_attention(q, k, v, causal=True,
-                                              window=window),
-                      lambda: flash_attention_plain(q, k, v, causal=True,
-                                                    window=window),
-                      library, 10, 3),
-            library=lib_name, bound_ms=b_ms, bound_by=b_by,
-            bound_peak_ops_per_s=peak)
+            window=window, attended_pairs=pairs, flops=flops,
+            max_abs_err=err, median_abs_out=typical, rtol=tol, atol=tol,
+            **t, library=lib_name, bound_ms=b_ms, bound_by=b_by,
+            bound_peak_ops_per_s=peak, tflops=flops / kernel_ms / 1e9,
+            bound_share=b_ms / kernel_ms)
         emit("kernels", **entry)
         first = first or entry
-        del q, k, v, got, want
+        del q, k, v
         torch.cuda.empty_cache()
+
+    for bh, s, d, causal, window in FLASH_BF16_EDGES:
+        q, k, v = inputs(bh, s, d, torch.bfloat16)
+        tol, err, typical = held(q, k, v, causal, window)
+        emit("kernels_correctness", name="flash_attention",
+             shape=[bh, s, d], dtype="bfloat16", causal=causal,
+             window=window, max_abs_err=err, median_abs_out=typical,
+             rtol=tol, atol=tol)
+    emit("kernels_prefill_copies", **prefill_copies(dev, rng))
     return first
+
+
+def prefill_copies(dev, rng) -> dict:
+    """Device time of one ``_flash_prefill`` at the serving shape (qwen3-
+    0.6b: 8 x 2048 tokens, 16 query heads and 8 KV heads of 128, bf16),
+    split into the flash kernel and everything else: the KV heads'
+    ``repeat_interleave`` and the (B, S, H, D) -> (B·H, S, D) layout copies
+    of q, k and v."""
+    from repro_torch.models.attention import _flash_prefill
+
+    b, s, h, kvh, hd = 8, 2048, 16, 8, 128
+    q = torch.as_tensor(rng.normal(size=(b, s, h, hd)), dtype=torch.bfloat16,
+                        device=dev)
+    k, v = (torch.as_tensor(rng.normal(size=(b, s, kvh, hd)),
+                            dtype=torch.bfloat16, device=dev)
+            for _ in range(2))
+    iters = 10
+    _flash_prefill(q, k, v, -1, True)
+    torch.cuda.synchronize()
+    _, evs = profiled(lambda: [_flash_prefill(q, k, v, -1, True)
+                               for _ in range(iters)])
+    kern = [ev for ev in evs if FLASH_SM90 in ev.name]
+    rest = [ev for ev in evs if FLASH_SM90 not in ev.name]
+    if len(kern) != iters:
+        raise AssertionError(f"_flash_prefill profiled {len(kern)} tensor-"
+                             f"core flash launches in {iters} calls")
+    by_name = by_kernel(rest)
+    return dict(
+        shape=dict(batch=b, seq=s, heads=h, kv_heads=kvh, head_dim=hd),
+        kernel_ms=sum(ev.time_range.elapsed_us() for ev in kern) / iters
+        / 1e3,
+        copies_ms=sum(ev.time_range.elapsed_us() for ev in rest) / iters
+        / 1e3,
+        copies_per_call=len(rest) / iters,
+        copies=[dict(name=k[:100], per_call=n / iters,
+                     ms=us / iters / 1e3)
+                for k, (n, us) in sorted(by_name.items(),
+                                         key=lambda kv: -kv[1][1])])
 
 
 # ---------------------------------------------------------------------------
@@ -564,11 +638,13 @@ SERVE_ARCH = "qwen3-0.6b"
 SERVE_SLOTS, SERVE_PROMPT, SERVE_S_MAX, SERVE_NEW = 8, 2048, 2112, 32
 SERVE_MIN_PROMPT = 1024
 SERVE_SPANS = ("serve/prefill", "serve/decode")
-# The kernel route and _sdpa_masked differ by design in one rounding: the
-# kernel keeps probabilities in float32, _sdpa rounds them to bf16 before
-# P.V.  Each attention output is held to the bf16 contract of 3e-2 (phase
-# 3); the prefill logits of the two routes, after 28 layers, are held to the
-# same relative contract: atol = 3e-2 * max(1, max |logits|).
+# The kernel route and _sdpa_masked round alike (bf16 inputs, float32
+# scores and sums, P rounded to bf16 before P.V, one rounding of the
+# output) but sum in another order, and the kernel scales its scores in the
+# exp2 domain.  Each attention output is held to the bf16 contract of 3e-2
+# (tests/test_kernels.py); the prefill logits of the two routes, after 28
+# layers, are held to the same relative contract: atol = 3e-2 * max(1,
+# max |logits|).
 SERVE_CONTRACT = 3e-2
 
 
@@ -593,12 +669,26 @@ def busy_within(intervals, lo: float, hi: float) -> float:
     return total
 
 
+def by_kernel(evs, spans=None) -> dict:
+    """{name: (launches, device µs)} over device events, or over those
+    that start inside one of the (start, end) ``spans``."""
+    out = {}
+    for ev in evs:
+        if spans is not None and not any(
+                lo <= ev.time_range.start < hi for lo, hi in spans):
+            continue
+        n, us = out.get(ev.name, (0, 0.0))
+        out[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    return out
+
+
 def profiled_serving(engine, counters) -> dict:
     """Drain ``engine`` under ``torch.profiler``: the window's wall (timed
     inside the profiler), the card's busy and idle share over it and inside
-    the ``serve/prefill`` and ``serve/decode`` spans, the flash kernel's
+    the ``serve/prefill`` and ``serve/decode`` spans, the flash kernels'
     launches and device seconds, and the kernels with the most device
-    time."""
+    time, over the window and over those that start inside a prefill
+    span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -627,21 +717,29 @@ def profiled_serving(engine, counters) -> dict:
                             device_busy_s=busy / 1e6,
                             device_idle_share=(1.0 - busy / span_us)
                             if span_us else None)
-    by_name = {}
-    for ev in dev:
-        n, us = by_name.get(ev.name, (0, 0.0))
-        by_name[ev.name] = (n + 1, us + ev.time_range.elapsed_us())
+    prefill = [(ev.time_range.start, ev.time_range.end) for ev in evs
+               if ev.name == "serve/prefill"
+               and ev.device_type == DeviceType.CPU]
+    by_name = by_kernel(dev)
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:10]
-    flash = by_name.get(next((k for k in by_name
-                              if "flash_attention_kernel" in k), ""),
-                        (0, 0.0))
+    top_prefill = sorted(by_kernel(dev, prefill).items(),
+                         key=lambda kv: -kv[1][1])[:10]
+    flash = [(k, n, us) for k, (n, us) in by_name.items()
+             if "flash_attention_kernel" in k]
+    sm90 = [f for f in flash if FLASH_SM90 in f[0]]
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         device_idle_share=(1.0 - busy_s / wall) if dev else None,
         phases=phases, flash_launches=counters["flash_attention"].launches,
-        flash_profiled_launches=flash[0], flash_device_s=flash[1] / 1e6,
+        flash_kernels=[k[:100] for k, _, _ in flash],
+        flash_profiled_launches=sum(n for _, n, _ in flash),
+        flash_sm90_launches=sum(n for _, n, _ in sm90),
+        flash_device_s=sum(us for _, _, us in flash) / 1e6,
         top_kernels=[dict(name=k[:100], launches=n, device_s=us / 1e6)
-                     for k, (n, us) in top])
+                     for k, (n, us) in top],
+        prefill_top_kernels=[dict(name=k[:100], launches=n,
+                                  device_s=us / 1e6)
+                             for k, (n, us) in top_prefill])
 
 
 def serve(dev) -> dict:
@@ -704,7 +802,20 @@ def serve(dev) -> dict:
     for req in serve_requests(cfg, SERVE_SLOTS, seed=1):
         req.max_new = 9
         engine.submit(req)
-    out["profiled_window"] = profiled_serving(engine, reset_counters())
+    window = out["profiled_window"] = profiled_serving(engine,
+                                                       reset_counters())
+    n_prefill = window["phases"]["serve/prefill"]["n"]
+    if not (n_prefill >= 1
+            and window["flash_launches"] == cfg.n_layers * n_prefill
+            and window["flash_sm90_launches"] == window["flash_launches"]
+            and window["flash_profiled_launches"]
+            == window["flash_launches"]):
+        raise AssertionError(
+            f"profiled epoch: {window['flash_launches']} flash launches "
+            f"counted, {window['flash_sm90_launches']} of "
+            f"{window['flash_profiled_launches']} profiled ones the tensor-"
+            f"core kernel ({FLASH_SM90}), for {n_prefill} prefills of "
+            f"{cfg.n_layers} layers")
     # The first epoch's prefill through the kernel and through _sdpa_masked.
     toks = np.zeros((SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)
     for i, req in enumerate(requests[:SERVE_SLOTS]):
@@ -764,7 +875,8 @@ def main() -> int:
     t0 = time.perf_counter()
     build_s = _build.build()
     ptxas = {src: [ln.strip() for ln in _build.build_log(src).splitlines()
-                   if "registers" in ln or "Compiling entry" in ln]
+                   if any(w in ln for w in ("registers", "Compiling entry",
+                                            "spill", "C75"))]
              for src in _build.SOURCES}
     emit("build", seconds=build_s, wall_s=time.perf_counter() - t0,
          sources=[f"{CSRC}/{s}.cu" for s in _build.SOURCES], ptxas=ptxas)
@@ -782,7 +894,7 @@ def main() -> int:
         "gf2_find_low": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:230"),
         "gf2_parallel_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
         "gf2_serial_reduce": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:290"),
-        "flash_attention": ("csrc/flash_attention.cu",
+        "flash_attention": ("csrc/flash_attention_sm90.cu",
                             "src/repro/kernels/flash_attention.py:72"),
     }
     def first(*xs):

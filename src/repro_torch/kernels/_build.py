@@ -26,7 +26,8 @@ from ..obs.trace import stopwatch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent / "build"
-SOURCES = ("pairwise_dist", "gf2", "flash_attention")
+SOURCES = ("pairwise_dist", "gf2", "flash_attention",
+           "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

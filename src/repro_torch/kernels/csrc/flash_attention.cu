@@ -1,23 +1,21 @@
 // Forward flash attention (online softmax) in float32 arithmetic, for Hopper
-// (sm_90a).
+// (sm_90a): the float32 route of the port's flash_attention.
 //
 // Replaces: src/repro/kernels/flash_attention.py::_flash_kernel, the Pallas
-// TPU kernel behind flash_attention.  Same function, for q, k, v (BH, S, d)
-// of one dtype (float32 or bfloat16), contiguous, GQA already expanded:
+// TPU kernel behind flash_attention, for float32 inputs (bfloat16 inputs go
+// to the tensor-core kernel in flash_attention_sm90.cu).  Same function,
+// for q, k, v (BH, S, d) float32, contiguous, GQA already expanded:
 //   o[b, i] = sum_j softmax_j(q_i . k_j / sqrt(d)) v_j
 // where key j is masked for query i (score -1e30) when causal and j > i, or
 // when window > 0 and i - j >= window, or when j >= S.  Sums and the
-// running max / sum / accumulator are float32; the output is rounded to the
-// input dtype (round to nearest for bfloat16).  expf, not __expf.
+// running max / sum / accumulator are float32.  expf, not __expf.
 //
-// What bounds it on an H100: operations.  The serving prefill calls it at
-// BH = 128, S = 2048, d = 128 in bfloat16 (causal): about 137 GFLOP against
-// 268 MB moved, some 500 flops a byte, above the card's balance point even
-// for the bf16 tensor cores (989 TFLOP/s); the bound is the tensor cores'.
-// This first kernel does its products as float32 FMAs on the CUDA cores
-// (67 TFLOP/s at best), so it cannot come within 15x of that bound.  A later
-// design moves Q.K^T and P.V to wgmma on bf16 tiles fed by TMA, with a
-// producer warp and two consumer warpgroups (FlashAttention-3's layout).
+// What bounds it on an H100: operations.  At BH = 128, S = 2048, d = 128
+// causal it does about 137 GFLOP against 268 MB moved.  The float32
+// contract forbids TF32, and on Hopper wgmma on float32 is TF32, so the
+// products stay float32 FMAs on the CUDA cores (67 TFLOP/s at best, a
+// bound of 2.05 ms there).  A register-blocked SIMT design is the next step
+// for this route.
 //
 // Design: one thread block per (bh, 64-query tile), 256 threads as 16 x 16.
 // The query tile (scaled by sm_scale) and each 64-row K and V tile are
@@ -32,7 +30,6 @@
 // padding copy is made.  d is rounded up to the template width D in
 // {32, 64, 128, 256}; at D = 256 the tiles take 214 KB of shared memory,
 // above the 48 KB default, so the launcher raises the attribute first.
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -48,13 +45,7 @@ constexpr int kPStride = kBK + 4;   // P rows: the two row groups of a warp
 constexpr float kNegInf = -1e30f;
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void store(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store(__nv_bfloat16* p, float x) {
-  *p = __float2bfloat16_rn(x);
-}
 
 template <int D>
 constexpr size_t smem_bytes() {
@@ -239,19 +230,15 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int BH,
 
 }  // namespace
 
-// q, k, v, o: (BH, S, d) device pointers, contiguous, float32 (is_bf16 = 0)
-// or bfloat16 (is_bf16 = 1).  The wrapper checks shapes, dtypes and
-// 0 < d <= 256, d % 8 == 0.  window <= 0 means no window.  Returns the
-// cudaError_t of the launch.
-extern "C" int flash_attention(const void* q, const void* k, const void* v,
-                               void* o, int BH, int S, int d, int is_bf16,
-                               int causal, int window, float sm_scale,
-                               void* stream) {
+// q, k, v, o: (BH, S, d) float32 device pointers, contiguous.  The wrapper
+// checks shapes, dtypes and 0 < d <= 256, d % 8 == 0.  window <= 0 means no
+// window.  Returns the cudaError_t of the launch.
+extern "C" int flash_attention_f32(const void* q, const void* k,
+                                   const void* v, void* o, int BH, int S,
+                                   int d, int causal, int window,
+                                   float sm_scale, void* stream) {
   if (BH <= 0 || S <= 0) return 0;
   if (d <= 0 || d > 256 || BH > 65535) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = (cudaStream_t)stream;
-  if (is_bf16)
-    return dispatch<__nv_bfloat16>(q, k, v, o, BH, S, d, causal, window,
-                                   sm_scale, st);
-  return dispatch<float>(q, k, v, o, BH, S, d, causal, window, sm_scale, st);
+  return dispatch<float>(q, k, v, o, BH, S, d, causal, window, sm_scale,
+                         (cudaStream_t)stream);
 }

@@ -1,16 +1,27 @@
-"""Blocked (flash) attention: CUDA kernel + plain version.
+"""Blocked (flash) attention: CUDA kernels + plain version.
 
 Port of ``src/repro/kernels/flash_attention.py``.  The Pallas TPU kernel
-``_flash_kernel`` becomes ``csrc/flash_attention.cu`` (hand-written for
-sm_90a: one block per (bh, 64-query tile), K/V tiles of 64 rows staged in
-shared memory as float32, the online-softmax carries in registers, float32
-FMAs on the CUDA cores, causal tiles above the diagonal skipped, ragged S
-masked in the kernel with no padding copy).  :func:`flash_attention_plain`
-is the same function in plain PyTorch, as ``src/repro/kernels/ref.py``
-``attention_ref`` computes it: float32 scores, masked to -1e30, softmax,
-output in q's dtype.
+``_flash_kernel`` becomes two hand-written kernels for sm_90a, picked by
+dtype:
 
-:func:`flash_attention` runs the kernel for CUDA tensors and the plain
+- bfloat16: ``csrc/flash_attention_sm90.cu``, on the tensor cores.  One
+  block per (bh, 128-query tile): a producer warpgroup feeds Q once and
+  K/V tiles through a two-stage ring with TMA; two consumer warpgroups run
+  S = Q.K^T and O += P.V as ``wgmma``, with the masks and the online
+  softmax in float32 registers.  P is rounded to bfloat16 for P.V, as the
+  reference model's ``_sdpa`` rounds its probabilities; the output is
+  rounded once.  q, k and v must be 16-byte aligned (TMA).
+- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores
+  (TF32 is not allowed on this route), K/V tiles of 64 rows in shared
+  memory.
+
+Both skip KV tiles wholly above the diagonal or before the window and mask
+a ragged S in the kernel, with no padding copy.  :func:`flash_attention_plain`
+is the same function in plain PyTorch, as ``src/repro/kernels/ref.py``
+``attention_ref`` computes it: float32 scores, masked to -1e30, softmax in
+float32, output in q's dtype.
+
+:func:`flash_attention` runs a kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: a CUDA tensor it cannot take
 raises.  ``flash_attention.launches`` counts kernel launches.
 """
@@ -26,12 +37,14 @@ from . import _build
 NEG_INF = -1e30
 MAX_D = 256
 
-_SIGNATURES = {
-    "flash_attention": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-                        ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                        ctypes.c_int, ctypes.c_float, ctypes.c_void_p),
-}
+# (q, k, v, o, BH, S, d, causal, window, sm_scale, stream) -> cudaError_t
+_ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+             ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+             ctypes.c_int, ctypes.c_int, ctypes.c_float, ctypes.c_void_p)
+# dtype -> (source in csrc/, exported function)
+_ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16"),
+           torch.float32: ("flash_attention", "flash_attention_f32")}
+TMA_ALIGN = 16
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,9 +78,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
     ``window > 0`` masks keys at distance ``window`` or more; ``window <=
     0`` is global (the TPU kernel's convention).  CUDA tensors go through
-    the kernel: float32 or bfloat16, contiguous, one shape, ``d <= 256``
-    and a multiple of 8; anything else raises.  CPU tensors go through
-    :func:`flash_attention_plain`.
+    a kernel by dtype (bfloat16: the tensor-core kernel; float32: the SIMT
+    kernel): contiguous, one shape, ``d <= 256`` and a multiple of 8, and
+    in bfloat16 16-byte aligned; anything else raises.  CPU tensors go
+    through :func:`flash_attention_plain`.
     """
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected q, k, v of one (BH, S, d) shape, got "
@@ -82,7 +96,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         return flash_attention_plain(q, k, v, causal=causal, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"unsupported device {q.device}")
-    if q.dtype not in (torch.float32, torch.bfloat16):
+    if q.dtype not in _ROUTES:
         raise TypeError(f"expected float32 or bfloat16, got {q.dtype}")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("q, k and v must be contiguous")
@@ -92,14 +106,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "of 8")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel grid's limit of 65535")
+    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN
+                                         for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned: the bfloat16 "
+                         "kernel loads them with TMA")
     out = torch.empty_like(q)
     if bh and s:
-        lib = _build.library("flash_attention", _SIGNATURES)
+        source, fn = _ROUTES[q.dtype]
+        lib = _build.library(source, {fn: _ARGTYPES})
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = lib.flash_attention(
+        err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-            d, int(q.dtype == torch.bfloat16), int(bool(causal)),
-            int(window), 1.0 / math.sqrt(d), stream)
+            d, int(bool(causal)), int(window), 1.0 / math.sqrt(d), stream)
         flash_attention.launches += 1
         _build.check_launch(err, "flash_attention")
     return out

@@ -13,11 +13,16 @@ with no cache and ``window != 0``, goes through
 ``repro_torch.kernels.ops.attention``, the hand-written flash kernel on the
 card.  Its masks are then exactly the kernel's: causal, a window of -1 or
 > 0, no padded key.  KV heads are expanded to the query heads first
-(``repeat_interleave``, the order of ``jnp.repeat``).  Every other case (explicit positions, decode against the
-cache, and ``window == 0``, which means "self only" here but "global" in
-the kernel) takes :func:`_sdpa_masked`.  The one difference in arithmetic:
-the kernel keeps the probabilities in float32 where :func:`_sdpa` rounds
-them to ``v.dtype`` before the P.V product.
+(``repeat_interleave``, the order of ``jnp.repeat``), and q, k and v are
+copied to (B·H, S, D): on the card these copies are the next cost beside
+the kernel (PERF.md).  Every other case (explicit positions, decode
+against the cache, and ``window == 0``, which means "self only" here but
+"global" in the kernel) takes :func:`_sdpa_masked`.  In arithmetic the
+routes differ in summation order and in one rounding on the CPU: the
+bfloat16 kernel on the card rounds the probabilities to bfloat16 before
+the P.V product, as :func:`_sdpa` rounds them to ``v.dtype``, while the
+kernel's plain version (the CPU route) keeps them in float32.  In float32
+compute they agree.
 
 Decode writes the new K/V into the cache in place (the reference returns
 an updated copy); :func:`attention_apply` returns the same cache tensors.

@@ -6,12 +6,13 @@ Run on a card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: pairwise ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``
 (float32 sums in another order); GF(2) exact; flash attention ``2e-4`` in
 float32 and ``1e-2`` in bfloat16, and a reduced prefill on the card
-against the CPU ``2e-4`` (float32 compute, TF32 off).  In bfloat16 both
-sides compute in float32 and round the output once, so they differ by at
-most an ulp, under ``|o| / 128``: ``1e-2`` holds that with room and stays
-below a typical ``|o|`` (unit-normal inputs give outputs of standard
-deviation about ``sqrt(e / S)``), which the ``3e-2`` of
-``tests/test_kernels.py`` does not at long S.
+against the CPU ``2e-4`` (float32 compute, TF32 off).  In bfloat16 the
+kernel rounds the probabilities to bfloat16 for P.V where the plain
+version keeps them in float32, and both round the output once:
+``tests/test_torch_flash_numerics.py`` shows on the CPU that this stays
+inside ``1e-2``, which stays below a typical ``|o|`` (unit-normal inputs
+give outputs of standard deviation about ``sqrt(e / S)``), as the ``3e-2``
+of ``tests/test_kernels.py`` does not at long S.
 """
 import numpy as np
 import pytest
@@ -149,6 +150,50 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, bh, s, d, causal,
     assert got.dtype == dtype and got.shape == q.shape
     want = flash_attention_plain(q, k, v, causal=causal, window=window)
     torch.testing.assert_close(got.float(), want.float(), rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("bh", [1, 130])
+@pytest.mark.parametrize("window", [-1, 1, 256])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("s", [1, 63, 128, 1000, 2048])
+@pytest.mark.parametrize("d", [40, 64, 128, 256])
+def test_flash_bf16_kernel_matches_plain(dev, d, s, causal, window, bh):
+    """The tensor-core route over head widths (d = 40 runs at D = 64 with
+    zero columns), ragged and single-row S, both masks and many heads."""
+    rng = np.random.default_rng(d * 7919 + s)
+    q, k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)),
+                               dtype=torch.bfloat16, device=dev)
+               for _ in range(3))
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.bfloat16 and got.shape == q.shape
+    torch.testing.assert_close(got.float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
+
+
+def test_flash_bf16_kernel_rejects_misaligned_pointer(dev):
+    """TMA needs a 16-byte aligned base: a view two bytes into its storage
+    raises before any launch."""
+    flat = torch.zeros(4 * 64 + 1, dtype=torch.bfloat16, device=dev)
+    q = flat[1:].view(1, 4, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    k = torch.zeros((1, 4, 64), dtype=torch.bfloat16, device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(k, k, q)
+    assert flash_attention.launches == before
+
+
+def test_flash_bf16_kernel_counts_each_launch(dev):
+    q = torch.randn((2, 70, 64), dtype=torch.bfloat16, device=dev)
+    before = flash_attention.launches
+    for i in range(3):
+        flash_attention(q, q, q, causal=bool(i % 2))
+        assert flash_attention.launches == before + i + 1
+    torch.cuda.synchronize()
 
 
 def test_flash_kernel_rejects_what_it_cannot_take(dev):
