@@ -7,7 +7,10 @@ Phases, one JSON line each:
 1. ``device``   — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions.
 2. ``build``    — nvcc builds the port's kernels from ``src/repro_torch/
-   kernels/csrc`` (at first use, all sources in parallel).
+   kernels/csrc`` (at first use, all sources in parallel); the ``-Xptxas
+   -v`` report of each, and the float32 flash library's SASS
+   (``cuobjdump -sass``): no matrix-multiply opcode (``HMMA``, ``HGMMA``,
+   ...) and no spill in any of its instantiations.
 3. ``kernels``  — every kernel against its plain PyTorch version on the
    card at the main path's shapes (GF(2) exact; pairwise within
    ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``).  Each is timed
@@ -39,14 +42,22 @@ Phases, one JSON line each:
    its ``arange`` positions passed explicitly, which the model sends
    there), and the logits must agree within ``3e-2 * max(1, max
    |logits|)``.
+7. ``serve_f32`` — one serving epoch of full-width qwen3-0.6b computing in
+   float32 (``compute_dtype="float32"``, seeded random weights): 8 requests
+   of 1,024–2,048 prompt tokens, one prefill (8 x 2048 tokens) and one
+   decode step, under ``torch.profiler``; its 28 flash launches must all be the
+   float32 SIMT kernel.  Then that epoch's prefill through the flash kernel
+   and through ``_sdpa_masked``, timed; the logits must agree within
+   ``1e-3 * max(1, max |logits|)``.
 
 Phase 3 holds the flash kernel against its plain version (``rtol = atol =
 2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
 serving prefill's shape and at gemma3-1b's local layers (bfloat16: the
 tensor-core kernel of ``flash_attention_sm90.cu``; float32: the SIMT kernel
 of ``flash_attention.cu``), with ``scaled_dot_product_attention`` as the
-library yardstick, then in bfloat16 on ragged, non-causal, window-1,
-narrow-head and single-head cases for correctness alone.  Each timed case
+library yardstick, then in both dtypes on ragged, short, non-causal,
+narrow-window, narrow-head, wide-head and single-head cases for
+correctness alone (``FLASH_BF16_EDGES``, ``FLASH_F32_EDGES``).  Each timed case
 reports its TFLOP/s and its share of the bound.  The serving prefill's
 head expansion and layout copies around the kernel (``_flash_prefill``)
 are timed beside it.
@@ -82,6 +93,9 @@ MAIN_PATH_N = 50_000         # torus4 points, benchmarks/table1_datasets.py
 # does not.
 FLASH_BF16_TOL = 1e-2
 FLASH_F32_TOL = 2e-4
+# The float32 kernel sums in another order than its plain version and
+# nothing else: at the two timed shapes its largest error is held to 1e-5.
+FLASH_F32_MAX_ERR = 1e-5
 HERE = os.path.dirname(os.path.abspath(__file__))
 CSRC = "src/repro_torch/kernels/csrc"
 
@@ -112,6 +126,35 @@ def wall_ms(fn, iters: int) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def clocks_under(fn, seconds: float = 2.0) -> dict:
+    """The card's SM clock (MHz) and power draw (W), sampled by
+    ``nvidia-smi`` every 100 ms while ``fn`` runs back to back for about
+    ``seconds``: the medians, and the number of samples."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+         "--format=csv,noheader,nounits", "-lms", "100"],
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t0 = time.perf_counter()
+        while time.perf_counter() - t0 < seconds:
+            fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=60)
+    clocks, watts = [], []
+    for ln in out.splitlines():
+        try:
+            mhz, w = (float(x) for x in ln.split(","))
+        except ValueError:
+            continue
+        clocks.append(mhz)
+        watts.append(w)
+    return dict(samples=len(clocks),
+                sm_mhz_median=float(np.median(clocks)) if clocks else None,
+                power_w_median=float(np.median(watts)) if watts else None)
 
 
 def profiled(fn):
@@ -358,7 +401,9 @@ def check_kernels(dev) -> dict:
         fit = dict(us_per_reduction=slope * 1e3, us_at_zero=icpt * 1e3)
     emit("serial_reduce_sweep", shape=[1, 128, int(t.shape[2])],
          points=points, fit=fit)
-    summary["flash_attention"] = check_flash(dev, rng)
+    flash = check_flash(dev, rng)
+    summary["flash_attention_bf16"] = flash["bfloat16"]
+    summary["flash_attention_f32"] = flash["float32"]
     return summary
 
 
@@ -371,19 +416,31 @@ def attended_pairs(s: int, causal: bool, window: int) -> int:
 
 
 FLASH_SM90 = "flash_attention_kernel_sm90"   # the bf16 kernel's symbol
+FLASH_F32 = "flash_attention_f32_kernel"     # the f32 kernel's symbol
+FLASH_SYMBOL = {torch.bfloat16: FLASH_SM90, torch.float32: FLASH_F32}
 # Correctness-only bfloat16 cases: (BH, S, d, causal, window).
 FLASH_BF16_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
                     (8, 1000, 128, True, 1), (16, 1000, 64, True, -1),
                     (16, 1000, 40, True, 256), (1, 2048, 128, True, -1))
+# Correctness-only float32 cases, at the SIMT kernel's tile edges (128
+# queries, 64 keys; 64 and 32 at d = 256): S not a multiple of 128, S below
+# 64, windows below a tile, BH = 1, and every template width.
+FLASH_F32_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
+                   (8, 1000, 128, True, 1), (8, 1000, 128, False, 50),
+                   (1, 2048, 128, True, -1), (16, 37, 64, True, -1),
+                   (16, 63, 128, False, 16), (16, 1000, 40, True, 256),
+                   (16, 333, 8, False, 16), (16, 777, 16, True, -1),
+                   (4, 1000, 256, True, 100), (4, 63, 256, False, -1),
+                   (1, 200, 256, False, 1))
 
 
 def check_flash(dev, rng) -> dict:
     """The flash kernel against its plain version at the serving prefill's
     shape (bf16, and f32) and at gemma3-1b's local layers (d = 256, window
     1024, bf16 and f32), timed, with SDPA on the same inputs as the library
-    yardstick; then bf16 cases held for correctness alone; then the copies
-    of ``_flash_prefill`` around the kernel at the serving shape.  Returns
-    the serving case's entry."""
+    yardstick; then bf16 and f32 cases held for correctness alone; then the
+    copies of ``_flash_prefill`` around the kernel at the serving shape.
+    Returns the serving shape's entry for each dtype."""
     from repro_torch.kernels.flash_attention import (flash_attention,
                                                      flash_attention_plain)
     sdpa = torch.nn.functional.scaled_dot_product_attention
@@ -402,7 +459,7 @@ def check_flash(dev, rng) -> dict:
         return (tol, float((got.float() - want.float()).abs().max()),
                 float(want.float().abs().median()))
 
-    first = None
+    first = {}
     for bh, s, d, dtype, window in ((128, 2048, 128, torch.bfloat16, -1),
                                     (128, 2048, 128, torch.float32, -1),
                                     (32, 2048, 256, torch.bfloat16, 1024),
@@ -426,33 +483,47 @@ def check_flash(dev, rng) -> dict:
         peak = (BF16_TC_FLOPS_PER_S if dtype == torch.bfloat16
                 else FP32_OPS_PER_S)
         b_ms, b_by = bound(4 * bh * s * d * q.element_size(), flops, peak)
-        t = timings("flash_attention_kernel",
+        if dtype == torch.float32 and not err <= FLASH_F32_MAX_ERR:
+            raise AssertionError(f"float32 flash kernel at {(bh, s, d)}: max "
+                                 f"abs error {err} > {FLASH_F32_MAX_ERR}")
+        # Which kernels the library call runs (SDPA picks its backend).
+        _, lib_evs = profiled(library)
+        lib_kernels = sorted({ev.name[:100] for ev in lib_evs})
+        t = timings(FLASH_SYMBOL[dtype],
                     lambda: flash_attention(q, k, v, causal=True,
                                             window=window),
                     lambda: flash_attention_plain(q, k, v, causal=True,
                                                   window=window),
                     library, 10, 3)
         kernel_ms = t["kernel_ms"] or t["wrapper_ms"]
+        # The FFMA peak assumes the 1,980 MHz boost clock: read the clock
+        # the float32 kernel runs at.
+        if dtype == torch.float32:
+            t["clocks_under_kernel"] = clocks_under(
+                lambda: flash_attention(q, k, v, causal=True, window=window))
         entry = dict(
             name="flash_attention", shape=[bh, s, d],
             dtype=str(dtype).replace("torch.", ""), causal=True,
             window=window, attended_pairs=pairs, flops=flops,
             max_abs_err=err, median_abs_out=typical, rtol=tol, atol=tol,
-            **t, library=lib_name, bound_ms=b_ms, bound_by=b_by,
+            **t, library=lib_name, library_kernels=lib_kernels,
+            bound_ms=b_ms, bound_by=b_by,
             bound_peak_ops_per_s=peak, tflops=flops / kernel_ms / 1e9,
             bound_share=b_ms / kernel_ms)
         emit("kernels", **entry)
-        first = first or entry
+        first.setdefault(entry["dtype"], entry)
         del q, k, v
         torch.cuda.empty_cache()
 
-    for bh, s, d, causal, window in FLASH_BF16_EDGES:
-        q, k, v = inputs(bh, s, d, torch.bfloat16)
-        tol, err, typical = held(q, k, v, causal, window)
-        emit("kernels_correctness", name="flash_attention",
-             shape=[bh, s, d], dtype="bfloat16", causal=causal,
-             window=window, max_abs_err=err, median_abs_out=typical,
-             rtol=tol, atol=tol)
+    for dtype, edges in ((torch.bfloat16, FLASH_BF16_EDGES),
+                         (torch.float32, FLASH_F32_EDGES)):
+        for bh, s, d, causal, window in edges:
+            q, k, v = inputs(bh, s, d, dtype)
+            tol, err, typical = held(q, k, v, causal, window)
+            emit("kernels_correctness", name="flash_attention",
+                 shape=[bh, s, d], dtype=str(dtype).replace("torch.", ""),
+                 causal=causal, window=window, max_abs_err=err,
+                 median_abs_out=typical, rtol=tol, atol=tol)
     emit("kernels_prefill_copies", **prefill_copies(dev, rng))
     return first
 
@@ -682,13 +753,13 @@ def by_kernel(evs, spans=None) -> dict:
     return out
 
 
-def profiled_serving(engine, counters) -> dict:
+def profiled_serving(engine, counters, symbol: str = FLASH_SM90) -> dict:
     """Drain ``engine`` under ``torch.profiler``: the window's wall (timed
     inside the profiler), the card's busy and idle share over it and inside
     the ``serve/prefill`` and ``serve/decode`` spans, the flash kernels'
-    launches and device seconds, and the kernels with the most device
-    time, over the window and over those that start inside a prefill
-    span."""
+    launches (those of kernel ``symbol`` apart) and device seconds, and the
+    kernels with the most device time, over the window and over those that
+    start inside a prefill span."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -725,15 +796,16 @@ def profiled_serving(engine, counters) -> dict:
     top_prefill = sorted(by_kernel(dev, prefill).items(),
                          key=lambda kv: -kv[1][1])[:10]
     flash = [(k, n, us) for k, (n, us) in by_name.items()
-             if "flash_attention_kernel" in k]
-    sm90 = [f for f in flash if FLASH_SM90 in f[0]]
+             if "flash_attention" in k and "kernel" in k]
+    named = [f for f in flash if symbol in f[0]]
     return dict(
         wall_s=wall, device_busy_s=busy_s,
         device_idle_share=(1.0 - busy_s / wall) if dev else None,
         phases=phases, flash_launches=counters["flash_attention"].launches,
         flash_kernels=[k[:100] for k, _, _ in flash],
         flash_profiled_launches=sum(n for _, n, _ in flash),
-        flash_sm90_launches=sum(n for _, n, _ in sm90),
+        flash_symbol=symbol,
+        flash_symbol_launches=sum(n for _, n, _ in named),
         flash_device_s=sum(us for _, _, us in flash) / 1e6,
         top_kernels=[dict(name=k[:100], launches=n, device_s=us / 1e6)
                      for k, (n, us) in top],
@@ -747,7 +819,7 @@ def serve(dev) -> dict:
     from repro_torch.models.transformer import count_params, init_params
     from repro_torch.obs.trace import Tracer, tracing
     from repro_torch.serve.engine import ServeEngine
-    from repro_torch.serve.steps import make_prefill_step, sample_greedy
+    from repro_torch.serve.steps import make_prefill_step
 
     cfg = get_config(SERVE_ARCH)
     prefill = make_prefill_step(cfg)
@@ -807,16 +879,32 @@ def serve(dev) -> dict:
     n_prefill = window["phases"]["serve/prefill"]["n"]
     if not (n_prefill >= 1
             and window["flash_launches"] == cfg.n_layers * n_prefill
-            and window["flash_sm90_launches"] == window["flash_launches"]
+            and window["flash_symbol_launches"] == window["flash_launches"]
             and window["flash_profiled_launches"]
             == window["flash_launches"]):
         raise AssertionError(
             f"profiled epoch: {window['flash_launches']} flash launches "
-            f"counted, {window['flash_sm90_launches']} of "
+            f"counted, {window['flash_symbol_launches']} of "
             f"{window['flash_profiled_launches']} profiled ones the tensor-"
             f"core kernel ({FLASH_SM90}), for {n_prefill} prefills of "
             f"{cfg.n_layers} layers")
     # The first epoch's prefill through the kernel and through _sdpa_masked.
+    out["seam"] = prefill_routes(model, prefill, requests, dev, counters,
+                                 SERVE_CONTRACT)
+    emit("serve", **out)
+    check_seam(out["seam"])
+    return out
+
+
+def prefill_routes(model, prefill, requests, dev, counters,
+                   contract: float) -> dict:
+    """One epoch's prefill (the first ``SERVE_SLOTS`` requests, left-padded
+    to ``SERVE_PROMPT``) through the flash kernel as served and through
+    ``_sdpa_masked``, each timed after a warm-up; the logits' largest
+    difference against ``contract * max(1, max |logits|)`` and the greedy
+    first tokens of both."""
+    from repro_torch.serve.steps import sample_greedy
+
     toks = np.zeros((SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)
     for i, req in enumerate(requests[:SERVE_SLOTS]):
         toks[i, -len(req.prompt):] = req.prompt[-SERVE_PROMPT:]
@@ -843,19 +931,108 @@ def serve(dev) -> dict:
                                  "flash kernel and _sdpa_masked")
         diff = float((flash_logits - sdpa_logits).abs().max())
         scale = max(1.0, float(sdpa_logits.abs().max()))
-        agree = float((sample_greedy(flash_logits) ==
-                       sample_greedy(sdpa_logits)).float().mean())
+        flash_tok = sample_greedy(flash_logits)[:, 0]
+        sdpa_tok = sample_greedy(sdpa_logits)[:, 0]
+        agree = float((flash_tok == sdpa_tok).float().mean())
     del flash_logits, sdpa_logits
     torch.cuda.empty_cache()
-    tol = SERVE_CONTRACT * scale
-    out.update(seam=dict(prefill_s_flash=flash_s, prefill_s_sdpa=sdpa_s,
-                         logits_max_abs_diff=diff, logits_max_abs=scale,
-                         atol=tol, first_token_agreement=agree))
-    emit("serve", **out)
-    if not diff <= tol:
-        raise AssertionError(f"prefill logits: kernel route vs _sdpa_masked "
-                             f"differ by {diff} > {tol}")
+    return dict(prefill_s_flash=flash_s, prefill_s_sdpa=sdpa_s,
+                logits_max_abs_diff=diff, logits_max_abs=scale,
+                atol=contract * scale, first_token_agreement=agree,
+                first_tokens_flash=flash_tok.tolist(),
+                first_tokens_sdpa=sdpa_tok.tolist())
+
+
+def check_seam(seam: dict) -> None:
+    if not seam["logits_max_abs_diff"] <= seam["atol"]:
+        raise AssertionError(
+            f"prefill logits: kernel route vs _sdpa_masked differ by "
+            f"{seam['logits_max_abs_diff']} > {seam['atol']}")
+
+
+# The float32 routes differ only in summation order (float32 scores, sums
+# and probabilities in both, TF32 off), about 1e-6 of |o| an attention
+# output; after 28 layers the logits are held to 1e-3 of their largest.
+SERVE_F32_CONTRACT = 1e-3
+
+
+def serve_f32(dev) -> dict:
+    """One epoch of full-width qwen3-0.6b computing in float32: 8 requests
+    (prompts left-padded to ``SERVE_PROMPT`` tokens), one prefill and one
+    decode step, under the profiler; every flash launch must be the
+    float32 SIMT kernel, one a layer.  Then the epoch's prefill through the
+    kernel and through ``_sdpa_masked``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.steps import make_prefill_step
+
+    cfg = dataclasses.replace(get_config(SERVE_ARCH),
+                              compute_dtype="float32")
+    model = init_params(cfg, seed=0, device=dev)
+    engine = ServeEngine(cfg, params=model, max_batch=SERVE_SLOTS,
+                         prompt_len=SERVE_PROMPT, s_max=SERVE_S_MAX,
+                         device=dev)
+    requests = serve_requests(cfg, SERVE_SLOTS, seed=2)
+    for req in requests:
+        req.max_new = 1
+        engine.submit(req)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    window = profiled_serving(engine, reset_counters(), FLASH_F32)
+    launches = window["flash_launches"]
+    if not (window["phases"]["serve/prefill"]["n"] == 1
+            and launches == cfg.n_layers
+            and window["flash_symbol_launches"] == launches
+            and window["flash_profiled_launches"] == launches):
+        raise AssertionError(
+            f"float32 epoch: {launches} flash launches counted, "
+            f"{window['flash_symbol_launches']} of "
+            f"{window['flash_profiled_launches']} profiled ones the float32 "
+            f"kernel ({FLASH_F32}), for one prefill of {cfg.n_layers} layers")
+    if len(engine.done) != SERVE_SLOTS:
+        raise AssertionError("the float32 epoch did not complete every "
+                             "request")
+    out = dict(arch=cfg.name, compute_dtype=cfg.compute_dtype,
+               slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
+               flash_launches=launches, profiled_window=window)
+    out["seam"] = prefill_routes(model, make_prefill_step(cfg), requests, dev,
+                                 reset_counters(), SERVE_F32_CONTRACT)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit("serve_f32", **out)
+    check_seam(out["seam"])
+    del engine, model
+    torch.cuda.empty_cache()
     return out
+
+
+def f32_sass_check(_build, ptxas) -> dict:
+    """The float32 flash library holds IEEE FFMA products only: its SASS
+    (``cuobjdump -sass``) has no matrix-multiply opcode (HMMA, HGMMA, IMMA,
+    ...: any opcode ending in MMA; ``HFMA2.MMA`` is a half-precision FMA
+    that ptxas uses to zero registers), and no instantiation spills."""
+    import re
+    import shutil
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    sass = subprocess.run([tool, "-sass",
+                           str(_build.library_path("flash_attention"))],
+                          capture_output=True, text=True, timeout=300,
+                          check=True).stdout
+    ops = {}
+    opcode = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?"
+                        r"([A-Z][A-Z0-9]*)")
+    for op in opcode.findall(sass):
+        ops[op] = ops.get(op, 0) + 1
+    mma = {op: n for op, n in ops.items() if op.endswith("MMA")}
+    spills = [ln for ln in ptxas if "spill" in ln
+              and "0 bytes spill stores, 0 bytes spill loads" not in ln]
+    entries = sum("Compiling entry" in ln for ln in ptxas)
+    if mma or spills or entries != 4 or not ops.get("FFMA"):
+        raise AssertionError(f"flash_attention.cu: matrix opcodes {mma}, "
+                             f"spills {spills}, {entries} instantiations")
+    return dict(ffma=ops["FFMA"], matrix_opcodes=0, spill_free=entries,
+                instructions=sum(ops.values()))
 
 
 def main() -> int:
@@ -879,14 +1056,17 @@ def main() -> int:
                                             "spill", "C75"))]
              for src in _build.SOURCES}
     emit("build", seconds=build_s, wall_s=time.perf_counter() - t0,
-         sources=[f"{CSRC}/{s}.cu" for s in _build.SOURCES], ptxas=ptxas)
+         sources=[f"{CSRC}/{s}.cu" for s in _build.SOURCES], ptxas=ptxas,
+         flash_f32_sass=f32_sass_check(_build, ptxas["flash_attention"]))
 
     summary = check_kernels(dev)
     path = main_path(dev, MAIN_PATH_N)
     cross_check(dev)
     served = serve(dev)
+    served_f32 = serve_f32(dev)
     launches = dict(path["launches"],
-                    flash_attention=served["flash_launches"])
+                    flash_attention_bf16=served["flash_launches"],
+                    flash_attention_f32=served_f32["flash_launches"])
 
     replaces = {
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
@@ -894,8 +1074,10 @@ def main() -> int:
         "gf2_find_low": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:230"),
         "gf2_parallel_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
         "gf2_serial_reduce": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:290"),
-        "flash_attention": ("csrc/flash_attention_sm90.cu",
-                            "src/repro/kernels/flash_attention.py:72"),
+        "flash_attention_bf16": ("csrc/flash_attention_sm90.cu",
+                                 "src/repro/kernels/flash_attention.py:72"),
+        "flash_attention_f32": ("csrc/flash_attention.cu",
+                                "src/repro/kernels/flash_attention.py:72"),
     }
     def first(*xs):
         return next((x for x in xs if x is not None), None)

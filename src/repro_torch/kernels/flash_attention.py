@@ -11,9 +11,17 @@ dtype:
   softmax in float32 registers.  P is rounded to bfloat16 for P.V, as the
   reference model's ``_sdpa`` rounds its probabilities; the output is
   rounded once.  q, k and v must be 16-byte aligned (TMA).
-- float32: ``csrc/flash_attention.cu``, float32 FMAs on the CUDA cores
-  (TF32 is not allowed on this route), K/V tiles of 64 rows in shared
-  memory.
+- float32: ``csrc/flash_attention.cu``, IEEE float32 FMAs on the CUDA
+  cores (TF32, 3xTF32 included, is not allowed on this route), built like
+  a tuned SGEMM.  One block of 256 threads per (bh, 128-query tile) (64 at
+  d > 128); at 64 < d <= 128 each thread keeps an 8 x 4 block of the
+  scores and an 8 x 8 block of the output in registers, reads its operands
+  from XOR-swizzled shared tiles as float4, and K/V tiles of 64 keys (32
+  at d > 128) arrive through a two-stage ``cp.async`` ring, the next tile
+  in flight while this one's products run.
+
+Both routes load q, k and v asynchronously (TMA, ``cp.async``), so they
+must be 16-byte aligned.
 
 Both skip KV tiles wholly above the diagonal or before the window and mask
 a ragged S in the kernel, with no padding copy.  :func:`flash_attention_plain`
@@ -44,7 +52,7 @@ _ARGTYPES = (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
 # dtype -> (source in csrc/, exported function)
 _ROUTES = {torch.bfloat16: ("flash_attention_sm90", "flash_attention_bf16"),
            torch.float32: ("flash_attention", "flash_attention_f32")}
-TMA_ALIGN = 16
+ALIGN = 16
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -80,8 +88,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     0`` is global (the TPU kernel's convention).  CUDA tensors go through
     a kernel by dtype (bfloat16: the tensor-core kernel; float32: the SIMT
     kernel): contiguous, one shape, ``d <= 256`` and a multiple of 8, and
-    in bfloat16 16-byte aligned; anything else raises.  CPU tensors go
-    through :func:`flash_attention_plain`.
+    16-byte aligned; anything else raises.  CPU tensors go through
+    :func:`flash_attention_plain`.
     """
     if q.dim() != 3 or q.shape != k.shape or q.shape != v.shape:
         raise ValueError(f"expected q, k, v of one (BH, S, d) shape, got "
@@ -106,10 +114,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "of 8")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel grid's limit of 65535")
-    if q.dtype == torch.bfloat16 and any(t.data_ptr() % TMA_ALIGN
-                                         for t in (q, k, v)):
-        raise ValueError("q, k and v must be 16-byte aligned: the bfloat16 "
-                         "kernel loads them with TMA")
+    if any(t.data_ptr() % ALIGN for t in (q, k, v)):
+        raise ValueError("q, k and v must be 16-byte aligned: the kernels "
+                         "load them with TMA (bfloat16) or cp.async "
+                         "(float32)")
     out = torch.empty_like(q)
     if bh and s:
         source, fn = _ROUTES[q.dtype]

@@ -172,6 +172,44 @@ def test_flash_bf16_kernel_matches_plain(dev, d, s, causal, window, bh):
                                atol=1e-2)
 
 
+@pytest.mark.parametrize("causal,window", [(True, -1), (False, -1),
+                                           (True, 1), (False, 16),
+                                           (True, 50)])
+@pytest.mark.parametrize("s", [1, 37, 63, 64, 200, 1000])
+@pytest.mark.parametrize("d", [8, 16, 40, 64, 128, 256])
+def test_flash_f32_kernel_matches_plain(dev, d, s, causal, window):
+    """The SIMT route at its tile edges (128 queries and 64 keys a tile, 64
+    and 32 at d = 256): S below a KV tile, ragged to the query tile, one
+    row; windows below a tile; every template width, with zero columns at
+    d = 8, 16 and 40; BH = 1."""
+    rng = np.random.default_rng(d * 7919 + s + window)
+    q, k, v = (torch.as_tensor(rng.normal(size=(1, s, d)),
+                               dtype=torch.float32, device=dev)
+               for _ in range(3))
+    before = flash_attention.launches
+    got = flash_attention(q, k, v, causal=causal, window=window)
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    want = flash_attention_plain(q, k, v, causal=causal, window=window)
+    assert got.dtype == torch.float32 and got.shape == q.shape
+    torch.testing.assert_close(got, want, rtol=2e-4, atol=2e-4)
+
+
+def test_flash_f32_kernel_rejects_misaligned_pointer(dev):
+    """cp.async copies 16 bytes from a 16-byte aligned address: a view one
+    float into its storage raises before any launch."""
+    flat = torch.zeros(4 * 64 + 1, dtype=torch.float32, device=dev)
+    q = flat[1:].view(1, 4, 64)
+    assert q.is_contiguous() and q.data_ptr() % 16 != 0
+    k = torch.zeros((1, 4, 64), dtype=torch.float32, device=dev)
+    before = flash_attention.launches
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(q, k, k)
+    with pytest.raises(ValueError, match="aligned"):
+        flash_attention(k, q, k)
+    assert flash_attention.launches == before
+
+
 def test_flash_bf16_kernel_rejects_misaligned_pointer(dev):
     """TMA needs a 16-byte aligned base: a view two bytes into its storage
     raises before any launch."""
