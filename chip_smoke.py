@@ -18,15 +18,30 @@ Phases, one JSON line each:
    kernels and copies of the plain version and of one PyTorch library call
    where one computes the same function), and the per-call time of
    back-to-back calls between CUDA events, which includes the host's
-   dispatch.  Beside them, the least time the card could take.  A sweep of
-   the serial kernel over its number of dependent XORs follows.
+   dispatch.  Beside them, the least time the card could take.
+   ``gf2_find_low`` runs on whole blocks, on a segment's window of a wider
+   block and on an unaligned view; ``gf2_scatter_xor`` at 11 % of a
+   block's bits, with and without repeated coordinates, beside the dense
+   ``gf2_parallel_xor`` (kept off the path).  A sweep of the serial kernel
+   over its number of dependent XORs follows.
 4. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
-   ``engine="packed"``); the launch count of every kernel during that call
-   must be > 0, and the harvest must be identical to a second harvest of
-   the same cloud through the plain pairwise version on the card.  The
-   call runs under ``torch.profiler``, for the card's busy and idle share
-   and each kernel's device time on the path.
+   ``engine="packed"``); the launch count of every kernel of the path
+   during that call must be > 0 (``gf2_parallel_xor``'s is reported: 0),
+   and the harvest must be identical to a second harvest of the same cloud
+   through the plain pairwise version on the card.  The call runs under
+   ``torch.profiler``, for the card's busy and idle share and each
+   kernel's device time on the path.  A wrapper around the kernel branch
+   of the parallel phase (``_PackedBatch.xor_rows_kernels``) times every
+   round and keeps the first 200 with the state they met; the copies are
+   timed (``round_capture_s``) and the wall is reported with and without
+   them.
+   ``round_step`` — the parallel-phase round, old form (a host-built
+   dense addend block, the dense kernel, a padded find-low round trip per
+   segment; ``old_step`` here) against the new, on copies of the same
+   state with equal results: at 128 x 128 and 128 x 2048 words (8 repeats)
+   and on the 200 captured rounds.  The new form's summed time must not
+   exceed the old's in any of the three.
 5. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
@@ -273,6 +288,100 @@ def serial_block(rng, c: int, cap: int, planted: int = 16) -> np.ndarray:
     return blk
 
 
+# gf2_find_low's phase-3 cases: (rows, words, view).  "whole" is a block of
+# its own; "window" reads words 2,176 .. 4,351 of a 128 x 4,352 block (a
+# segment's window, no copy); "unaligned" starts one word past a 16-byte
+# boundary, which takes the kernel's word-load variant.
+FIND_LOW_CASES = ((128, 128, "whole"), (128, 1024, "whole"),
+                  (128, 2048, "whole"), (128, 2176, "window"),
+                  (128, 2048, "unaligned"))
+# Addend bits per block bit in the scatter-XOR cases, about what a dense
+# round of the packed engine carries.
+SCATTER_DENSITY = 0.11
+
+
+def find_low_case(dev, rng, c: int, w: int, view: str) -> dict:
+    """gf2_find_low against its plain version on one view, timed, with its
+    bound: the words up to each row's low read once, the lows written."""
+    from repro_torch.kernels import gf2
+
+    cols = sparse_rows(rng, c, w)
+    if view == "whole":
+        t = gf2.to_tensor(cols, dev)
+    elif view == "window":
+        wide = np.zeros((c, 2 * w), dtype=np.uint32)
+        wide[:, :w] = 0xFFFFFFFF              # words the window excludes
+        wide[:, w:] = cols
+        t = gf2.to_tensor(wide, dev)[:, w:]
+    else:
+        t = gf2.to_tensor(np.concatenate(
+            [np.zeros(1, np.uint32), cols.reshape(-1)]), dev)[1:].view(c, w)
+    got = gf2.gf2_find_low(t)
+    want = gf2.gf2_find_low_plain(t)
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want) and np.array_equal(
+            got.cpu().numpy(), gf2.find_low_np(cols))):
+        raise AssertionError(f"gf2_find_low differs at {c}x{w} {view}")
+    nzw = cols != 0
+    scanned = np.where(nzw.any(1), nzw.argmax(1) + 1, w).sum()
+    b_ms, b_by = bound(scanned * 4.0 + c * 4.0, scanned)
+    t_ = timings("gf2_find_low_kernel", lambda: gf2.gf2_find_low(t),
+                 lambda: gf2.gf2_find_low_plain(t), None, 200, 50)
+    return dict(name="gf2_find_low", shape=[c, w], view=view,
+                row_stride=int(t.stride(0)),
+                aligned=int(t.data_ptr() % 16 == 0), max_abs_err=0.0,
+                exact=True, **t_, bound_ms=b_ms, bound_by=b_by,
+                bound_share=(b_ms / t_["kernel_ms"]) if t_["kernel_ms"]
+                else None)
+
+
+def scatter_xor_case(dev, rng, c: int, w: int, repeat: bool) -> dict:
+    """gf2_scatter_xor against its plain version, at SCATTER_DENSITY of the
+    block's bits (with ``repeat``, a third of the coordinates again), timed
+    with its coordinates on the host, where the wrapper range-checks and
+    stages them, beside torch.bitwise_xor on a dense addend block built
+    beforehand.  Bound: the coordinates read once, each
+    touched word read and written once."""
+    from repro_torch.kernels import gf2
+
+    n_bits = c * w * 32
+    flat = rng.choice(n_bits, size=int(SCATTER_DENSITY * n_bits),
+                      replace=False)
+    if repeat:
+        flat = np.concatenate([flat, flat[::3]])
+        rng.shuffle(flat)
+    rows = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    idx_host = torch.from_numpy(flat.astype(np.int64))
+    idx_dev = idx_host.to(dev, torch.int32)
+    t = gf2.to_tensor(rows, dev)
+    want = gf2.gf2_scatter_xor_plain(t.clone(), idx_dev)
+    got = gf2.gf2_scatter_xor(t.clone(), idx_host)
+    u, counts = np.unique(flat, return_counts=True)
+    u = u[counts % 2 == 1]
+    host = rows.copy()
+    gf2.scatter_xor_bits(host, u // (w * 32), u % (w * 32))
+    torch.cuda.synchronize()
+    if not (torch.equal(got, want)
+            and np.array_equal(gf2.to_numpy(got), host)):
+        raise AssertionError(f"gf2_scatter_xor differs at {c}x{w}, "
+                             f"repeat={repeat}")
+    dense = gf2.to_tensor(host ^ rows, dev)
+    touched = np.unique(flat >> 5).size
+    b_ms, b_by = bound(flat.size * 4.0 + touched * 8.0, flat.size)
+    scratch = t.clone()
+    t_ = timings("gf2_scatter_xor_kernel",
+                 lambda: gf2.gf2_scatter_xor(scratch, idx_host),
+                 lambda: gf2.gf2_scatter_xor_plain(scratch, idx_dev),
+                 lambda: torch.bitwise_xor(t, dense), 200, 20)
+    return dict(name="gf2_scatter_xor", shape=[c, w], repeat=repeat,
+                coords=int(flat.size), touched_words=int(touched),
+                max_abs_err=0.0, exact=True, **t_,
+                library="torch.bitwise_xor on a pre-built dense addend block",
+                bound_ms=b_ms, bound_by=b_by,
+                bound_share=(b_ms / t_["kernel_ms"]) if t_["kernel_ms"]
+                else None)
+
+
 def check_kernels(dev) -> dict:
     from repro_torch.kernels import gf2
     from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
@@ -308,25 +417,16 @@ def check_kernels(dev) -> dict:
         emit("kernels", **entry)
         summary.setdefault("pairwise_sq_dists", entry)
 
-    for w in (128, 2048):
-        c = 128
-        cols = sparse_rows(rng, c, w)
-        t = gf2.to_tensor(cols, dev)
-        got = gf2.gf2_find_low(t)
-        want = gf2.gf2_find_low_plain(t)
-        torch.cuda.synchronize()
-        if not torch.equal(got, want):
-            raise AssertionError(f"gf2_find_low differs at W={w}")
-        nzw = cols != 0
-        scanned = np.where(nzw.any(1), nzw.argmax(1) + 1, w).sum()
-        b_ms, b_by = bound(scanned * 4.0 + c * 4.0, scanned)
-        entry = dict(
-            name="gf2_find_low", shape=[c, w], max_abs_err=0.0, exact=True,
-            **timings("gf2_find_low_kernel", lambda: gf2.gf2_find_low(t),
-                      lambda: gf2.gf2_find_low_plain(t), None, 200, 50),
-            bound_ms=b_ms, bound_by=b_by)
+    for case in FIND_LOW_CASES:
+        entry = find_low_case(dev, rng, *case)
         emit("kernels", **entry)
         summary.setdefault("gf2_find_low", entry)
+
+    for w in (128, 2048):
+        for repeat in (False, True):
+            entry = scatter_xor_case(dev, rng, 128, w, repeat)
+            emit("kernels", **entry)
+            summary.setdefault("gf2_scatter_xor", entry)
 
     for w in (128, 2048):
         c = 128
@@ -570,8 +670,12 @@ def prefill_copies(dev, rng) -> dict:
 # phases 4 and 5: the port's main path, and card vs CPU
 # ---------------------------------------------------------------------------
 
-PH_KERNELS = ("pairwise_sq_dists", "gf2_find_low", "gf2_parallel_xor",
+PH_KERNELS = ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor",
               "gf2_serial_reduce")
+# Kernels kept beside the path's: the dense parallel XOR, whose launches on
+# the path are reported (0: the round runs gf2_scatter_xor instead).
+OFF_PATH_KERNELS = ("gf2_parallel_xor",)
+CAPTURED_ROUNDS = 200
 
 
 def kernel_counters():
@@ -582,6 +686,7 @@ def kernel_counters():
 
     return {"pairwise_sq_dists": pairwise_sq_dists,
             "gf2_find_low": gf2.gf2_find_low,
+            "gf2_scatter_xor": gf2.gf2_scatter_xor,
             "gf2_parallel_xor": gf2.gf2_parallel_xor,
             "gf2_serial_reduce": gf2.gf2_serial_reduce,
             "flash_attention": flash_attention}
@@ -608,7 +713,191 @@ def n_pairs(res) -> dict:
     return {str(d): int(pd.shape[0]) for d, pd in res.diagrams.items()}
 
 
-def main_path(dev, n: int) -> dict:
+class RoundTap:
+    """Wraps ``_PackedBatch.xor_rows_kernels``, the kernel branch of
+    ``xor_addends``, for the length of a ``with`` block: times every call
+    (host clock; the round ends in a synchronising copy), notes its rows
+    and coordinates, and keeps the inputs of the first ``keep`` calls, with
+    a copy of the batch state they met and their time on the path, for
+    :func:`round_step` to replay.  The copies run inside the main path's
+    timed call; ``capture_s`` is their host time, which the main path
+    reports beside its wall."""
+
+    def __init__(self, keep: int):
+        self.keep = keep
+        self.calls = 0
+        self.seconds = 0.0
+        self.rows = 0
+        self.coords = 0
+        self.rounds = []
+        self.path_s = []
+        self.capture_s = 0.0
+
+    def __enter__(self):
+        from repro_torch.core.packed_reduce import _PackedBatch
+
+        real = self.real = _PackedBatch.xor_rows_kernels
+        tap = self
+
+        def tapped(batch, packed_hit, ridx, pos):
+            keep = len(tap.rounds) < tap.keep
+            if keep:
+                t0 = time.perf_counter()
+                tap.rounds.append((batch_state(batch), list(packed_hit),
+                                   ridx.copy(), pos.copy()))
+                tap.capture_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = real(batch, packed_hit, ridx, pos)
+            dt = time.perf_counter() - t0
+            if keep:
+                tap.path_s.append(dt)
+            tap.seconds += dt
+            tap.calls += 1
+            tap.rows += len(packed_hit)
+            tap.coords += len(pos)
+            return out
+
+        _PackedBatch.xor_rows_kernels = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core.packed_reduce import _PackedBatch
+
+        _PackedBatch.xor_rows_kernels = self.real
+
+
+def batch_state(batch) -> dict:
+    """What a parallel-phase round reads and writes of a ``_PackedBatch``."""
+    return dict(B=batch.B, VW=batch.VW, device=batch.device,
+                block=batch.block.copy(), segs=list(batch.segs),
+                seg_off=list(batch.seg_off), r_words=batch.r_words,
+                cap=batch.cap, lows=batch.lows.copy(),
+                peak_bytes=batch.peak_bytes)
+
+
+def batch_from(state: dict):
+    """A kernel-path ``_PackedBatch`` holding a copy of ``state``."""
+    from repro_torch.core.packed_reduce import _PackedBatch
+
+    b = object.__new__(_PackedBatch)
+    b.__dict__.update(state, block=state["block"].copy(),
+                      lows=state["lows"].copy(), use_kernels=True,
+                      cache=None, scalar={}, n_consolidations=0,
+                      n_expansions=0, n_evictions=0)
+    return b
+
+
+def old_step(batch, packed_hit, ridx, pos) -> None:
+    """The kernel branch of ``xor_addends`` before the round was
+    rewired, kept to time against the new one: a dict maps rows to
+    local indices, a lexsort orders the coordinates, ``scatter_bits`` fills
+    a dense (rows, cap) addend block on the host, the dense
+    ``gf2_parallel_xor`` XORs it into a device copy of the rows, the rows
+    come back, and ``refresh_lows`` runs ``gf2_find_low`` on each segment's
+    rows, padded to 32, in one round trip each."""
+    from repro_torch.kernels import gf2
+
+    local = {r: k for k, r in enumerate(packed_hit)}
+    lrid = np.array([local[int(r)] for r in ridx], dtype=np.int64)
+    order = np.lexsort((pos, lrid))
+    packed = np.zeros((len(packed_hit), batch.cap), dtype=np.uint32)
+    gf2.scatter_bits(packed, lrid[order], pos[order])
+    batch.peak_bytes = max(batch.peak_bytes,
+                           batch.block.nbytes + packed.nbytes)
+    rview = batch.block[:, :batch.cap]
+    rview[packed_hit] = gf2.to_numpy(gf2.gf2_parallel_xor(
+        gf2.to_tensor(rview[packed_hit], batch.device),
+        gf2.to_tensor(packed, batch.device)))
+    batch.refresh_lows(np.asarray(packed_hit, dtype=np.int64))
+
+
+def step_pair(state, packed_hit, ridx, pos, old_first: bool):
+    """Both steps on copies of one state, in the given order: their host
+    seconds (each ends in a synchronising copy), checked to leave equal
+    rows, lows and peak accounts.  The new step is the round as the path
+    runs it, ``xor_rows_kernels``."""
+    out = {}
+    for name in (("old", "new") if old_first else ("new", "old")):
+        b = batch_from(state)
+        fn = old_step if name == "old" else type(b).xor_rows_kernels
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn(b, packed_hit, ridx, pos)
+        torch.cuda.synchronize()
+        out[name] = (time.perf_counter() - t0, b)
+    a, b = out["old"][1], out["new"][1]
+    if not (np.array_equal(a.block, b.block) and np.array_equal(a.lows,
+                                                                b.lows)
+            and a.peak_bytes == b.peak_bytes):
+        raise AssertionError(f"old and new steps differ on a round of "
+                             f"{len(packed_hit)} rows")
+    return out["old"][0], out["new"][0]
+
+
+def synthetic_round(rng, dev, c: int, w: int):
+    """A dense kernel-path round at a phase-3 shape: c rows of a one-segment
+    block of w words (c * w * 32 keys), every row hit, each row's addend
+    SCATTER_DENSITY of the bit space with ascending ranks, as the path
+    hands them over."""
+    universe = np.sort(rng.choice(2**40, size=w * 32, replace=False))
+    block = np.zeros((c, w + (c + 31) // 32), dtype=np.uint32)
+    block[:, :w] = sparse_rows(rng, c, w)
+    ranks = [np.sort(rng.choice(w * 32, size=int(SCATTER_DENSITY * w * 32),
+                                replace=False)) for _ in range(c)]
+    ridx = np.repeat(np.arange(c, dtype=np.int64), [len(r) for r in ranks])
+    state = dict(B=c, VW=(c + 31) // 32, device=dev, block=block,
+                 segs=[universe], seg_off=[0], r_words=w, cap=w,
+                 lows=np.full(c, -1, dtype=np.int64),
+                 peak_bytes=block.nbytes)
+    return state, list(range(c)), ridx, np.concatenate(ranks)
+
+
+def round_step(dev, tap: RoundTap, repeats: int = 8) -> dict:
+    """The parallel-phase round, old form against new, in this run: at the
+    two phase-3 shapes (``repeats`` times each, the order alternating) and
+    on the rounds captured from the main path (the order alternating by
+    round, after one warm-up pair), beside the same rounds' seconds on the
+    path, which ran under the profiler."""
+    rng = np.random.default_rng(1)
+    shapes = []
+    for w in (128, 2048):
+        args = synthetic_round(rng, dev, 128, w)
+        step_pair(*args, True)                       # warm-up
+        times = [step_pair(*args, k % 2 == 0) for k in range(repeats)]
+        shapes.append(dict(
+            rows=128, words=w, coords=int(args[2].size), repeats=repeats,
+            old_s=[t[0] for t in times], new_s=[t[1] for t in times],
+            old_sum_s=sum(t[0] for t in times),
+            new_sum_s=sum(t[1] for t in times)))
+    rounds = tap.rounds
+    if not rounds:
+        raise AssertionError("no kernel-path round was captured")
+    step_pair(*rounds[0], True)
+    times = [step_pair(*r, k % 2 == 0) for k, r in enumerate(rounds)]
+    captured = dict(
+        n=len(rounds), rows=[len(r[1]) for r in rounds],
+        words=[int(r[0]["cap"]) for r in rounds],
+        coords=[int(r[2].size) for r in rounds],
+        segments=[len(r[0]["segs"]) for r in rounds],
+        old_sum_s=sum(t[0] for t in times), new_sum_s=sum(t[1] for t in times),
+        old_median_s=float(np.median([t[0] for t in times])),
+        new_median_s=float(np.median([t[1] for t in times])),
+        path_sum_s=sum(tap.path_s))
+    out = dict(shapes=shapes, captured=captured,
+               path_kernel_branch=dict(calls=tap.calls, seconds=tap.seconds,
+                                       rows=tap.rows, coords=tap.coords))
+    emit("round_step", **out)
+    for what, o, n in [(f"128x{s['words']}", s["old_sum_s"], s["new_sum_s"])
+                       for s in shapes] + [(
+                           f"{captured['n']} captured rounds",
+                           captured["old_sum_s"], captured["new_sum_s"])]:
+        if not n <= o:
+            raise AssertionError(f"the new round is slower than the old at "
+                                 f"{what}: {n} s against {o} s")
+    return out
+
+
+def main_path(dev, n: int, tap: RoundTap) -> dict:
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
     from repro_torch.kernels.pairwise_dist import pairwise_sq_dists_plain
@@ -627,17 +916,19 @@ def main_path(dev, n: int) -> dict:
 
     # The whole call runs under the profiler: its device events give the
     # card's busy time and each kernel's device time on the path.
-    (res, wall), evs = profiled(run)
-    launches = {k: counters[k].launches for k in PH_KERNELS}
+    with tap:
+        (res, wall), evs = profiled(run)
+    launches = {k: counters[k].launches
+                for k in PH_KERNELS + OFF_PATH_KERNELS}
     busy_s = busy_us(evs) / 1e6
     per_kernel = {}
-    for k in PH_KERNELS:
+    for k in PH_KERNELS + OFF_PATH_KERNELS:
         kev = [ev for ev in evs if f"{k}_kernel" in ev.name]
         per_kernel[k] = dict(
             profiled_launches=len(kev),
             device_s=sum(ev.time_range.elapsed_us() for ev in kev) / 1e6)
-    for name, count in launches.items():
-        if count <= 0:
+    for name in PH_KERNELS:
+        if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
     for d, pd in res.diagrams.items():
         if not np.isfinite(pd[:, 0]).all() or pd.shape[1] != 2:
@@ -666,6 +957,10 @@ def main_path(dev, n: int) -> dict:
                device_events=len(evs), device_busy_s=busy_s,
                device_idle_share=(1.0 - busy_s / wall) if evs else None,
                kernels_on_path=per_kernel,
+               kernel_round_calls=tap.calls,
+               kernel_round_s=tap.seconds,
+               round_capture_s=tap.capture_s,
+               wall_less_capture_s=wall - tap.capture_s,
                harvest_identical_to_plain=True)
     emit("main_path", **out)
     return out
@@ -1060,7 +1355,10 @@ def main() -> int:
          flash_f32_sass=f32_sass_check(_build, ptxas["flash_attention"]))
 
     summary = check_kernels(dev)
-    path = main_path(dev, MAIN_PATH_N)
+    tap = RoundTap(CAPTURED_ROUNDS)
+    path = main_path(dev, MAIN_PATH_N, tap)
+    round_step(dev, tap)
+    del tap
     cross_check(dev)
     served = serve(dev)
     served_f32 = serve_f32(dev)
@@ -1072,6 +1370,7 @@ def main() -> int:
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
                               "src/repro/kernels/pairwise_dist.py:38"),
         "gf2_find_low": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:230"),
+        "gf2_scatter_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
         "gf2_parallel_xor": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:323"),
         "gf2_serial_reduce": ("csrc/gf2.cu", "src/repro/kernels/gf2.py:290"),
         "flash_attention_bf16": ("csrc/flash_attention_sm90.cu",

@@ -5,7 +5,7 @@ the full published config; ``get_config(name, reduced=True)`` the CPU
 smoke-test variant.  Modules load from this package
 (``repro_torch.configs.<name>``), never the reference's.  Only the dense
 archs the port's model runs have a module here; the others raise
-``NotImplementedError`` (ROADMAP.md §1, item 15: the rest of the LM
+``NotImplementedError`` (ROADMAP.md §1, item 10: the rest of the LM
 substrate).
 """
 from __future__ import annotations
@@ -49,7 +49,7 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     arch = canonical(name)
     if arch in ARCHS and arch not in PORTED:
         raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP.md §1, item 15, LM "
+            f"{name}: not ported yet (ROADMAP.md §1, item 10, LM "
             f"substrate); the port has {', '.join(PORTED)}")
     mod = importlib.import_module(f"repro_torch.configs.{arch}")
     cfg: ModelConfig = mod.CONFIG

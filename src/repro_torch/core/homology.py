@@ -147,6 +147,7 @@ def compute_ph(
     tile_n: int = 2048,
     mesh=None,
     n_shards: Optional[int] = None,
+    exchange_every: int = 4,
     sanitize: Optional[bool] = None,
     trace=None,
     device: DeviceLike = None,
@@ -180,21 +181,26 @@ def compute_ph(
 
     Not in this port yet, refused with ``NotImplementedError``: ``mesh`` /
     ``n_shards`` (the distributed reduction and the sharded harvest,
-    ROADMAP.md item 9-10), ``engine="batch"`` (item 8) and ``sanitize``
-    (item 12).
+    ROADMAP.md §1 items 4-5), ``exchange_every`` other than 4 (the
+    distributed reduction's cadence, item 4; the diagrams do not depend on
+    it), ``engine="batch"`` (item 1) and ``sanitize`` (item 7).
     """
     if mesh is not None or n_shards is not None:
         raise NotImplementedError(
             "mesh= / n_shards= (distributed reduction, sharded harvest) are "
-            "not ported yet: ROADMAP.md §1 items 9-10")
+            "not ported yet: ROADMAP.md §1 items 4-5")
+    if exchange_every != 4:
+        raise NotImplementedError(
+            "exchange_every != 4 (the distributed reduction's exchange "
+            "cadence) is not ported yet: ROADMAP.md §1 item 4")
     if engine == "batch":
         raise NotImplementedError(
             "engine='batch' (core/serial_parallel.py) is not ported yet: "
-            "ROADMAP.md §1 item 8")
+            "ROADMAP.md §1 item 1")
     if sanitize:
         raise NotImplementedError(
             "sanitize=True (analyze/invariants.py) is not ported yet: "
-            "ROADMAP.md §1 item 12")
+            "ROADMAP.md §1 item 7")
     if engine not in ("single", "packed"):
         raise ValueError(f"unknown engine {engine!r}")
     if backend not in ("dense", "tiled"):

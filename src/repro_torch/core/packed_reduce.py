@@ -3,13 +3,16 @@
 Port of ``src/repro/core/packed_reduce.py``: ``_PackedBatch`` and the
 single-device (P = 1) driver of ``reduce_dimension_packed``, kernel path
 included.  The host-side combinatorics stay numpy, exactly as in the
-reference; on the kernel path the three GF(2) kernels of
+reference; on the kernel path the GF(2) kernels of
 :mod:`repro_torch.kernels.gf2` run on ``device`` — hand-written CUDA on a
-card, their plain PyTorch versions on the CPU.  Each kernel call keeps the
-reference's round trip: the block goes to the device, the kernel runs, the
-block comes back.  The distributed superstep driver (tournament, commit
-sweep, pivot exchange), the sanitizer and the fault hooks stay in the
-reference until the port takes them over.
+card, their plain PyTorch versions on the CPU.  A parallel-phase round
+makes one round trip: the hit rows go to the device, ``gf2_scatter_xor``
+adds the addends' coordinates into them and ``gf2_find_low`` reads each
+segment's window of the result, and rows and lows come back in one copy.
+The serial pre-pass keeps the reference's round trip per call.  The
+distributed superstep driver (tournament, commit sweep, pivot exchange),
+the sanitizer and the fault hooks stay in the reference until the port
+takes them over.
 
 The engine keeps the paper's batch structure — parallel phase against the
 committed pivots, serial phase for intra-batch collisions, clearance
@@ -23,9 +26,9 @@ reduction:
   (``gf2_find_low`` / ``find_low_np``) *is* the engine's ``low``;
 * **parallel phase** — one :meth:`PivotStore.lookup_addends_batched` probe
   per round, then the hit rows absorb their gathered committed-pivot
-  addends: an in-place bit scatter-XOR on host, ``gf2_parallel_xor`` on the
-  gathered addend block on the kernel path.  Only rows whose low moved are
-  probed again;
+  addends: an in-place bit scatter-XOR on host, ``gf2_scatter_xor`` on the
+  device copy of the hit rows on the kernel path.  Only rows whose low
+  moved are probed again;
 * **segmented growth vs eviction** — an addend with keys outside the
   bit-space either *expands* the space (a fresh word-aligned segment) or
   *evicts* its row to plain sorted-key form (``merge_cancel`` chains).
@@ -54,7 +57,7 @@ import torch
 
 from ..device import DeviceLike, resolve_device
 from ..kernels.gf2 import (NO_LOW, find_low_np, gf2_find_low,
-                           gf2_parallel_xor, gf2_serial_reduce, scatter_bits,
+                           gf2_scatter_xor, gf2_serial_reduce, scatter_bits,
                            scatter_xor_bits, set_bit_positions, to_numpy,
                            to_tensor)
 from ..obs.metrics import MetricsRegistry
@@ -247,17 +250,32 @@ class _PackedBatch:
 
     # -- lows ----------------------------------------------------------------
 
+    def _live_segments(self) -> List[Tuple[np.ndarray, int, int]]:
+        """``(keys, word offset, width in words)`` of each non-empty
+        segment."""
+        return [(seg, off, _words(len(seg), self.use_kernels))
+                for seg, off in zip(self.segs, self.seg_off) if len(seg)]
+
+    def _set_lows(self, rows: np.ndarray, bit_lows: List[np.ndarray]
+                  ) -> None:
+        """``lows[rows]`` from each live segment's first-set-bit ranks
+        (``NO_LOW`` where a row has none there): the min key over
+        segments."""
+        best = np.full(len(rows), EMPTY_KEY, dtype=np.int64)
+        for (seg, _, _), lb in zip(self._live_segments(), bit_lows):
+            k = np.where(lb == NO_LOW, EMPTY_KEY,
+                         seg[np.minimum(lb, len(seg) - 1)])
+            best = np.minimum(best, k)
+        self.lows[rows] = np.where(best == EMPTY_KEY, -1, best)
+
     def refresh_lows(self, rows: np.ndarray) -> None:
         """Recompute ``lows[rows]`` (packed rows) as the min key over
         per-segment find-lows (``gf2_find_low`` on the kernel path)."""
         rows = np.asarray(rows, dtype=np.int64)
         if not rows.size:
             return
-        best = np.full(len(rows), EMPTY_KEY, dtype=np.int64)
-        for seg, off in zip(self.segs, self.seg_off):
-            if not len(seg):
-                continue
-            w = _words(len(seg), self.use_kernels)
+        bit_lows = []
+        for _, off, w in self._live_segments():
             sub = self.block[rows, off:off + w]
             if self.use_kernels:
                 # rows padded to a multiple of 32, as the reference buckets
@@ -271,10 +289,8 @@ class _PackedBatch:
                 lb = lb[:len(rows)]
             else:
                 lb = find_low_np(sub)
-            k = np.where(lb == NO_LOW, EMPTY_KEY,
-                         seg[np.minimum(lb, len(seg) - 1)])
-            best = np.minimum(best, k)
-        self.lows[rows] = np.where(best == EMPTY_KEY, -1, best)
+            bit_lows.append(lb)
+        self._set_lows(rows, bit_lows)
 
     def _row_low(self, c: int) -> int:
         best = -1
@@ -291,12 +307,58 @@ class _PackedBatch:
 
     # -- parallel phase ------------------------------------------------------
 
+    def xor_rows_kernels(self, packed_hit: List[int], ridx: np.ndarray,
+                         pos: np.ndarray) -> None:
+        """The kernel path's parallel-phase round: XOR the addend bits at
+        ``(ridx, pos)`` (block row, absolute bit position) into the packed
+        rows ``packed_hit`` and refresh their lows, in one round trip.
+
+        One host buffer (pinned on a card) holds the hit rows and a slot
+        for each segment's lows; it crosses to the device in one copy.
+        There ``gf2_scatter_xor`` flips the addends' bits in the rows in
+        place (it range-checks and stages their flat indices itself) and
+        ``gf2_find_low`` reads each segment's window of them; rows and lows
+        come back in one synchronising copy.  The reference builds a dense
+        addend block on the host instead; the bits that land are the
+        same."""
+        hit = np.asarray(packed_hit, dtype=np.int64)
+        n, cap = len(hit), self.cap
+        lut = np.full(self.B, -1, dtype=np.int64)
+        lut[hit] = np.arange(n, dtype=np.int64)
+        local = lut[ridx]
+        if (local < 0).any():
+            raise KeyError(f"addend rows {np.unique(ridx[local < 0])} are "
+                           "not among the round's hit rows")
+        flat = local * (cap * 32) + pos
+        # the device copy of the hit rows is the size of the reference's
+        # dense addend block, which it stands for in the peak account
+        self.peak_bytes = max(self.peak_bytes,
+                              self.block.nbytes + n * cap * 4)
+        segs = self._live_segments()
+        n_back = n * cap + len(segs) * n        # rows, then lows
+        on_card = self.device.type == "cuda"
+        host = torch.empty(n_back, dtype=torch.int32, pin_memory=on_card)
+        words = host.numpy().view(np.uint32)
+        np.take(self.block[:, :cap], hit, axis=0, mode="clip",
+                out=words[:n * cap].reshape(n, cap))
+        buf = host.to(self.device, non_blocking=True) if on_card else host
+        rows = buf[:n * cap].view(n, cap)
+        gf2_scatter_xor(rows, torch.from_numpy(flat))
+        for s, (_, off, w) in enumerate(segs):
+            gf2_find_low(rows[:, off:off + w],
+                         out=buf[n * cap + s * n:n * cap + (s + 1) * n])
+        if on_card:
+            host.copy_(buf)
+        self.block[hit, :cap] = words[:n * cap].reshape(n, cap)
+        lows = host.numpy()[n * cap:].reshape(len(segs), n)
+        self._set_lows(hit, list(lows))
+
     def xor_addends(self, hit: List[int],
                     addends: List[Optional[np.ndarray]],
                     addend_lows: Optional[np.ndarray] = None) -> None:
         """Parallel-phase GF(2) add: gathered addends into the hit rows —
-        an in-place scatter-XOR on host, ``gf2_parallel_xor`` on a packed
-        addend block on the kernel path; scalar rows ``merge_cancel``.
+        an in-place scatter-XOR on host, :meth:`xor_rows_kernels` on the
+        kernel path; scalar rows ``merge_cancel``.
 
         Addend keys outside every segment either append as a fresh segment
         (dense rounds) or evict their rows (sparse rounds, ``_EVICT_MAX``).
@@ -389,23 +451,11 @@ class _PackedBatch:
                 packed_hit = list(memo_rows)
         if packed_hit:
             if self.use_kernels:
-                local = {r: k for k, r in enumerate(packed_hit)}
-                lrid = np.array([local[int(r)] for r in ridx],
-                                dtype=np.int64)
-                order = np.lexsort((pos, lrid))
-                packed = np.zeros((len(packed_hit), self.cap),
-                                  dtype=np.uint32)
-                scatter_bits(packed, lrid[order], pos[order])
-                self.peak_bytes = max(self.peak_bytes,
-                                      self.block.nbytes + packed.nbytes)
-                rview = self.block[:, :self.cap]
-                rview[packed_hit] = to_numpy(gf2_parallel_xor(
-                    to_tensor(rview[packed_hit], self.device),
-                    to_tensor(packed, self.device)))
+                self.xor_rows_kernels(packed_hit, ridx, pos)
             else:
                 order = np.lexsort((pos, ridx))
                 scatter_xor_bits(self.block, ridx[order], pos[order])
-            self.refresh_lows(np.asarray(packed_hit, dtype=np.int64))
+                self.refresh_lows(np.asarray(packed_hit, dtype=np.int64))
         for i in scalar_hit:
             merged = merge_cancel(self.scalar[i], addends[i])
             self.scalar[i] = merged
@@ -579,18 +629,31 @@ def reduce_dimension_packed(
     batch_size: int = 256,
     store_budget_bytes: Optional[int] = None,
     use_kernels: Optional[bool] = None,
-    device: DeviceLike = None,
+    n_shards: Optional[int] = None,
+    mesh=None,
     cache: Optional[PackedPivotCache] = None,
+    exchange_every: int = 4,
+    seed_gens: Optional[Dict[int, np.ndarray]] = None,
+    commit_sink: Optional[list] = None,
+    essential_log: Optional[list] = None,
+    device: DeviceLike = None,
 ) -> ReductionResult:
     """Bit-packed serial-parallel cohomology reduction (module docstring).
 
-    Same contract as ``reduce_dimension``: ``column_ids`` in decreasing
-    filtration order, diagrams bit-identical to it.  ``device=None`` is the
-    card (``RuntimeError`` without one); ``use_kernels=None`` resolves from
-    the device — the CUDA kernels on ``cuda``, the numpy block mirrors on
-    ``cpu`` — and ``True`` forces the kernel path, which on the CPU runs
-    the kernels' plain versions.  ``cache`` threads a caller-owned
-    :class:`PackedPivotCache` (one is created per call otherwise).
+    The reference's parameters in the reference's order, plus ``device``
+    last.  Same contract as ``reduce_dimension``: ``column_ids`` in
+    decreasing filtration order, diagrams bit-identical to it.
+    ``device=None`` is the card (``RuntimeError`` without one);
+    ``use_kernels=None`` resolves from the device — the CUDA kernels on
+    ``cuda``, the numpy block mirrors on ``cpu`` — and ``True`` forces the
+    kernel path, which on the CPU runs the kernels' plain versions.
+    ``cache`` threads a caller-owned :class:`PackedPivotCache` (one is
+    created per call otherwise).
+
+    Not in this port yet, refused with ``NotImplementedError``: ``n_shards``
+    > 1, ``mesh`` and ``exchange_every`` other than 4 (the distributed
+    driver, ROADMAP.md §1 item 4); ``seed_gens``, ``commit_sink`` and
+    ``essential_log`` (the resume hooks, item 7).
 
     Every batch is a ``reduce/*`` span on a local, always-on tracer (it
     forwards into the user's tracer when ``compute_ph(trace=...)``
@@ -600,6 +663,16 @@ def reduce_dimension_packed(
     sweep) are emitted at their one-device values so both packages report
     one key set.
     """
+    if mesh is not None or (n_shards is not None and n_shards != 1) \
+            or exchange_every != 4:
+        raise NotImplementedError(
+            "n_shards > 1 / mesh= / exchange_every != 4 (the distributed "
+            "reduction) are not ported yet: ROADMAP.md §1 item 4")
+    if seed_gens is not None or commit_sink is not None \
+            or essential_log is not None:
+        raise NotImplementedError(
+            "seed_gens= / commit_sink= / essential_log= (warm resume) are "
+            "not ported yet: ROADMAP.md §1 item 7")
     dev = resolve_device(device)
     tl = Tracer(forward_to=active_tracer())
     use_kernels = _resolve_use_kernels(use_kernels, dev)

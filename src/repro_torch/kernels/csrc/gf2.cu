@@ -4,20 +4,23 @@
 // matrix, key universe[i] lives at bit i (word i >> 5, bit i & 31), so the
 // first set bit of a row is its low.  The tensors cross from PyTorch as
 // int32 carrying the uint32 patterns; the kernels read them as uint32_t.
-// NO_LOW = 2^31 - 1 marks an all-zero row.  All three kernels are exact.
+// NO_LOW = 2^31 - 1 marks an all-zero row.  Every kernel is exact.
 //
 // gf2_find_low      replaces src/repro/kernels/gf2.py::_find_low_kernel
-// gf2_parallel_xor  replaces src/repro/kernels/gf2.py::_parallel_xor_kernel
+// gf2_scatter_xor   replaces src/repro/kernels/gf2.py::_parallel_xor_kernel
+//                   on the packed reduction's path (the addend block given
+//                   as coordinates, XORed into the rows in place)
+// gf2_parallel_xor  the same kernel's dense form, a ^ b of two blocks
 // gf2_serial_reduce replaces src/repro/kernels/gf2.py::_serial_reduce_kernel
 //
 // What bounds them on an H100 at the packed engine's shapes (C <= 128 rows,
-// W = 128 .. 2176 words, a few hundred KB a call): launch and round-trip
-// latency first, then bytes.  find_low and parallel_xor move a block once
-// (read, or read two and write one), microseconds at 3.35 TB/s, below a
-// launch; serial_reduce is a chain of dependent row XORs whose length the
-// data sets.  The designs keep every byte moved once per pass and leave
-// the fixed cost to the caller's batching (device-resident blocks are a
-// later change).
+// W = 128 .. 2176 words, a few hundred KB a call): latency first, then
+// bytes.  find_low and the XORs move a block once, microseconds at 3.35
+// TB/s, below a launch, so their designs keep the dependent steps of a call
+// few: find_low issues all of a row's loads before it tests any, and the
+// scatter-XOR touches only the words that carry an addend bit, with no
+// host-built dense addend block in front of it.  serial_reduce is a chain
+// of dependent row XORs whose length the data sets.
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -28,40 +31,109 @@ constexpr int kNoLow = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
 
 // ---------------------------------------------------------------------------
-// gf2_find_low: one warp per row.  The warp strides over the row 32 words at
-// a time; __ballot_sync marks the non-zero words, the first of them is
-// broadcast with __shfl_sync, and __ffs gives its lowest set bit.  The scan
-// stops at the first non-zero chunk, so a row costs the words up to its low.
+// gf2_find_low: one thread block of T threads per row, the row's loads all
+// in flight.  A pass covers T * K * 4 words: each thread issues its K
+// 16-byte loads (VEC; or 4K coalesced word loads where the row is not
+// 16-byte aligned) before it tests any of them, so a row pays one memory
+// latency a pass, not one per 32 words as a warp walking the row does.  The
+// launcher sizes T and K from W so that the path's rows (W <= 3,072 words)
+// take one pass.  Each thread keeps the first non-zero word in its own
+// words (they ascend in (k, j) order), the warp takes the minimum with
+// __reduce_min_sync, and one shared-memory step reduces the warps.  A row
+// wider than a pass loops, and stops at the first pass that finds a bit.
+// The rows are a strided view: row c starts at cols + c * ld.
 // ---------------------------------------------------------------------------
-constexpr int kFindLowThreads = 256;
-
-__global__ void __launch_bounds__(kFindLowThreads)
+template <int T, int K, bool VEC>
+__global__ void __launch_bounds__(T)
 gf2_find_low_kernel(const uint32_t* __restrict__ cols,
-                    int32_t* __restrict__ lows, int C, int W) {
-  const int row = (blockIdx.x * blockDim.x + threadIdx.x) >> 5;
-  const int lane = threadIdx.x & 31;
-  if (row >= C) return;               // uniform across the warp
-  const uint32_t* r = cols + (size_t)row * W;
-  int low = kNoLow;
-  for (int base = 0; base < W; base += 32) {
-    const int w = base + lane;
-    const uint32_t v = w < W ? r[w] : 0u;
-    const unsigned nz = __ballot_sync(kFull, v != 0u);
-    if (nz != 0u) {
-      const int src = __ffs((int)nz) - 1;
-      const uint32_t first = __shfl_sync(kFull, v, src);
-      low = (base + src) * 32 + (__ffs((int)first) - 1);
-      break;
+                    int32_t* __restrict__ lows, int W, long long ld) {
+  __shared__ int warp_min[T / 32];
+  const uint32_t* r = cols + (size_t)blockIdx.x * (size_t)ld;
+  const int tid = threadIdx.x;
+  constexpr int kPass = T * K * 4;
+  for (int base = 0; base < W; base += kPass) {
+    uint32_t v[K][4];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      if (VEC) {
+        const int w = base + (k * T + tid) * 4;
+        if (w + 3 < W) {
+          const uint4 q = *reinterpret_cast<const uint4*>(r + w);
+          v[k][0] = q.x;
+          v[k][1] = q.y;
+          v[k][2] = q.z;
+          v[k][3] = q.w;
+        } else {
+#pragma unroll
+          for (int j = 0; j < 4; ++j) v[k][j] = w + j < W ? r[w + j] : 0u;
+        }
+      } else {
+#pragma unroll
+        for (int j = 0; j < 4; ++j) {
+          const int w = base + (k * 4 + j) * T + tid;
+          v[k][j] = w < W ? r[w] : 0u;
+        }
+      }
+    }
+    int best = kNoLow;
+#pragma unroll
+    for (int k = K - 1; k >= 0; --k) {
+#pragma unroll
+      for (int j = 3; j >= 0; --j) {
+        const int w = VEC ? base + (k * T + tid) * 4 + j
+                          : base + (k * 4 + j) * T + tid;
+        if (v[k][j] != 0u) best = w * 32 + (__ffs((int)v[k][j]) - 1);
+      }
+    }
+    int low = __reduce_min_sync(kFull, best);
+    if (T > 32) {
+      if ((tid & 31) == 0) warp_min[tid >> 5] = low;
+      __syncthreads();
+#pragma unroll
+      for (int i = 0; i < T / 32; ++i) low = min(low, warp_min[i]);
+      __syncthreads();              // warp_min is reused by the next pass
+    }
+    if (low != kNoLow) {            // uniform across the block
+      if (tid == 0) lows[blockIdx.x] = low;
+      return;
     }
   }
-  if (lane == 0) lows[row] = low;
+  if (tid == 0) lows[blockIdx.x] = kNoLow;
+}
+
+// ---------------------------------------------------------------------------
+// gf2_scatter_xor: the parallel phase's GF(2) add in place.  The gathered
+// addend block comes as one flat index a set bit, row * (W * 32) + rank;
+// one thread a coordinate flips its bit with atomicXor.  XOR commutes, so
+// the result is the same in whatever order the atomics land, and a repeated
+// coordinate cancels as GF(2) addition does.  The work is the touched words
+// (read and written once each) and the coordinates (read once): no dense
+// addend block is built or read.  I is int32_t while C * W * 32 < 2^31,
+// int64_t beyond.
+// ---------------------------------------------------------------------------
+constexpr int kScatterThreads = 256;
+
+template <typename I>
+__global__ void __launch_bounds__(kScatterThreads)
+gf2_scatter_xor_kernel(uint32_t* rows, const I* __restrict__ flat,
+                       long long n, I bits_per_row, long long ld) {
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  for (long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x; i < n;
+       i += stride) {
+    const I f = flat[i];
+    const I row = f / bits_per_row;
+    const I pos = f - row * bits_per_row;
+    atomicXor(rows + (size_t)row * (size_t)ld + (size_t)(pos >> 5),
+              1u << (unsigned)(pos & 31));
+  }
 }
 
 // ---------------------------------------------------------------------------
 // gf2_parallel_xor: out = a ^ b elementwise over n words, grid-stride, with
 // 16-byte vector accesses when all three pointers are 16-byte aligned.  The
 // output is a separate buffer (the wrapper allocates it), not written in
-// place.
+// place.  The reference-shaped dense form: the packed reduction's path runs
+// gf2_scatter_xor instead.
 // ---------------------------------------------------------------------------
 constexpr int kXorThreads = 256;
 
@@ -170,14 +242,53 @@ gf2_serial_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* out,
 
 }  // namespace
 
-// cols (C, W) -> lows (C,).  Returns the cudaError_t of the launch.
+template <int T, int K>
+static void launch_find_low(const void* cols, void* lows, int C, int W,
+                            long long ld, bool vec, cudaStream_t stream) {
+  if (vec)
+    gf2_find_low_kernel<T, K, true><<<C, T, 0, stream>>>(
+        (const uint32_t*)cols, (int32_t*)lows, W, ld);
+  else
+    gf2_find_low_kernel<T, K, false><<<C, T, 0, stream>>>(
+        (const uint32_t*)cols, (int32_t*)lows, W, ld);
+}
+
+// cols (C, W) with row stride ld words -> lows (C,).  Two block sizes, the
+// two that the kernels phase of chip_smoke.py times: 32 threads for rows up
+// to 128 words, 256 threads beyond with K = ceil(W / 1,024) loads a thread,
+// at most 3 (one pass up to 3,072 words; wider rows loop).  Returns the
+// cudaError_t of the launch.
 extern "C" int gf2_find_low(const void* cols, void* lows, int C, int W,
-                            void* stream) {
+                            long long ld, void* stream) {
   if (C <= 0) return 0;
-  const int rows_per_block = kFindLowThreads / 32;
-  const int grid = (C + rows_per_block - 1) / rows_per_block;
-  gf2_find_low_kernel<<<grid, kFindLowThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)cols, (int32_t*)lows, C, W);
+  const cudaStream_t s = (cudaStream_t)stream;
+  const bool vec = (((uintptr_t)cols) & 15u) == 0 && ld % 4 == 0;
+  if (W <= 128)
+    launch_find_low<32, 1>(cols, lows, C, W, ld, vec, s);
+  else if (W <= 1024)
+    launch_find_low<256, 1>(cols, lows, C, W, ld, vec, s);
+  else if (W <= 2048)
+    launch_find_low<256, 2>(cols, lows, C, W, ld, vec, s);
+  else
+    launch_find_low<256, 3>(cols, lows, C, W, ld, vec, s);
+  return (int)cudaGetLastError();
+}
+
+// rows (C, W) with row stride ld words ^= the n flat bit indices (int64 when
+// idx64, else int32) in place.  Returns the cudaError_t of the launch.
+extern "C" int gf2_scatter_xor(void* rows, const void* flat, long long n,
+                               int idx64, long long bits_per_row,
+                               long long ld, void* stream) {
+  if (n <= 0) return 0;
+  long long grid = (n + kScatterThreads - 1) / kScatterThreads;
+  if (grid > 132LL * 16) grid = 132LL * 16;
+  const cudaStream_t s = (cudaStream_t)stream;
+  if (idx64)
+    gf2_scatter_xor_kernel<long long><<<(int)grid, kScatterThreads, 0, s>>>(
+        (uint32_t*)rows, (const long long*)flat, n, bits_per_row, ld);
+  else
+    gf2_scatter_xor_kernel<int><<<(int)grid, kScatterThreads, 0, s>>>(
+        (uint32_t*)rows, (const int*)flat, n, (int)bits_per_row, ld);
   return (int)cudaGetLastError();
 }
 

@@ -5,9 +5,13 @@ Port of ``src/repro/kernels/gf2.py``.  The three Pallas TPU kernels become
 hand-written CUDA for sm_90a in ``csrc/gf2.cu``:
 
 * :func:`gf2_find_low` — per row, the index of the first set bit (the
-  paper's ``low``), ``NO_LOW`` for an empty row (``_find_low_kernel``);
-* :func:`gf2_parallel_xor` — elementwise XOR of a row block with the
-  gathered addend block, the parallel phase (``_parallel_xor_kernel``);
+  paper's ``low``), ``NO_LOW`` for an empty row (``_find_low_kernel``); it
+  reads any row-strided view, such as one segment's window of a block;
+* :func:`gf2_scatter_xor` — the parallel phase (``_parallel_xor_kernel``)
+  as the packed reduction runs it: the gathered addend block, given as one
+  flat bit index per set bit, XORed into the row block in place;
+  :func:`gf2_parallel_xor` keeps the reference's dense form (a row block
+  XOR an addend block of the same shape), off the reduction's path;
 * :func:`gf2_serial_reduce` — per block, the in-order serial phase: while
   a row's low equals an earlier row's low, XOR the first such row in
   (``_serial_reduce_kernel``).
@@ -41,7 +45,10 @@ NO_LOW = 2**31 - 1
 
 _SIGNATURES = {
     "gf2_find_low": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                     ctypes.c_int, ctypes.c_void_p),
+                     ctypes.c_int, ctypes.c_longlong, ctypes.c_void_p),
+    "gf2_scatter_xor": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong,
+                        ctypes.c_int, ctypes.c_longlong, ctypes.c_longlong,
+                        ctypes.c_void_p),
     "gf2_parallel_xor": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                          ctypes.c_longlong, ctypes.c_void_p),
     "gf2_serial_reduce": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -227,6 +234,28 @@ def gf2_parallel_xor_plain(cols: torch.Tensor,
     return torch.bitwise_xor(cols, addends)
 
 
+def gf2_scatter_xor_plain(rows: torch.Tensor,
+                          flat_bits: torch.Tensor) -> torch.Tensor:
+    """XOR the bits at flat indices ``row * (W * 32) + rank`` into a (C, W)
+    int32 bit block in place; returns ``rows``.  A coordinate given twice
+    cancels: the parity of each coordinate's count decides its bit, so the
+    words are assembled from distinct bits only and no sum carries."""
+    C, W = rows.shape
+    if not flat_bits.numel():
+        return rows
+    coords, counts = torch.unique(
+        flat_bits.to(device=rows.device, dtype=torch.int64),
+        return_counts=True)
+    coords = coords[(counts & 1) == 1]
+    words = torch.zeros(C * W, dtype=torch.int64, device=rows.device)
+    words.index_add_(0, coords >> 5,
+                     torch.ones_like(coords) << (coords & 31))
+    # uint32 patterns back into int32's range, bit for bit
+    words = torch.where(words >= 2**31, words - 2**32, words)
+    rows.bitwise_xor_(words.to(torch.int32).view(C, W))
+    return rows
+
+
 def gf2_serial_reduce_plain(blocks: torch.Tensor
                             ) -> Tuple[torch.Tensor, torch.Tensor,
                                        torch.Tensor]:
@@ -264,38 +293,117 @@ def _check_bits(t: torch.Tensor, ndim: int, name: str) -> None:
         raise TypeError(f"{name} must be int32 bit patterns, got {t.dtype}")
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {t.device}")
+
+
+def _check_contiguous(t: torch.Tensor, name: str) -> None:
     if t.device.type == "cuda" and not t.is_contiguous():
         raise ValueError(f"{name} must be contiguous")
+
+
+def _row_stride(t: torch.Tensor, name: str) -> int:
+    """Row stride in words of a 2-D view whose words lie contiguous within
+    each row (a window ``block[:, off:off + w]``); raises for other
+    strides."""
+    C, W = t.shape
+    if W > 1 and t.stride(1) != 1:
+        raise ValueError(f"{name}: words within a row must be contiguous "
+                         f"(strides {t.stride()})")
+    ld = t.stride(0) if C > 1 else W
+    if C > 1 and ld < W:
+        raise ValueError(f"{name}: rows overlap (strides {t.stride()})")
+    return ld
 
 
 def _lib():
     return _build.library("gf2", _SIGNATURES)
 
 
-def gf2_find_low(cols: torch.Tensor) -> torch.Tensor:
+def gf2_find_low(cols: torch.Tensor,
+                 out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """First-set-bit index per row of a (C, W) int32 bit block -> (C,)
-    int32, ``NO_LOW`` for an empty row.  Any C and W: padding rows or
-    words, where a caller wants fixed shapes, is the caller's."""
+    int32, ``NO_LOW`` for an empty row.  Any C and W, and any view whose
+    words are contiguous within each row (a segment's window of a wider
+    block needs no copy); padding, where a caller wants fixed shapes, is
+    the caller's.  ``out``, a contiguous (C,) int32 tensor on the same
+    device, receives the lows where given."""
     _check_bits(cols, 2, "cols")
-    if cols.device.type == "cpu":
-        return gf2_find_low_plain(cols)
     C, W = cols.shape
-    lows = torch.empty(C, dtype=torch.int32, device=cols.device)
+    if out is None:
+        out = torch.empty(C, dtype=torch.int32, device=cols.device)
+    elif (out.shape != (C,) or out.dtype != torch.int32
+          or out.device != cols.device or not out.is_contiguous()):
+        raise ValueError(f"out must be a contiguous ({C},) int32 tensor on "
+                         f"{cols.device}")
+    if cols.device.type == "cpu":
+        out.copy_(gf2_find_low_plain(cols))
+        return out
+    ld = _row_stride(cols, "cols")
     if C:
         stream = torch.cuda.current_stream(cols.device).cuda_stream
-        err = _lib().gf2_find_low(cols.data_ptr(), lows.data_ptr(), C, W,
+        err = _lib().gf2_find_low(cols.data_ptr(), out.data_ptr(), C, W, ld,
                                   stream)
         gf2_find_low.launches += 1
         _build.check_launch(err, "gf2_find_low")
-    return lows
+    return out
+
+
+def gf2_scatter_xor(rows: torch.Tensor,
+                    flat_bits: torch.Tensor) -> torch.Tensor:
+    """Parallel-phase GF(2) add in place: XOR the gathered addend block,
+    given as one flat index ``local_row * (W * 32) + bit_rank`` a set bit,
+    into the (C, W) int32 bit block ``rows``; returns ``rows``.
+
+    ``flat_bits`` is a 1-D int32 or int64 tensor on the host, whatever
+    device ``rows`` lies on: it is range-checked there (an index outside the
+    block raises ``ValueError``) and, for rows on a card, crosses in one
+    copy from pinned memory, as int32 where ``C * W * 32 < 2**31`` and as
+    int64 otherwise.  Repeated coordinates cancel; the order of the
+    coordinates does not matter."""
+    _check_bits(rows, 2, "rows")
+    if flat_bits.dim() != 1 or flat_bits.dtype not in (torch.int32,
+                                                       torch.int64):
+        raise TypeError("flat_bits must be a 1-D int32 or int64 tensor, got "
+                        f"{flat_bits.dtype} {tuple(flat_bits.shape)}")
+    if flat_bits.device.type != "cpu":
+        raise ValueError(f"flat_bits must be on the host, got "
+                         f"{flat_bits.device}")
+    C, W = rows.shape
+    n_bits = C * W * 32
+    n = flat_bits.numel()
+    host = flat_bits.numpy()            # numpy's reductions cost less here
+    if n:
+        lo, hi = int(host.min()), int(host.max())
+        if lo < 0 or hi >= n_bits:
+            raise ValueError(f"flat_bits span [{lo}, {hi}], outside the "
+                             f"block's {n_bits} bits")
+    if rows.device.type == "cpu":
+        return gf2_scatter_xor_plain(rows, flat_bits)
+    ld = _row_stride(rows, "rows")
+    if not n:
+        return rows
+    idx64 = n_bits >= 2**31
+    staged = torch.empty(n, dtype=torch.int64 if idx64 else torch.int32,
+                         pin_memory=True)
+    np.copyto(staged.numpy(), host, casting="unsafe")
+    flat_dev = staged.to(rows.device, non_blocking=True)
+    stream = torch.cuda.current_stream(rows.device).cuda_stream
+    err = _lib().gf2_scatter_xor(rows.data_ptr(), flat_dev.data_ptr(), n,
+                                 int(idx64), W * 32, ld, stream)
+    gf2_scatter_xor.launches += 1
+    _build.check_launch(err, "gf2_scatter_xor")
+    return rows
 
 
 def gf2_parallel_xor(cols: torch.Tensor,
                      addends: torch.Tensor) -> torch.Tensor:
-    """Parallel-phase GF(2) add: ``cols ^ addends`` for two (C, W) int32 bit
-    blocks, into a new tensor."""
+    """Parallel-phase GF(2) add in the reference's dense form: ``cols ^
+    addends`` for two (C, W) int32 bit blocks, into a new tensor.  The
+    packed reduction no longer calls it (it runs :func:`gf2_scatter_xor` on
+    the addends' coordinates), so it launches 0 times on that path."""
     _check_bits(cols, 2, "cols")
     _check_bits(addends, 2, "addends")
+    _check_contiguous(cols, "cols")
+    _check_contiguous(addends, "addends")
     if cols.shape != addends.shape or cols.device != addends.device:
         raise ValueError(f"cols {tuple(cols.shape)} on {cols.device} vs "
                          f"addends {tuple(addends.shape)} on "
@@ -321,6 +429,7 @@ def gf2_serial_reduce(blocks: torch.Tensor
     int32).  Afterwards every block's non-empty rows have pairwise-distinct
     lows — the invariant the clearance step commits."""
     _check_bits(blocks, 3, "blocks")
+    _check_contiguous(blocks, "blocks")
     if blocks.device.type == "cpu":
         return gf2_serial_reduce_plain(blocks)
     G, C, W = blocks.shape
@@ -341,5 +450,6 @@ def gf2_serial_reduce(blocks: torch.Tensor
 
 
 gf2_find_low.launches = 0
+gf2_scatter_xor.launches = 0
 gf2_parallel_xor.launches = 0
 gf2_serial_reduce.launches = 0

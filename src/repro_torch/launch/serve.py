@@ -1,7 +1,7 @@
 """Batched token serving over synthetic traffic.
 
 Port of ``src/repro/launch/serve.py``, ``--workload tokens`` only (the PH
-workload waits for ``PHServeEngine``, ROADMAP.md §1, item 12).  The
+workload waits for ``PHServeEngine``, ROADMAP.md §1, item 7).  The
 default config is the reduced one, as the reference's; ``--full`` serves
 the published width.  Runs on the card unless ``--device cpu``.
 
@@ -66,7 +66,7 @@ def main(argv=None) -> None:
     args = ap.parse_args(argv)
     if args.workload == "ph":
         raise NotImplementedError("--workload ph: PHServeEngine is not "
-                                  "ported yet (ROADMAP.md §1, item 12)")
+                                  "ported yet (ROADMAP.md §1, item 7)")
     run_tokens(args)
 
 

@@ -2,7 +2,7 @@
 prefill/decode KV-cache paths.
 
 Port of ``src/repro/models/attention.py`` (MLA, M-RoPE and cross-attention
-wait: ROADMAP.md §1, item 15).  Masking is data-driven (per-layer window
+wait: ROADMAP.md §1, item 10).  Masking is data-driven (per-layer window
 int; -1 = global).
 
 **The prefill route.**  The reference's own attention is jnp, and its

@@ -6,7 +6,7 @@ parameter tree across is a copy, not a transpose.  The functions take
 plain tensors; :class:`RMSNorm` and :class:`MLP` are the ``nn.Module``
 holders the transformer is built from.  ``constrain`` is dropped: without
 a mesh it is a no-op.  ``apply_mrope`` and ``sinusoidal_positions`` wait
-for the archs that use them (ROADMAP.md §1, item 15).
+for the archs that use them (ROADMAP.md §1, item 10).
 """
 from __future__ import annotations
 
@@ -90,7 +90,7 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # Serving only: the training path is not ported (ROADMAP.md §1, item 15).
+    # Serving only: the training path is not ported (ROADMAP.md §1, item 10).
     return nn.Parameter(t, requires_grad=False)
 
 

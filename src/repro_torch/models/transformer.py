@@ -16,7 +16,7 @@ reference's per-repeat window scalar).  Entry points:
 * :func:`decode_step` — one token against the fixed-capacity cache.
 
 MoE, MLA, the recurrent blocks, enc-dec, M-RoPE and embedding inputs raise
-``NotImplementedError`` (ROADMAP.md §1, item 15), as does training.
+``NotImplementedError`` (ROADMAP.md §1, item 10), as does training.
 """
 from __future__ import annotations
 
@@ -33,7 +33,7 @@ from .attention import Attention, attn_params
 from .config import ModelConfig
 from .layers import MLP, RMSNorm, _param, dense_init, embed, unembed
 
-_NOT_PORTED = "not ported yet (ROADMAP.md §1, item 15, LM substrate)"
+_NOT_PORTED = "not ported yet (ROADMAP.md §1, item 10, LM substrate)"
 
 
 @dataclasses.dataclass(frozen=True)

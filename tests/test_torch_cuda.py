@@ -78,6 +78,130 @@ def test_find_low_kernel_matches_plain(dev, c, w):
     assert torch.equal(got.cpu(), gf2.gf2_find_low_plain(t.cpu()))
 
 
+def _window_rows(rng, c, w):
+    """Bit rows whose first set word lies anywhere in the row, some
+    empty."""
+    rows = (rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+            & rng.integers(0, 2**32, size=(c, w), dtype=np.uint32))
+    first = rng.integers(0, w + 1, size=c)
+    rows[np.arange(w)[None, :] < first[:, None]] = 0
+    rows[::4] = 0
+    return rows
+
+
+# (word offset of the window, words before the block's start): a whole
+# block, a 16-byte-aligned window of a wider block, an unaligned window.
+VIEWS = {"whole": (0, 0), "aligned": (128, 0), "unaligned": (1, 1)}
+
+
+@pytest.mark.parametrize("view", sorted(VIEWS))
+@pytest.mark.parametrize("w", [1, 3, 128, 2048, 2176])
+@pytest.mark.parametrize("c", [1, 31, 128, 256])
+def test_find_low_kernel_on_windows_matches_plain(dev, c, w, view):
+    rng = np.random.default_rng(c * 31 + w)
+    off, lead = VIEWS[view]
+    width = off + w + (64 if view != "whole" else 0)
+    flat = np.full(lead + c * width, 0xFFFFFFFF, dtype=np.uint32)
+    block = flat[lead:].reshape(c, width)
+    block[:, off:off + w] = _window_rows(rng, c, w)
+    window = _bits(flat, dev)[lead:].view(c, width)[:, off:off + w]
+    before = gf2.gf2_find_low.launches
+    got = gf2.gf2_find_low(window)
+    torch.cuda.synchronize()
+    assert gf2.gf2_find_low.launches == before + 1
+    want = gf2.gf2_find_low_plain(window.cpu())
+    assert torch.equal(got.cpu(), want)
+    np.testing.assert_array_equal(want.numpy(),
+                                  gf2.find_low_np(block[:, off:off + w]))
+
+
+def test_find_low_kernel_rejects_strided_words(dev):
+    cols = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        gf2.gf2_find_low(cols[:, ::2])
+
+
+@pytest.mark.parametrize("index", ["host64", "host32"])
+@pytest.mark.parametrize("repeat", [False, True])
+@pytest.mark.parametrize("w", [1, 3, 128, 2048, 2176])
+@pytest.mark.parametrize("c", [1, 31, 128, 256])
+def test_scatter_xor_kernel_matches_plain(dev, c, w, repeat, index):
+    rng = np.random.default_rng(c * 7 + w)
+    rows = rng.integers(0, 2**32, size=(c, w), dtype=np.uint32)
+    n_bits = c * w * 32
+    flat = rng.choice(n_bits, size=max(1, n_bits // 9), replace=False)
+    if repeat:
+        flat = np.concatenate([flat, flat[::3], flat[::6]])
+        rng.shuffle(flat)
+    idx = torch.from_numpy(flat.astype(np.int64 if index == "host64"
+                                       else np.int32))
+    t = _bits(rows, dev)
+    want = gf2.gf2_scatter_xor_plain(t.clone(), idx)
+    before = gf2.gf2_scatter_xor.launches
+    assert gf2.gf2_scatter_xor(t, idx) is t
+    torch.cuda.synchronize()
+    assert gf2.gf2_scatter_xor.launches == before + 1
+    assert torch.equal(t, want)
+    u, counts = np.unique(flat, return_counts=True)
+    u = u[counts % 2 == 1]
+    host = rows.copy()
+    gf2.scatter_xor_bits(host, u // (w * 32), u % (w * 32))
+    np.testing.assert_array_equal(gf2.to_numpy(t), host)
+
+
+def test_scatter_xor_kernel_int64_index(dev):
+    """C * W * 32 = 2**31 bits: the flat indices cross as int64."""
+    c, w = 2**15, 2048
+    rows = torch.zeros((c, w), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(9)
+    flat = np.concatenate([rng.integers(2**31 - 2**20, 2**31, size=5000),
+                           rng.integers(0, 2**20, size=5000)])
+    flat = np.concatenate([flat, flat[::4]])
+    idx = torch.from_numpy(flat)
+    want = gf2.gf2_scatter_xor_plain(rows.clone(), idx)
+    gf2.gf2_scatter_xor(rows, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(rows, want)
+    assert int((rows[-1] != 0).sum()) > 0
+
+
+@pytest.mark.parametrize("bad", [-1, 4 * 8 * 32, 2**40])
+def test_scatter_xor_kernel_rejects_index_outside_block(dev, bad):
+    """An index outside the (4, 8) block raises before any launch and
+    leaves the rows as they were."""
+    rows = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    before = gf2.gf2_scatter_xor.launches
+    with pytest.raises(ValueError, match="outside the block"):
+        gf2.gf2_scatter_xor(rows, torch.tensor([3, bad, 40]))
+    assert gf2.gf2_scatter_xor.launches == before
+    assert not bool(rows.any())
+
+
+def test_scatter_xor_kernel_refuses_indices_on_the_card(dev):
+    rows = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="on the host"):
+        gf2.gf2_scatter_xor(rows, torch.tensor([3, 40], device=dev))
+
+
+class _FailingLib:
+    """Stands in for the built library: every launcher reports
+    cudaErrorInvalidConfiguration (9)."""
+
+    def __getattr__(self, name):
+        return lambda *args: 9
+
+
+def test_gf2_kernels_raise_on_failed_launch(dev, monkeypatch):
+    monkeypatch.setattr(gf2, "_lib", lambda: _FailingLib())
+    cols = torch.zeros((4, 8), dtype=torch.int32, device=dev)
+    with pytest.raises(RuntimeError, match="gf2_find_low.*error 9"):
+        gf2.gf2_find_low(cols)
+    with pytest.raises(RuntimeError, match="gf2_scatter_xor.*error 9"):
+        gf2.gf2_scatter_xor(cols, torch.tensor([3, 40]))
+    with pytest.raises(RuntimeError, match="gf2_parallel_xor.*error 9"):
+        gf2.gf2_parallel_xor(cols, cols)
+
+
 @pytest.mark.parametrize("c,w", [(128, 128), (130, 3), (5, 7)])
 def test_parallel_xor_kernel_matches_plain(dev, c, w):
     rng = np.random.default_rng(2)
@@ -117,14 +241,16 @@ def test_compute_ph_card_matches_cpu(dev):
     kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed",
               backend="tiled", tile_m=32, tile_n=32, batch_size=32)
     counts = [f.launches for f in (pairwise_sq_dists, gf2.gf2_find_low,
-                                   gf2.gf2_parallel_xor)]
+                                   gf2.gf2_scatter_xor)]
+    dense = gf2.gf2_parallel_xor.launches
     card = compute_ph(device="cuda", **kw)
     host = compute_ph(device="cpu", **kw)
     for d in (0, 1, 2):
         assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
     after = [f.launches for f in (pairwise_sq_dists, gf2.gf2_find_low,
-                                  gf2.gf2_parallel_xor)]
+                                  gf2.gf2_scatter_xor)]
     assert all(b > a for a, b in zip(counts, after))
+    assert gf2.gf2_parallel_xor.launches == dense   # off the path
     assert card.stats["h1_use_kernels"] == 1.0
 
 

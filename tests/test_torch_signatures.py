@@ -1,0 +1,101 @@
+"""The port's entry points take the reference's parameters in the
+reference's order, with only a trailing ``device`` added, and refuse each
+value they cannot take yet with ``NotImplementedError`` naming its
+ROADMAP.md item."""
+import inspect
+
+import numpy as np
+import pytest
+
+from repro.core import build_filtration as ref_build
+from repro.core import compute_ph as ref_compute_ph
+from repro.core.h0 import compute_h0 as ref_h0
+from repro.core.homology import make_h1_adapter as ref_h1_adapter
+from repro.core.packed_reduce import reduce_dimension_packed as ref_packed
+from repro_torch import compute_ph
+from repro_torch.core.filtration import build_filtration
+from repro_torch.core.h0 import compute_h0
+from repro_torch.core.homology import make_h1_adapter
+from repro_torch.core.packed_reduce import reduce_dimension_packed
+
+
+def _params(fn):
+    return list(inspect.signature(fn).parameters.values())
+
+
+@pytest.mark.parametrize("ref,port", [(ref_compute_ph, compute_ph),
+                                      (ref_packed, reduce_dimension_packed)])
+def test_signature_matches_reference(ref, port):
+    want, got = _params(ref), _params(port)
+    assert [p.name for p in got] == [p.name for p in want] + ["device"]
+    for a, b in zip(want, got):
+        assert a.kind == b.kind, a.name
+        same = (a.default is b.default or a.default == b.default
+                or (isinstance(a.default, float) and np.isnan(a.default)
+                    and np.isnan(b.default)))
+        assert same, a.name
+    assert got[-1].default is None
+
+
+def _cloud():
+    return np.random.default_rng(5).normal(size=(14, 3))
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(exchange_every=2, engine="packed"), r"§1 item 4$"),
+    (dict(n_shards=2, engine="packed"), r"§1 items 4-5$"),
+    (dict(mesh=object(), engine="packed"), r"§1 items 4-5$"),
+    (dict(engine="batch"), r"§1 item 1$"),
+    (dict(sanitize=True), r"§1 item 7$"),
+])
+def test_compute_ph_refusals_name_their_item(kw, item):
+    with pytest.raises(NotImplementedError, match=item):
+        compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+
+
+def test_compute_ph_takes_exchange_every():
+    kw = dict(points=_cloud(), maxdim=2, engine="packed", exchange_every=4)
+    ref, mine = ref_compute_ph(**kw), compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+
+
+def _h1(build, h0, adapter):
+    f = build(points=_cloud())
+    cols = np.arange(f.n_e - 1, -1, -1, dtype=np.int64)
+    return adapter(f), cols, h0(f).death_edges
+
+
+@pytest.mark.parametrize("kw,item", [
+    (dict(n_shards=2), r"§1 item 4$"),
+    (dict(mesh=object()), r"§1 item 4$"),
+    (dict(exchange_every=1), r"§1 item 4$"),
+    (dict(seed_gens={}), r"§1 item 7$"),
+    (dict(commit_sink=[]), r"§1 item 7$"),
+    (dict(essential_log=[]), r"§1 item 7$"),
+])
+def test_reduce_dimension_packed_refusals_name_their_item(kw, item):
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    with pytest.raises(NotImplementedError, match=item):
+        reduce_dimension_packed(adapter, cols, cleared=cleared,
+                                device="cpu", **kw)
+
+
+@pytest.mark.parametrize("use_kernels", [False, True])
+def test_reduce_dimension_packed_positional_reference_call(use_kernels):
+    """The reference's positional order, every parameter given: adapter,
+    column_ids, mode, cleared, batch_size, store_budget_bytes, use_kernels,
+    n_shards, mesh, cache, exchange_every, seed_gens, commit_sink,
+    essential_log."""
+    args = ("explicit", None, 8, None, use_kernels, 1, None, None, 4, None,
+            None, None)
+    adapter, cols, cleared = _h1(ref_build, ref_h0, ref_h1_adapter)
+    ref = ref_packed(adapter, cols, args[0], cleared, *args[2:])
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    mine = reduce_dimension_packed(adapter, cols, args[0], cleared,
+                                   *args[2:], device="cpu")
+    assert np.array_equal(ref.diagram(), mine.diagram())
+    np.testing.assert_array_equal(ref.pivot_lows, mine.pivot_lows)
+    assert mine.stats["n_shards"] == 1
