@@ -23,7 +23,13 @@ Phases, one JSON line each:
    block and on an unaligned view; ``gf2_scatter_xor`` at 11 % of a
    block's bits, with and without repeated coordinates, beside the dense
    ``gf2_parallel_xor`` (kept off the path).  A sweep of the serial kernel
-   over its number of dependent XORs follows.
+   over its number of dependent XORs follows, at 128 x 256, 128 x 2176 and
+   128 x 896 words (``serial_reduce_sweep``: the block in one thread
+   block's shared memory; clusters of five and two), then every route
+   ``serial_plan`` can choose
+   (one block's shared memory, clusters of 2, 5, 8 and 16, the global
+   route; G = 2), each exact against the plain version and timed
+   (``kernels_serial_routes``).
 4. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
    ``engine="packed"``); the launch count of every kernel of the path
@@ -33,9 +39,14 @@ Phases, one JSON line each:
    ``torch.profiler``, for the card's busy and idle share and each
    kernel's device time on the path.  A wrapper around the kernel branch
    of the parallel phase (``_PackedBatch.xor_rows_kernels``) times every
-   round and keeps the first 200 with the state they met; the copies are
-   timed (``round_capture_s``) and the wall is reported with and without
-   them.
+   round and keeps the first 200 with the state they met; a wrapper around
+   the serial pre-pass's ``gf2_serial_reduce`` keeps a host copy of each
+   input.  The copies are timed (``round_capture_s``,
+   ``serial_capture_s``) and the wall is reported with and without them.
+   ``serial_replay`` (after ``cross_check``) — each captured serial input
+   again through the kernel and the plain version, exactly equal, with each
+   launch's shape, reductions, route, ranks, device µs (queued behind a
+   ``torch.cuda._sleep`` between CUDA events) and per-call µs.
    ``round_step`` — the parallel-phase round, old form (a host-built
    dense addend block, the dense kernel, a padded find-low round trip per
    segment; ``old_step`` here) against the new, on copies of the same
@@ -135,6 +146,24 @@ def wall_ms(fn, iters: int) -> float:
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def queued_ms(fn, iters: int) -> float:
+    """Mean device time per call of ``fn`` without the profiler: the stream
+    is held by a ``torch.cuda._sleep`` of about 2 ms while the host
+    enqueues ``iters`` calls, then CUDA events time them back to back (the
+    gaps between launches included)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(4_000_000)
     start.record()
     for _ in range(iters):
         fn()
@@ -265,13 +294,15 @@ def sparse_rows(rng, c: int, w: int) -> np.ndarray:
     return rows
 
 
-def serial_block(rng, c: int, cap: int, planted: int = 16) -> np.ndarray:
+def serial_block(rng, c: int, cap: int, planted: int = 16,
+                 w: Optional[int] = None) -> np.ndarray:
     """The packed engine's serial pre-pass input: R words whose lows spread
     over the row, ``planted`` rows planted onto an earlier row's low (a
     batch's intra-block collisions), V identity words at the tail, padded
-    to a multiple of 128 words."""
+    to a multiple of 128 words (to ``w`` words where given)."""
     vw = (c + 31) // 32
-    w = -(-(cap + vw) // 128) * 128
+    if w is None:
+        w = -(-(cap + vw) // 128) * 128
     blk = np.zeros((c, w), dtype=np.uint32)
     r = sparse_rows(rng, c, cap)
     rows = np.arange(c)
@@ -286,6 +317,63 @@ def serial_block(rng, c: int, cap: int, planted: int = 16) -> np.ndarray:
     blk[rows, cap + (rows >> 5)] = np.uint32(1) << (rows & 31).astype(
         np.uint32)
     return blk
+
+
+SERIAL_SYMBOL = "gf2_serial_reduce_kernel"
+# Every route of the serial kernel, once each against the plain version:
+# (G, C, W); serial_plan picks the shared-memory block, clusters of 5, 2, 8
+# and 16 ranks and the global route from them.
+SERIAL_ROUTE_CASES = ((1, 128, 256), (1, 128, 2176), (1, 128, 600),
+                      (1, 128, 3500), (1, 128, 7000), (1, 128, 8000),
+                      (2, 128, 2176), (2, 45, 8003))
+
+
+def serial_bound(c: int, w: int, n_red: int, g: int = 1):
+    """The serial kernel's least time: the blocks read and written once,
+    lows and counts written; one word operation a word scanned and a word
+    of each XOR."""
+    return bound(g * (2 * c * w * 4.0 + c * 4.0 + 4.0),
+                 g * c * w + n_red * w)
+
+
+def serial_held(t, what: str) -> dict:
+    """The kernel against the plain version on the same blocks, exactly:
+    block, lows and counts.  Returns the counts and the plan."""
+    from repro_torch.kernels import gf2
+
+    got = gf2.gf2_serial_reduce(t)
+    want = gf2.gf2_serial_reduce_plain(t)
+    torch.cuda.synchronize()
+    if not all(torch.equal(a, b) for a, b in zip(got, want)):
+        raise AssertionError(f"gf2_serial_reduce differs from its plain "
+                             f"version: {what}")
+    _, c, w = t.shape
+    return dict(n_reductions=int(want[2].sum()), plan=gf2.serial_plan(c, w))
+
+
+def serial_routes(dev) -> None:
+    """Each case of SERIAL_ROUTE_CASES exact against the plain version and
+    timed (the kernel's device time); every route must have launched."""
+    from repro_torch.kernels import gf2
+
+    rng = np.random.default_rng(7)
+    routes = set()
+    for g, c, w in SERIAL_ROUTE_CASES:
+        vw = (c + 31) // 32
+        blk = np.stack([serial_block(rng, c, w - vw, c // 4, w)
+                        for _ in range(g)])
+        t = gf2.to_tensor(blk, dev)
+        held = serial_held(t, f"{g}x{c}x{w}")
+        plan = held["plan"]
+        ms = device_ms(lambda: gf2.gf2_serial_reduce(t), 20, SERIAL_SYMBOL)
+        b_ms, b_by = serial_bound(c, w, held["n_reductions"], g)
+        routes.add(plan.route)
+        emit("kernels_serial_routes", shape=[g, c, w], route=plan.route,
+             k=plan.k, slice_words=plan.S, threads=plan.threads,
+             smem_bytes=plan.smem_bytes, n_reductions=held["n_reductions"],
+             exact=True, kernel_ms=ms, bound_ms=b_ms, bound_by=b_by)
+    if routes != {"smem", "cluster", "global"}:
+        raise AssertionError(f"serial routes launched: {sorted(routes)}")
 
 
 # gf2_find_low's phase-3 cases: (rows, words, view).  "whole" is a block of
@@ -466,41 +554,46 @@ def check_kernels(dev) -> dict:
         n_red = int(preds[0])
         if n_red == 0:
             raise AssertionError("serial_reduce test block has no collisions")
-        b_ms, b_by = bound(2 * c * w * 4.0 + c * 4.0 + 4.0,
-                           n_red * w + c * w)
+        b_ms, b_by = serial_bound(c, w, n_red)
+        plan = gf2.serial_plan(c, w)
         entry = dict(
             name="gf2_serial_reduce", shape=[1, c, w], n_reductions=n_red,
-            max_abs_err=0.0, exact=True,
-            **timings("gf2_serial_reduce_kernel",
+            route=plan.route, k=plan.k, max_abs_err=0.0, exact=True,
+            **timings(SERIAL_SYMBOL,
                       lambda: gf2.gf2_serial_reduce(t),
                       lambda: gf2.gf2_serial_reduce_plain(t), None, 50, 2),
             bound_ms=b_ms, bound_by=b_by)
         emit("kernels", **entry)
         summary.setdefault("gf2_serial_reduce", entry)
 
-    # The serial kernel's cost against its dependent XOR steps, at one
-    # width: the fit's intercept is the 128 row scans, its slope one XOR
-    # and re-scan.
-    points = []
-    for planted in (0, 16, 48, 96):
-        t = gf2.to_tensor(serial_block(rng, 128, 128, planted)[None], dev)
-        red, lows, reds = gf2.gf2_serial_reduce(t)
-        want = gf2.gf2_serial_reduce_plain(t)
-        if not all(torch.equal(a, b) for a, b in zip((red, lows, reds),
-                                                      want)):
-            raise AssertionError(f"gf2_serial_reduce differs, {planted} "
-                                 "rows planted")
-        ms = device_ms(lambda: gf2.gf2_serial_reduce(t), 50,
-                       "gf2_serial_reduce_kernel")
-        points.append(dict(planted=planted, n_reductions=int(reds[0]),
-                           kernel_ms=ms))
-    fit = None
-    if all(p["kernel_ms"] is not None for p in points):
-        slope, icpt = np.polyfit([p["n_reductions"] for p in points],
-                                 [p["kernel_ms"] for p in points], 1)
-        fit = dict(us_per_reduction=slope * 1e3, us_at_zero=icpt * 1e3)
-    emit("serial_reduce_sweep", shape=[1, 128, int(t.shape[2])],
-         points=points, fit=fit)
+    # The serial kernel's cost against its dependent XOR steps at the
+    # phase's two widths (one block's shared memory; a cluster of five) and
+    # at 896 words (a cluster of two, as most of the path's launches): the
+    # fit's intercept is the load, the first lows, the walk and the
+    # write-back, its slope one XOR, first-bit pass and, in a cluster, one
+    # cluster barrier.
+    for cap, srng in ((128, rng), (2048, np.random.default_rng(8)),
+                      (860, np.random.default_rng(9))):
+        points = []
+        for planted in (0, 16, 48, 96):
+            t = gf2.to_tensor(serial_block(srng, 128, cap, planted)[None],
+                              dev)
+            held = serial_held(t, f"{planted} rows planted")
+            ms = device_ms(lambda: gf2.gf2_serial_reduce(t), 50,
+                           SERIAL_SYMBOL)
+            points.append(dict(planted=planted,
+                               n_reductions=held["n_reductions"],
+                               kernel_ms=ms))
+        fit = None
+        if all(p["kernel_ms"] is not None for p in points):
+            slope, icpt = np.polyfit([p["n_reductions"] for p in points],
+                                     [p["kernel_ms"] for p in points], 1)
+            fit = dict(us_per_reduction=slope * 1e3, us_at_zero=icpt * 1e3)
+        w = int(t.shape[2])
+        plan = gf2.serial_plan(128, w)
+        emit("serial_reduce_sweep", shape=[1, 128, w], route=plan.route,
+             k=plan.k, points=points, fit=fit)
+    serial_routes(dev)
     flash = check_flash(dev, rng)
     summary["flash_attention_bf16"] = flash["bfloat16"]
     summary["flash_attention_f32"] = flash["float32"]
@@ -766,6 +859,70 @@ class RoundTap:
         _PackedBatch.xor_rows_kernels = self.real
 
 
+class SerialTap:
+    """Wraps the packed reduction's ``gf2_serial_reduce`` (the name its
+    serial pre-pass calls) for the length of a ``with`` block: keeps a host
+    copy of every input and notes each call's host seconds.  The copies run
+    inside the main path's timed call; ``capture_s`` is their host time,
+    which the main path leaves out of ``wall_less_capture_s``."""
+
+    def __init__(self):
+        self.inputs = []
+        self.path_s = []
+        self.capture_s = 0.0
+
+    def __enter__(self):
+        from repro_torch.core import packed_reduce
+
+        real = self.real = packed_reduce.gf2_serial_reduce
+        tap = self
+
+        def tapped(blocks):
+            t0 = time.perf_counter()
+            tap.inputs.append(blocks.cpu())
+            tap.capture_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            out = real(blocks)
+            tap.path_s.append(time.perf_counter() - t0)
+            return out
+
+        packed_reduce.gf2_serial_reduce = tapped
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.core import packed_reduce
+
+        packed_reduce.gf2_serial_reduce = self.real
+
+
+def serial_replay(dev, tap: SerialTap, path_launches: int) -> dict:
+    """The main path's serial pre-pass inputs again, each through the kernel
+    and the plain version (exactly equal), with the kernel's device time:
+    each launch's shape, reductions, route and time."""
+    from repro_torch.kernels import gf2
+
+    if len(tap.inputs) != path_launches:
+        raise AssertionError(f"{len(tap.inputs)} serial inputs captured, "
+                             f"{path_launches} launches on the path")
+    launches = []
+    for i, host in enumerate(tap.inputs):
+        t = host.to(dev)
+        held = serial_held(t, f"main-path input {i}")
+        plan = held["plan"]
+        launches.append(dict(
+            shape=list(t.shape), n_reductions=held["n_reductions"],
+            route=plan.route, k=plan.k,
+            queued_us=queued_ms(lambda: gf2.gf2_serial_reduce(t), 20) * 1e3,
+            per_call_us=wall_ms(lambda: gf2.gf2_serial_reduce(t), 20) * 1e3,
+            path_host_s=tap.path_s[i]))
+    out = dict(n=len(launches), launches=launches,
+               queued_s=sum(x["queued_us"] for x in launches) / 1e6,
+               per_call_s=sum(x["per_call_us"] for x in launches) / 1e6,
+               exact=True)
+    emit("serial_replay", **out)
+    return out
+
+
 def batch_state(batch) -> dict:
     """What a parallel-phase round reads and writes of a ``_PackedBatch``."""
     return dict(B=batch.B, VW=batch.VW, device=batch.device,
@@ -897,7 +1054,7 @@ def round_step(dev, tap: RoundTap, repeats: int = 8) -> dict:
     return out
 
 
-def main_path(dev, n: int, tap: RoundTap) -> dict:
+def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
     from repro_torch.kernels.pairwise_dist import pairwise_sq_dists_plain
@@ -916,7 +1073,7 @@ def main_path(dev, n: int, tap: RoundTap) -> dict:
 
     # The whole call runs under the profiler: its device events give the
     # card's busy time and each kernel's device time on the path.
-    with tap:
+    with tap, serial:
         (res, wall), evs = profiled(run)
     launches = {k: counters[k].launches
                 for k in PH_KERNELS + OFF_PATH_KERNELS}
@@ -960,7 +1117,8 @@ def main_path(dev, n: int, tap: RoundTap) -> dict:
                kernel_round_calls=tap.calls,
                kernel_round_s=tap.seconds,
                round_capture_s=tap.capture_s,
-               wall_less_capture_s=wall - tap.capture_s,
+               serial_capture_s=serial.capture_s,
+               wall_less_capture_s=wall - tap.capture_s - serial.capture_s,
                harvest_identical_to_plain=True)
     emit("main_path", **out)
     return out
@@ -1355,11 +1513,12 @@ def main() -> int:
          flash_f32_sass=f32_sass_check(_build, ptxas["flash_attention"]))
 
     summary = check_kernels(dev)
-    tap = RoundTap(CAPTURED_ROUNDS)
-    path = main_path(dev, MAIN_PATH_N, tap)
+    tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
+    path = main_path(dev, MAIN_PATH_N, tap, serial)
     round_step(dev, tap)
-    del tap
     cross_check(dev)
+    serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
+    del tap, serial
     served = serve(dev)
     served_f32 = serve_f32(dev)
     launches = dict(path["launches"],

@@ -541,11 +541,11 @@ class _PackedBatch:
         padded = np.zeros((Cp, Wp), dtype=np.uint32)
         padded[:C, :W] = self.block
         red, _, reds = gf2_serial_reduce(to_tensor(padded[None], self.device))
-        self.block[...] = to_numpy(red)[0, :C, :W]
         n_red = int(reds.cpu()[0])
-        if n_red == 0:
+        if n_red == 0:              # the block came back unchanged
             vslice[...] = 0
             return 0
+        self.block[...] = to_numpy(red)[0, :C, :W]
         vrid, vpos, _ = set_bit_positions(vslice)
         vkeep = vpos < B
         counts = np.bincount(vrid[vkeep], minlength=B).astype(np.int64)

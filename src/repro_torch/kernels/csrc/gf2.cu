@@ -20,12 +20,19 @@
 // few: find_low issues all of a row's loads before it tests any, and the
 // scatter-XOR touches only the words that carry an addend bit, with no
 // host-built dense addend block in front of it.  serial_reduce is a chain
-// of dependent row XORs whose length the data sets.
+// of dependent row XORs whose length the data sets: it holds the block on
+// chip, finds every row's first low in one parallel pass, and pays one
+// barrier for each XOR of the chain and none for a row that collides with
+// nothing.
+#include <atomic>
 #include <climits>
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
+
+namespace cg = cooperative_groups;
 
 constexpr int kNoLow = 0x7fffffff;
 constexpr unsigned kFull = 0xffffffffu;
@@ -160,84 +167,397 @@ gf2_parallel_xor_kernel(const uint32_t* __restrict__ a,
 }
 
 // ---------------------------------------------------------------------------
-// gf2_serial_reduce: one thread block per (C, W) block of the batch.  The
-// block is copied to the output and reduced there, in global memory and L2
-// (128 x 2176 words is 1.1 MB, beyond the 227 KB of shared memory); the C
-// lows and the reduction scratch live in shared memory.  Rows are walked in
-// order; while row c's low equals the low of an earlier row, the first such
-// row is XORed in (all threads across W), then the low is found again.
-// The scan covers the whole width, so V-words at the tail of a row ride the
-// same XORs.  After an XOR at low L, neither row has a set bit before word
-// L >> 5, so both the XOR and the next low scan start there.
+// gf2_serial_reduce: the in-order serial phase of each (C, W) block of the
+// batch.  For each row in order, while its low equals the low of an earlier
+// row, the (one) earlier row with that low is XORed in.
+//
+// Routes, chosen by the wrapper (repro_torch/kernels/gf2.py serial_plan)
+// from (C, W) and passed in as (k, S, threads):
+//  * on chip, k >= 1: a cluster of k thread blocks a block of the batch.
+//    Block rank r holds words [r*S, r*S + S) of every row in its shared
+//    memory, loaded once (cp.async) and written back once.  k = 1 holds the
+//    whole block (128 x 256 words is 128 KB) and a table low -> row;
+//    k > 1 is a thread-block cluster whose ranks exchange through
+//    distributed shared memory (128 x 2176 words, 1.1 MB, is five ranks of
+//    436 words a row).
+//  * global, k = 0: one thread block a block of the batch, the rows in the
+//    output buffer, for blocks beyond sixteen ranks' shared memory.
+//
+// 1. Initial lows in one pass: a warp four rows at a time, their loads in
+//    flight together; a rank's first bit covers its slice, and a cluster
+//    takes the minimum of the k slice lows through distributed shared
+//    memory.
+// 2. The walk.  Its walkers hold the same lows and make the same choices,
+//    so a decision needs no barrier.  Rows go 32 at a time, a lane a row: a
+//    lane's row collides if a final row below the group has its low (final
+//    lows are pairwise distinct, so there is at most one) or an earlier lane
+//    has it (__match_any_sync once a group, then one ballot each time a
+//    lane's low changes).  The rows before the first collision are final
+//    at once; only a collision starts a reduction.  With k = 1 the final
+//    row of a low is one load from the table, which the walk fills as rows
+//    become final; otherwise a scan of the final lows.
+// 3. A reduction is one pass from word low >> 5 (neither row has a bit
+//    below it): each walker thread XORs the words it owns (w = t mod the
+//    walkers' threads, so no other thread touches them and the rows need no
+//    barrier) and keeps its first non-zero word; the warp takes the
+//    minimum.  With the whole block in one thread block's shared memory
+//    one warp walks, so that minimum is the new low: no barrier at all.  In
+//    a cluster, and on the global route, every warp walks: lane r stores the
+//    warp's minimum into rank r's scratch, one (cluster) barrier, and every
+//    warp reads the minima.  The scratch is double-buffered: a reduction's
+//    minima are read before any warp passes the next barrier, after which
+//    the buffer is written again.
+// Every rank writes its slice back; rank 0 writes the lows and the count.
 // ---------------------------------------------------------------------------
-constexpr int kSerialThreads = 512;
+constexpr int kSerialMaxThreads = 512;
+constexpr size_t kSerialMaxSmem = 232448;  // a thread block's 227 KB
 
-__device__ int block_min(int v, int* scratch) {
-  for (int off = 16; off > 0; off >>= 1)
-    v = min(v, __shfl_xor_sync(kFull, v, off));
-  if ((threadIdx.x & 31) == 0) scratch[threadIdx.x >> 5] = v;
-  __syncthreads();
-  int r = scratch[0];
-  for (int w = 1; w < (int)(blockDim.x >> 5); ++w) r = min(r, scratch[w]);
-  __syncthreads();                    // scratch is reused by the next call
-  return r;
+constexpr uint16_t kNoRow = 0xffff;        // the table's empty entry
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
 }
 
-// First set bit of a row at or after word `start`; kNoLow if none.  Each
-// thread's first non-zero word in its stride is its own minimum.
-__device__ int row_low(const uint32_t* row, int start, int W, int* scratch) {
-  int best = kNoLow;
-  for (int w = start + threadIdx.x; w < W; w += blockDim.x) {
-    const uint32_t v = row[w];
-    if (v != 0u) {
-      best = w * 32 + (__ffs((int)v) - 1);
-      break;
-    }
-  }
-  return block_min(best, scratch);
+__device__ __forceinline__ void cp_async4(void* dst, const void* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
 }
 
-__global__ void __launch_bounds__(kSerialThreads)
-gf2_serial_reduce_kernel(const uint32_t* __restrict__ in, uint32_t* out,
-                         int32_t* __restrict__ lows_out,
-                         int32_t* __restrict__ reds, int C, int W) {
-  extern __shared__ int smem[];
-  int* lows = smem;                   // C entries
-  int* scratch = smem + C;            // one slot per warp
-  const size_t g = blockIdx.x;
-  const size_t words = (size_t)C * W;
-  const uint32_t* src = in + g * words;
-  uint32_t* blk = out + g * words;
-  for (size_t i = threadIdx.x; i < words; i += blockDim.x) blk[i] = src[i];
-  for (int i = threadIdx.x; i < C; i += blockDim.x) lows[i] = kNoLow;
-  __syncthreads();
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
 
-  int n_red = 0;
-  for (int c = 0; c < C; ++c) {
-    uint32_t* row = blk + (size_t)c * W;
-    int low = row_low(row, 0, W, scratch);
-    while (low != kNoLow) {
-      int j = kNoLow;                 // first earlier row with this low
-      for (int t = threadIdx.x; t < c; t += blockDim.x) {
-        if (lows[t] == low) {
-          j = t;
-          break;
+// Bytes of shared memory ahead of the table and the block slice: the
+// walk's lows (C padded to 32), the ranks' slice lows (clusters only) and
+// the two buffers of warp minima (k * warps each), rounded up to 16 bytes.
+// With k = 1 the table of W * 32 uint16 row indices follows, rounded up to
+// 16 bytes.  kernels/gf2.py's _serial_header_bytes and _serial_table_bytes
+// mirror them.
+__host__ __device__ __forceinline__ size_t serial_header_bytes(int C, int k,
+                                                               int warps) {
+  const size_t cp = (size_t)((C + 31) & ~31);
+  const size_t ints = cp * (k > 1 ? 2 : 1) + 2 * (size_t)k * warps;
+  return (ints * sizeof(int) + 15) & ~(size_t)15;
+}
+
+__host__ __device__ __forceinline__ size_t serial_table_bytes(int W) {
+  return ((size_t)W * 32 * sizeof(uint16_t) + 15) & ~(size_t)15;
+}
+
+// First set bits of the R rows c[0 .. R) of row0 (n words each, row stride
+// ld) as bit indices of the whole row (word 0 is word s0), or kNoLow;
+// uniform across the warp.  Each lane loads 8 words of every row a pass of
+// 256 before testing any: with vec (rows 16-byte aligned, n a multiple of
+// 4) words 4 lane .. 4 lane + 3 and 128 + 4 lane .. 128 + 4 lane + 3 as two
+// 16-byte loads (a quarter-warp reads 128 contiguous bytes: no bank
+// conflict), else words lane, lane + 32, ...  The passes stop once every
+// row has a bit.
+template <int R>
+__device__ __forceinline__ void warp_first_bits(const uint32_t* row0,
+                                                size_t ld, const int (&c)[R],
+                                                int n, int s0, bool vec,
+                                                int (&low)[R]) {
+  const int lane = threadIdx.x & 31;
+#pragma unroll
+  for (int r = 0; r < R; ++r) low[r] = kNoLow;
+  for (int base = 0; base < n; base += 256) {
+    uint32_t v[R][8];
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const uint32_t* row = row0 + (size_t)c[r] * ld;
+      if (vec) {
+        const int w = base + lane * 4;
+        const uint4 z = make_uint4(0u, 0u, 0u, 0u);
+        const uint4 a = w < n ? *reinterpret_cast<const uint4*>(row + w) : z;
+        const uint4 b =
+            w + 128 < n ? *reinterpret_cast<const uint4*>(row + w + 128) : z;
+        v[r][0] = a.x; v[r][1] = a.y; v[r][2] = a.z; v[r][3] = a.w;
+        v[r][4] = b.x; v[r][5] = b.y; v[r][6] = b.z; v[r][7] = b.w;
+      } else {
+#pragma unroll
+        for (int u = 0; u < 8; ++u) {
+          const int w = base + u * 32 + lane;
+          v[r][u] = w < n ? row[w] : 0u;
         }
       }
-      j = block_min(j, scratch);
-      if (j == kNoLow) break;         // uniform: every thread holds the min
-      const uint32_t* other = blk + (size_t)j * W;
-      const int w0 = low >> 5;
-      for (int w = w0 + threadIdx.x; w < W; w += blockDim.x) row[w] ^= other[w];
-      __syncthreads();
-      ++n_red;
-      low = row_low(row, w0, W, scratch);
     }
-    if (threadIdx.x == 0) lows[c] = low;
-    __syncthreads();
+    bool all = true;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      int best = kNoLow;
+#pragma unroll
+      for (int u = 7; u >= 0; --u)
+        if (v[r][u] != 0u)
+          best = (s0 + base +
+                  (vec ? (u >> 2) * 128 + lane * 4 + (u & 3) : u * 32 + lane)) *
+                     32 +
+                 (__ffs((int)v[r][u]) - 1);
+      best = __reduce_min_sync(kFull, best);
+      if (low[r] == kNoLow) low[r] = best;
+      all = all && low[r] != kNoLow;
+    }
+    if (all) return;
   }
-  for (int i = threadIdx.x; i < C; i += blockDim.x) lows_out[g * C + i] = lows[i];
-  if (threadIdx.x == 0) reds[g] = n_red;
+}
+
+// r[w] ^= o[w] over the words w < n that thread `me` owns (w = me mod
+// stride, stride a power of two) from word `from` on, U pairs of loads in
+// flight before any store; returns the thread's first set bit after the
+// XOR as a bit index of the whole row, or kNoLow.
+template <int U>
+__device__ __forceinline__ int xor_first_bit(uint32_t* r, const uint32_t* o,
+                                             int from, int n, int s0, int me,
+                                             int stride) {
+  int w = from > 0 ? from + ((me - from) & (stride - 1)) : me;
+  int best = kNoLow;
+  for (; w < n; w += U * stride) {
+    uint32_t a[U], b[U];
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int x = w + u * stride;
+      a[u] = x < n ? r[x] : 0u;
+      b[u] = x < n ? o[x] : 0u;
+    }
+#pragma unroll
+    for (int u = 0; u < U; ++u) {
+      const int x = w + u * stride;
+      const uint32_t v = a[u] ^ b[u];
+      if (x < n) r[x] = v;
+      if (v != 0u && best == kNoLow)
+        best = (s0 + x) * 32 + (__ffs((int)v) - 1);
+    }
+  }
+  return best;
+}
+
+// Chunk by chunk between a slice in device memory and shared memory: chunk
+// j of row c (`per` words: 4 where the rows are 16-byte aligned, else 1) of
+// the C rows of n words sits at c * W + j * per there and c * S + j * per
+// here; `fn(here, there)` moves one.  A thread's next chunk advances
+// without a division.
+template <typename F>
+__device__ __forceinline__ void for_slice_chunks(int C, int n, int W, int S,
+                                                 int per, F fn) {
+  const int q = n / per;              // chunks a row
+  if (q == 0) return;
+  const int T = blockDim.x;
+  const int dc = T / q, dj = T % q;
+  int c = threadIdx.x / q, j = threadIdx.x % q;
+  for (; c < C; c += dc, j += dj) {
+    if (j >= q) {
+      j -= q;
+      ++c;
+      if (c >= C) break;
+    }
+    fn((size_t)c * S + (size_t)j * per, (size_t)c * W + (size_t)j * per);
+  }
+}
+
+template <bool CLUSTER>
+__device__ __forceinline__ void serial_barrier() {
+  if (CLUSTER)
+    cg::this_cluster().sync();     // arrive.release, wait.acquire
+  else
+    __syncthreads();
+}
+
+template <bool CLUSTER, bool ONCHIP>
+__global__ void __launch_bounds__(kSerialMaxThreads)
+gf2_serial_reduce_kernel(const uint32_t* __restrict__ in,
+                         uint32_t* __restrict__ out,
+                         int32_t* __restrict__ lows_out,
+                         int32_t* __restrict__ reds, int C, int W, int k,
+                         int S, int vec) {
+  // One warp walks a block held by one thread block; every warp otherwise.
+  constexpr bool kSolo = ONCHIP && !CLUSTER;
+  extern __shared__ __align__(16) unsigned char serial_smem[];
+  const int T = blockDim.x, nw = T >> 5;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int rank = CLUSTER ? (int)cg::this_cluster().block_rank() : 0;
+  const size_t g = blockIdx.x / (unsigned)k;
+  const int Cp = (C + 31) & ~31;
+  int* lows = reinterpret_cast<int*>(serial_smem);      // the walk's lows
+  int* part = lows + Cp;                                // this rank's (CLUSTER)
+  int* mins = CLUSTER ? part + Cp : part;               // 2 x k x nw
+  // kSolo: table[low] = the final row with that low, or kNoRow.
+  const size_t head = serial_header_bytes(C, k, nw);
+  uint16_t* table = reinterpret_cast<uint16_t*>(serial_smem + head);
+  uint32_t* blk = reinterpret_cast<uint32_t*>(
+      serial_smem + head + (kSolo ? serial_table_bytes(W) : 0));
+  const size_t words = (size_t)C * W;
+  const uint32_t* src = in + g * words;
+  uint32_t* dst = out + g * words;
+  const int s0 = ONCHIP ? rank * S : 0;       // the first word held here
+  const int n = ONCHIP ? max(0, min(S, W - s0)) : W;   // words a row here
+  const int ld = ONCHIP ? S : W;
+  uint32_t* rows = ONCHIP ? blk : dst;
+
+  // The rows (this rank's slice of them) into place.
+  if (ONCHIP) {
+    if (vec)
+      for_slice_chunks(C, n, W, S, 4, [&](size_t s, size_t d) {
+        cp_async16(blk + s, src + d + s0);
+      });
+    else
+      for_slice_chunks(C, n, W, S, 1, [&](size_t s, size_t d) {
+        cp_async4(blk + s, src + d + s0);
+      });
+    if (kSolo)
+      for (int i = tid; i < W * 32; i += T) table[i] = kNoRow;
+    cp_async_wait_all();
+  } else {
+    for (int c = 0; c < C; ++c)
+      for (int w = tid; w < W; w += T)
+        dst[(size_t)c * W + w] = src[(size_t)c * W + w];
+  }
+  __syncthreads();
+
+  // 1. Every row's initial low, a warp four rows at a time.
+  int* mine = CLUSTER ? part : lows;
+  for (int c0 = warp; c0 < C; c0 += 4 * nw) {
+    int c[4], l[4];
+#pragma unroll
+    for (int r = 0; r < 4; ++r) c[r] = min(c0 + r * nw, C - 1);
+    warp_first_bits<4>(rows, ld, c, n, s0, vec, l);
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      if (lane == 0 && c0 + r * nw < C) mine[c[r]] = l[r];
+  }
+  if (CLUSTER) {
+    cg::cluster_group cluster = cg::this_cluster();
+    cluster.sync();
+    for (int c = tid; c < C; c += T) {
+      int l = kNoLow;
+      for (int r = 0; r < k; ++r) l = min(l, cluster.map_shared_rank(part, r)[c]);
+      lows[c] = l;
+    }
+  }
+  __syncthreads();
+
+  // 2. The walk.  Lane i of a group holds row base + i: its low L, and H,
+  // the final row below the group whose low is L (-1 if none).
+  int n_red = 0;
+  if (!kSolo || warp == 0) {
+    const int me = kSolo ? lane : tid, stride = kSolo ? 32 : T;
+    const unsigned below = (1u << lane) - 1u;
+    int par = 0;
+    for (int base = 0; base < C; base += 32) {
+      int L = base + lane < C ? lows[base + lane] : kNoLow;
+      int H = -1;
+      if (L != kNoLow) {
+        if (kSolo) {
+          const int t = table[L];
+          H = t == kNoRow ? -1 : t;
+        } else {
+#pragma unroll 4
+          for (int j = 0; j < base; j += 4) {
+            const int4 v = *reinterpret_cast<const int4*>(lows + j);
+            if (v.x == L) H = j;
+            if (v.y == L) H = j + 1;
+            if (v.z == L) H = j + 2;
+            if (v.w == L) H = j + 3;
+          }
+        }
+      }
+      // same: the lanes whose low equals this lane's, kept up to date
+      // below as lanes' lows change (one ballot, not a match, a change)
+      unsigned same = __match_any_sync(kFull, L);
+      int pos = 0;                      // lanes below pos are final
+      for (;;) {
+        const bool hit = lane >= pos && L != kNoLow &&
+                         (H >= 0 || (same & below) != 0u);
+        const unsigned hits = __ballot_sync(kFull, hit);
+        if (hits == 0u) break;
+        const int f = __ffs((int)hits) - 1;  // lanes pos .. f-1 are final
+        const int R = base + f;
+        int low = __shfl_sync(kFull, L, f);
+        int j = __shfl_sync(
+            kFull, H >= 0 ? H : base + __ffs((int)(same & below)) - 1, f);
+        if (kSolo) {
+          if (lane >= pos && lane < f && L != kNoLow) table[L] = base + lane;
+          __syncwarp();
+        }
+        do {
+          // 3. row R ^= row j from the low's word; R's next first bit.
+          int best = xor_first_bit<8>(rows + (size_t)R * ld,
+                                      rows + (size_t)j * ld, (low >> 5) - s0,
+                                      n, s0, me, stride);
+          best = __reduce_min_sync(kFull, best);
+          if (kSolo) {
+            low = best;
+          } else {
+            int* slot = mins + par * k * nw + rank * nw + warp;
+            if (CLUSTER) {
+              if (lane < k)
+                *cg::this_cluster().map_shared_rank(slot, lane) = best;
+            } else if (lane == 0) {
+              *slot = best;
+            }
+            serial_barrier<CLUSTER>();
+            int m = kNoLow;
+            for (int x = lane; x < k * nw; x += 32)
+              m = min(m, mins[par * k * nw + x]);
+            low = __reduce_min_sync(kFull, m);
+            par ^= 1;
+          }
+          ++n_red;
+          // The next row to XOR in: the final row below R with the new low.
+          j = -1;
+          if (low != kNoLow) {
+            if (kSolo) {
+              const int t = table[low];
+              j = t == kNoRow ? -1 : t;
+            } else {
+#pragma unroll 4
+              for (int t = lane; t < base; t += 32)
+                if (lows[t] == low) j = t;
+              if (lane < f && L == low) j = base + lane;
+              const unsigned got = __ballot_sync(kFull, j >= 0);
+              j = got ? __shfl_sync(kFull, j, __ffs((int)got) - 1) : -1;
+            }
+          }
+        } while (j >= 0);
+        __syncwarp();                   // every lane has read the table
+        if (lane == f) {
+          L = low;
+          H = -1;
+          if (kSolo && low != kNoLow) table[low] = R;
+        }
+        if (kSolo) __syncwarp();
+        const unsigned eq = __ballot_sync(kFull, L == low);
+        same = L == low ? eq : same & ~(1u << f);
+        pos = f + 1;
+      }
+      if (base + lane < C) {
+        lows[base + lane] = L;          // every walker: equal values
+        if (kSolo && lane >= pos && L != kNoLow) table[L] = base + lane;
+      }
+      __syncwarp();
+    }
+  }
+  __syncthreads();
+
+  // The rows (this rank's slice) back, once; the lows and the count.
+  if (ONCHIP) {
+    if (vec)
+      for_slice_chunks(C, n, W, S, 4, [&](size_t s, size_t d) {
+        *reinterpret_cast<uint4*>(dst + d + s0) =
+            *reinterpret_cast<const uint4*>(blk + s);
+      });
+    else
+      for_slice_chunks(C, n, W, S, 1, [&](size_t s, size_t d) {
+        dst[d + s0] = blk[s];
+      });
+  }
+  if (rank == 0) {
+    for (int c = tid; c < C; c += T) lows_out[g * C + c] = lows[c];
+    if (tid == 0) reds[g] = n_red;
+  }
+  // No rank may leave while another can still reach its shared memory.
+  if (CLUSTER) cg::this_cluster().sync();
 }
 
 }  // namespace
@@ -306,15 +626,87 @@ extern "C" int gf2_parallel_xor(const void* a, const void* b, void* out,
   return (int)cudaGetLastError();
 }
 
+// Dynamic shared memory above 48 KB, and clusters above the portable 8,
+// must be allowed per kernel and device before a launch.  Each
+// instantiation allows the most any plan takes (227 KB, 16 ranks) once a
+// device, so a launch pays no attribute call.
+template <bool CLUSTER, bool ONCHIP>
+static cudaError_t serial_attributes() {
+  static std::atomic<unsigned long long> done{0};  // a bit a device
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return err;
+  const unsigned long long bit = device < 64 ? 1ull << device : 0ull;
+  if (done.load(std::memory_order_relaxed) & bit) return cudaSuccess;
+  auto* kernel = gf2_serial_reduce_kernel<CLUSTER, ONCHIP>;
+  err = cudaFuncSetAttribute(kernel,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                             (int)kSerialMaxSmem);
+  if (err == cudaSuccess && CLUSTER)
+    err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (err == cudaSuccess) done.fetch_or(bit, std::memory_order_relaxed);
+  return err;
+}
+
+template <bool CLUSTER, bool ONCHIP>
+static cudaError_t launch_serial(const void* in, void* out, void* lows,
+                                 void* reds, int G, int C, int W, int k,
+                                 int S, int threads, size_t smem, int vec,
+                                 cudaStream_t stream) {
+  auto* kernel = gf2_serial_reduce_kernel<CLUSTER, ONCHIP>;
+  cudaError_t err = serial_attributes<CLUSTER, ONCHIP>();
+  if (err != cudaSuccess) return err;
+  cudaLaunchConfig_t cfg = {};
+  cudaLaunchAttribute attr[1];
+  cfg.gridDim = dim3((unsigned)G * (unsigned)k);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  if (CLUSTER) {
+    attr[0].id = cudaLaunchAttributeClusterDimension;
+    attr[0].val.clusterDim.x = (unsigned)k;
+    attr[0].val.clusterDim.y = 1;
+    attr[0].val.clusterDim.z = 1;
+    cfg.attrs = attr;
+    cfg.numAttrs = 1;
+  }
+  err = cudaLaunchKernelEx(&cfg, kernel, (const uint32_t*)in, (uint32_t*)out,
+                           (int32_t*)lows, (int32_t*)reds, C, W, k, S, vec);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
 // blocks (G, C, W) -> reduced (G, C, W), lows (G, C), n_reductions (G,).
-// Returns the cudaError_t of the launch.
+// The route comes from kernels/gf2.py's serial_plan: k ranks of S words a
+// row on chip (k = 1 a block's shared memory, 2 .. 16 a cluster), or k = 0
+// the rows in global memory; `threads` a block.  A plan whose shared memory
+// exceeds 227 KB, or whose ranks do not cover the row, is refused
+// (cudaErrorInvalidValue).  Returns the cudaError_t of the launch.
 extern "C" int gf2_serial_reduce(const void* in, void* out, void* lows,
-                                 void* reds, int G, int C, int W,
-                                 void* stream) {
-  if (G <= 0) return 0;
-  const size_t smem = ((size_t)C + kSerialThreads / 32) * sizeof(int);
-  gf2_serial_reduce_kernel<<<G, kSerialThreads, smem, (cudaStream_t)stream>>>(
-      (const uint32_t*)in, (uint32_t*)out, (int32_t*)lows, (int32_t*)reds, C,
-      W);
-  return (int)cudaGetLastError();
+                                 void* reds, int G, int C, int W, int k,
+                                 int S, int threads, void* stream) {
+  if (G <= 0 || C <= 0) return 0;
+  const int ranks = k > 0 ? k : 1;
+  if (k < 0 || k > 16 || threads < 32 || threads > kSerialMaxThreads ||
+      (threads & (threads - 1)) != 0 ||
+      (k > 0 && (S < 0 || (long long)k * S < W)))
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = serial_header_bytes(C, ranks, threads / 32) +
+                      (k == 1 ? serial_table_bytes(W) : 0) +
+                      (k > 0 ? (size_t)C * S * sizeof(uint32_t) : 0);
+  if (smem > kSerialMaxSmem) return (int)cudaErrorInvalidValue;
+  const int vec = W % 4 == 0 && S % 4 == 0 &&
+                  ((((uintptr_t)in) | ((uintptr_t)out)) & 15u) == 0;
+  const cudaStream_t s = (cudaStream_t)stream;
+  cudaError_t err;
+  if (k == 0)
+    err = launch_serial<false, false>(in, out, lows, reds, G, C, W, 1, 0,
+                                      threads, smem, 0, s);
+  else if (k == 1)
+    err = launch_serial<false, true>(in, out, lows, reds, G, C, W, 1, S,
+                                     threads, smem, vec, s);
+  else
+    err = launch_serial<true, true>(in, out, lows, reds, G, C, W, k, S,
+                                    threads, smem, vec, s);
+  return (int)err;
 }

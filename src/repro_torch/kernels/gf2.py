@@ -14,7 +14,9 @@ hand-written CUDA for sm_90a in ``csrc/gf2.cu``:
   XOR an addend block of the same shape), off the reduction's path;
 * :func:`gf2_serial_reduce` — per block, the in-order serial phase: while
   a row's low equals an earlier row's low, XOR the first such row in
-  (``_serial_reduce_kernel``).
+  (``_serial_reduce_kernel``); :func:`serial_plan` picks its route from
+  (C, W): the block in one thread block's shared memory, sliced across a
+  thread-block cluster of up to 16, or in device memory beyond that.
 
 Blocks are ``torch.int32`` tensors carrying the uint32 bit patterns (torch
 on the CPU has no ``~``, unary ``-`` or ``>>`` for ``torch.uint32``); the
@@ -34,7 +36,7 @@ and bit blocks with ``scatter_bits`` / ``scatter_xor_bits`` /
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -53,9 +55,12 @@ _SIGNATURES = {
                          ctypes.c_longlong, ctypes.c_void_p),
     "gf2_serial_reduce": (ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
                           ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                          ctypes.c_int, ctypes.c_int, ctypes.c_int,
                           ctypes.c_int, ctypes.c_void_p),
 }
 _MAX_SERIAL_ROWS = 8192     # the serial kernel keeps C lows in shared memory
+SMEM_PER_BLOCK = 232_448    # an H100 thread block's dynamic shared memory
+MAX_CLUSTER = 16            # ranks a cluster (above 8: non-portable, allowed)
 
 
 # ---------------------------------------------------------------------------
@@ -421,13 +426,67 @@ def gf2_parallel_xor(cols: torch.Tensor,
     return out
 
 
+class SerialPlan(NamedTuple):
+    """How ``gf2_serial_reduce``'s kernel holds a (C, W) block: ``route``
+    "smem" (the block in one thread block's shared memory, ``k`` = 1),
+    "cluster" (``k`` ranks of a thread-block cluster, each holding words
+    ``[r*S, r*S + S)`` of every row) or "global" (the rows in device memory,
+    ``k`` = 0, ``S`` = 0); ``threads`` a thread block and the dynamic shared
+    memory each takes."""
+    route: str
+    k: int
+    S: int
+    threads: int
+    smem_bytes: int
+
+
+def _serial_threads(words: int) -> int:
+    """Threads of a rank holding ``words`` of a row: about one word each."""
+    return 128 if words <= 128 else 256 if words <= 256 else 512
+
+
+def _serial_header_bytes(C: int, k: int, threads: int) -> int:
+    """Shared memory ahead of the table and the rows
+    (``serial_header_bytes`` in ``csrc/gf2.cu``): the walk's lows (C padded
+    to 32), the ranks' slice lows where k > 1, two buffers of k minima a
+    warp; 16-byte rounded."""
+    cp = -(-C // 32) * 32
+    ints = cp * (2 if k > 1 else 1) + 2 * k * (threads // 32)
+    return -(-ints * 4 // 16) * 16
+
+
+def _serial_table_bytes(W: int) -> int:
+    """The one-block route's table low -> row: W * 32 uint16 entries,
+    16-byte rounded (``serial_table_bytes`` in ``csrc/gf2.cu``)."""
+    return -(-W * 64 // 16) * 16
+
+
+def serial_plan(C: int, W: int) -> SerialPlan:
+    """The serial kernel's route for (C, W) blocks: the fewest ranks k whose
+    slices of S words a row (a multiple of 4, so rows stay 16-byte aligned)
+    fit ``SMEM_PER_BLOCK`` each, up to ``MAX_CLUSTER`` (k = 1 also holds the
+    table low -> row); the global route beyond."""
+    for k in range(1, MAX_CLUSTER + 1):
+        S = -(-(-(-W // k)) // 4) * 4
+        ranks = -(-W // S) if S else 1
+        threads = _serial_threads(S)
+        smem = (_serial_header_bytes(C, ranks, threads) + C * S * 4
+                + (_serial_table_bytes(W) if ranks == 1 else 0))
+        if smem <= SMEM_PER_BLOCK:
+            return SerialPlan("smem" if ranks == 1 else "cluster", ranks, S,
+                              threads, smem)
+    return SerialPlan("global", 0, 0, 512, _serial_header_bytes(C, 1, 512))
+
+
 def gf2_serial_reduce(blocks: torch.Tensor
                       ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Intra-block serial reduction of a (G, C, W) int32 batch.
 
     Returns (reduced (G, C, W), lows (G, C) int32, n_reductions (G,)
     int32).  Afterwards every block's non-empty rows have pairwise-distinct
-    lows — the invariant the clearance step commits."""
+    lows — the invariant the clearance step commits.  On a card the kernel
+    takes the route of :func:`serial_plan`; a route that fails to launch
+    raises."""
     _check_bits(blocks, 3, "blocks")
     _check_contiguous(blocks, "blocks")
     if blocks.device.type == "cpu":
@@ -436,16 +495,23 @@ def gf2_serial_reduce(blocks: torch.Tensor
     if C > _MAX_SERIAL_ROWS:
         raise ValueError(f"C={C} exceeds the serial kernel's limit of "
                          f"{_MAX_SERIAL_ROWS} rows")
+    if W * 32 >= NO_LOW:
+        raise ValueError(f"W={W} words: bit indices reach NO_LOW")
     out = torch.empty_like(blocks)
     lows = torch.empty((G, C), dtype=torch.int32, device=blocks.device)
     reds = torch.empty(G, dtype=torch.int32, device=blocks.device)
-    if G:
+    if G and C:
+        plan = serial_plan(C, W)
         stream = torch.cuda.current_stream(blocks.device).cuda_stream
         err = _lib().gf2_serial_reduce(blocks.data_ptr(), out.data_ptr(),
                                        lows.data_ptr(), reds.data_ptr(),
-                                       G, C, W, stream)
+                                       G, C, W, plan.k, plan.S, plan.threads,
+                                       stream)
         gf2_serial_reduce.launches += 1
-        _build.check_launch(err, "gf2_serial_reduce")
+        _build.check_launch(err, f"gf2_serial_reduce ({plan.route}, "
+                            f"k={plan.k})")
+    elif G:
+        reds.zero_()
     return out, lows, reds
 
 

@@ -236,6 +236,66 @@ def test_serial_reduce_kernel_matches_plain(dev, g, c, w):
     assert int(preds.sum()) > 0
 
 
+def _prepass_blocks(rng, g, c, w, planted):
+    """The packed engine's pre-pass layout: R words whose lows spread over
+    the row, rows planted onto an earlier row's low or whole R part (emptied
+    by the XOR), V identity bits at the tail."""
+    vw = (c + 31) // 32
+    cap = w - vw
+    blocks = np.zeros((g, c, w), dtype=np.uint32)
+    for b in range(g):
+        r = (rng.integers(0, 2**32, size=(c, cap), dtype=np.uint32)
+             & rng.integers(0, 2**32, size=(c, cap), dtype=np.uint32))
+        first = rng.integers(0, cap, size=c)
+        r[np.arange(cap)[None, :] < first[:, None]] = 0
+        r[np.arange(c), first] |= np.uint32(1) << rng.integers(
+            0, 32, size=c).astype(np.uint32)
+        for n in range(planted):
+            i = int(rng.integers(1, c))
+            j = int(rng.integers(0, i))
+            r[i, :first[j] + 1] = r[j, :first[j] + 1]
+            if n % 4 == 0:
+                r[i] = r[j]
+        blocks[b, :, :cap] = r
+        rows = np.arange(c)
+        blocks[b, rows, cap + (rows >> 5)] = np.uint32(1) << (
+            rows & 31).astype(np.uint32)
+    return blocks
+
+
+@pytest.mark.parametrize("g,c,w,route,k", [
+    (1, 128, 256, "smem", 1), (1, 128, 2176, "cluster", 5),
+    (1, 128, 600, "cluster", 2), (1, 128, 3500, "cluster", 8),
+    (1, 128, 7000, "cluster", 16), (1, 128, 8000, "global", 0),
+    (2, 128, 2176, "cluster", 5), (2, 70, 13, "smem", 1),
+    (2, 45, 8003, "cluster", 7), (1, 45, 30003, "global", 0)])
+def test_serial_reduce_routes_match_plain(dev, g, c, w, route, k):
+    """Every route of the serial kernel, bit for bit against the plain
+    version: block, lows and reduction counts."""
+    assert gf2.serial_plan(c, w)[:2] == (route, k)
+    rng = np.random.default_rng(w + c)
+    t = _bits(_prepass_blocks(rng, g, c, w, c // 3), dev)
+    before = gf2.gf2_serial_reduce.launches
+    red, lows, reds = gf2.gf2_serial_reduce(t)
+    torch.cuda.synchronize()
+    assert gf2.gf2_serial_reduce.launches == before + 1
+    pred, plows, preds = gf2.gf2_serial_reduce_plain(t.cpu())
+    assert torch.equal(red.cpu(), pred)
+    assert torch.equal(lows.cpu(), plows)
+    assert torch.equal(reds.cpu(), preds)
+    assert int(preds.min()) > 0
+
+
+def test_serial_reduce_refused_plan_raises(dev, monkeypatch):
+    """No fallback: a plan the launcher refuses (ranks that do not cover
+    the row) raises instead of handing over to the plain version."""
+    monkeypatch.setattr(gf2, "serial_plan",
+                        lambda c, w: gf2.SerialPlan("cluster", 2, 4, 128, 0))
+    t = _bits(np.ones((1, 32, 64), dtype=np.uint32), dev)
+    with pytest.raises(RuntimeError, match="gf2_serial_reduce"):
+        gf2.gf2_serial_reduce(t)
+
+
 def test_compute_ph_card_matches_cpu(dev):
     pts = np.random.default_rng(4).normal(size=(60, 3))
     kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed",
