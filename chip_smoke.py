@@ -56,7 +56,33 @@ Phases, one JSON line each:
 5. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
-6. ``serve``    — token serving at the full width of qwen3-0.6b
+6. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+   at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
+   tau 0.6, maxdim 2), on the card, one call after another: each condition
+   through the batch engine and the packed engine on the tiled harvest, and
+   the control also through the packed engine over ``build_filtration_coo``
+   of the card's harvest (every pair also reversed, a duplicate at a larger
+   value, diagonal entries).  Every diagram ``np.array_equal`` to the batch
+   engine's; each run's wall and launches; the Fig. 21 table (H1 and H2
+   features with persistence above 0.02, 0.05 and 0.08, auxin against
+   control); H1 at 0.05 and 0.08 must fall under auxin, as
+   ``fig21_hic.py`` gates it.
+7. ``hic_path`` — the regime ``examples/genome_hic.py`` documents:
+   ``hic_pair(50_000, 200, seed=1)``, one ``tau_max`` for both conditions
+   (the smaller of ``estimate_tau_max`` at 128 MiB of each), each condition
+   through ``compute_ph(maxdim=1, engine="packed", backend="tiled")`` at
+   2048 x 2048 tiles under ``torch.profiler``, with the counts set to 0
+   just before it: n_e, the synchronised wall, the phase split, the card's
+   busy and idle share, each PH kernel's launches (all four must launch on
+   auxin) and device seconds and the H1 classes above each Fig. 21 threshold,
+   finite deaths and essential classes apart (no gate on direction: at a
+   tau near 0.03 a class of persistence above 0.05 can only be essential).
+   The auxin harvest must equal a harvest through the plain pairwise
+   version, and its serial pre-pass inputs replay exactly through the
+   kernel and the plain version (``hic_serial_replay``).  The control's
+   card harvest, as COO triplets, must build a filtration equal field by
+   field to ``build_filtration_tiled`` on the card.
+8. ``serve``    — token serving at the full width of qwen3-0.6b
    (``repro_torch.serve.engine.ServeEngine``, seeded random weights): 16
    requests of 1024–2048 prompt tokens and 32 new tokens through 8 slots
    (two prefill epochs of 8 x 2048 tokens, 2 x 32 decode steps).  The flash
@@ -68,7 +94,7 @@ Phases, one JSON line each:
    its ``arange`` positions passed explicitly, which the model sends
    there), and the logits must agree within ``3e-2 * max(1, max
    |logits|)``.
-7. ``serve_f32`` — one serving epoch of full-width qwen3-0.6b computing in
+9. ``serve_f32`` — one serving epoch of full-width qwen3-0.6b computing in
    float32 (``compute_dtype="float32"``, seeded random weights): 8 requests
    of 1,024–2,048 prompt tokens, one prefill (8 x 2048 tokens) and one
    decode step, under ``torch.profiler``; its 28 flash launches must all be the
@@ -806,6 +832,19 @@ def n_pairs(res) -> dict:
     return {str(d): int(pd.shape[0]) for d, pd in res.diagrams.items()}
 
 
+def check_diagrams(res, maxdim: int, what: str) -> None:
+    """Diagrams of every dimension up to ``maxdim``: (k, 2), finite births,
+    no death before its birth, and some H1 pairs."""
+    for d in range(maxdim + 1):
+        pd = res.diagrams[d]
+        if pd.ndim != 2 or pd.shape[1] != 2 \
+                or not np.isfinite(pd[:, 0]).all() \
+                or (pd[:, 1] < pd[:, 0]).any():
+            raise AssertionError(f"{what}: H{d} diagram malformed")
+    if res.diagrams[1].shape[0] == 0:
+        raise AssertionError(f"{what}: no H1 pairs")
+
+
 class RoundTap:
     """Wraps ``_PackedBatch.xor_rows_kernels``, the kernel branch of
     ``xor_addends``, for the length of a ``with`` block: times every call
@@ -895,10 +934,11 @@ class SerialTap:
         packed_reduce.gf2_serial_reduce = self.real
 
 
-def serial_replay(dev, tap: SerialTap, path_launches: int) -> dict:
-    """The main path's serial pre-pass inputs again, each through the kernel
-    and the plain version (exactly equal), with the kernel's device time:
-    each launch's shape, reductions, route and time."""
+def serial_replay(dev, tap: SerialTap, path_launches: int,
+                  phase: str = "serial_replay") -> dict:
+    """A path's serial pre-pass inputs again, each through the kernel and
+    the plain version (exactly equal), with the kernel's device time: each
+    launch's shape, reductions, route and time."""
     from repro_torch.kernels import gf2
 
     if len(tap.inputs) != path_launches:
@@ -907,7 +947,7 @@ def serial_replay(dev, tap: SerialTap, path_launches: int) -> dict:
     launches = []
     for i, host in enumerate(tap.inputs):
         t = host.to(dev)
-        held = serial_held(t, f"main-path input {i}")
+        held = serial_held(t, f"{phase} input {i}")
         plan = held["plan"]
         launches.append(dict(
             shape=list(t.shape), n_reductions=held["n_reductions"],
@@ -919,7 +959,7 @@ def serial_replay(dev, tap: SerialTap, path_launches: int) -> dict:
                queued_s=sum(x["queued_us"] for x in launches) / 1e6,
                per_call_s=sum(x["per_call_us"] for x in launches) / 1e6,
                exact=True)
-    emit("serial_replay", **out)
+    emit(phase, **out)
     return out
 
 
@@ -1054,11 +1094,45 @@ def round_step(dev, tap: RoundTap, repeats: int = 8) -> dict:
     return out
 
 
+def path_profile(evs, wall: float) -> dict:
+    """A path's profile: the card's busy seconds and idle share of the
+    wall, and each PH kernel's profiled launches and device seconds."""
+    busy_s = busy_us(evs) / 1e6
+    per_kernel = {}
+    for k in PH_KERNELS + OFF_PATH_KERNELS:
+        kev = [ev for ev in evs if f"{k}_kernel" in ev.name]
+        per_kernel[k] = dict(
+            profiled_launches=len(kev),
+            device_s=sum(ev.time_range.elapsed_us() for ev in kev) / 1e6)
+    return dict(device_events=len(evs), device_busy_s=busy_s,
+                device_idle_share=(1.0 - busy_s / wall) if evs else None,
+                kernels_on_path=per_kernel)
+
+
+def harvest_held(dev, points, tau: float, n_e: int, what: str) -> None:
+    """The path's harvest again, through the pairwise kernel and through
+    its plain version on the card (2048 x 2048 tiles): identical edges,
+    as many as the path's ``n_e``."""
+    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists_plain
+    from repro_torch.scale.tiles import harvest_edges
+
+    kern = harvest_edges(points=points, tau_max=tau, tile_m=2048,
+                         tile_n=2048, backend="kernel", device=dev)
+    plain = harvest_edges(points=points, tau_max=tau, tile_m=2048,
+                          tile_n=2048, backend="kernel", device=dev,
+                          sq_dists=pairwise_sq_dists_plain)
+    for a, b, field in zip(kern, plain, ("i", "j", "length")):
+        if not np.array_equal(a, b):
+            raise AssertionError(f"{what}: harvest {field} differs between "
+                                 "the kernel and the plain version")
+    if kern[0].size != n_e:
+        raise AssertionError(f"{what}: harvest edge count differs from "
+                             "compute_ph's")
+
+
 def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
-    from repro_torch.kernels.pairwise_dist import pairwise_sq_dists_plain
-    from repro_torch.scale.tiles import harvest_edges
 
     points = clifford_torus(n, seed=0)
     counters = reset_counters()
@@ -1077,43 +1151,20 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
         (res, wall), evs = profiled(run)
     launches = {k: counters[k].launches
                 for k in PH_KERNELS + OFF_PATH_KERNELS}
-    busy_s = busy_us(evs) / 1e6
-    per_kernel = {}
-    for k in PH_KERNELS + OFF_PATH_KERNELS:
-        kev = [ev for ev in evs if f"{k}_kernel" in ev.name]
-        per_kernel[k] = dict(
-            profiled_launches=len(kev),
-            device_s=sum(ev.time_range.elapsed_us() for ev in kev) / 1e6)
     for name in PH_KERNELS:
         if launches[name] <= 0:
             raise AssertionError(f"main path never launched {name}")
-    for d, pd in res.diagrams.items():
-        if not np.isfinite(pd[:, 0]).all() or pd.shape[1] != 2:
-            raise AssertionError(f"H{d} diagram malformed")
-    if res.diagrams[1].shape[0] == 0:
-        raise AssertionError("no H1 pairs on the torus")
+    check_diagrams(res, 1, "main path")
     st = res.stats
     tau = st["tau_max_estimated"]
-    kern = harvest_edges(points=points, tau_max=tau, tile_m=2048,
-                         tile_n=2048, backend="kernel", device=dev)
-    plain = harvest_edges(points=points, tau_max=tau, tile_m=2048,
-                          tile_n=2048, backend="kernel", device=dev,
-                          sq_dists=pairwise_sq_dists_plain)
-    for a, b, what in zip(kern, plain, ("i", "j", "length")):
-        if not np.array_equal(a, b):
-            raise AssertionError(f"harvest {what} differs between the "
-                                 "kernel and the plain version")
-    if kern[0].size != int(st["n_e"]):
-        raise AssertionError("harvest edge count differs from compute_ph's")
+    harvest_held(dev, points, tau, int(st["n_e"]), "main path")
     out = dict(n=n, n_e=int(st["n_e"]), tau_max=tau, wall_s=wall,
                t_filtration=st["t_filtration"], t_h0=st["t_h0"],
                t_h1=st["t_h1"], pairs=n_pairs(res), launches=launches,
                h1_n_supersteps=st["h1_n_supersteps"],
                h1_n_rounds=st["h1_n_rounds"],
                h1_n_reductions=st["h1_n_reductions"],
-               device_events=len(evs), device_busy_s=busy_s,
-               device_idle_share=(1.0 - busy_s / wall) if evs else None,
-               kernels_on_path=per_kernel,
+               **path_profile(evs, wall),
                kernel_round_calls=tap.calls,
                kernel_round_s=tap.seconds,
                round_capture_s=tap.capture_s,
@@ -1155,7 +1206,196 @@ def cross_check(dev) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 6: token serving at full width
+# phases 6 and 7: the Hi-C pair (paper §6, Fig. 21)
+# ---------------------------------------------------------------------------
+
+# benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
+HIC_SUITE_N, HIC_SUITE_LOOPS, HIC_SUITE_TAU = 350, 24, 0.6
+FIG21_THRESHOLDS = (0.02, 0.05, 0.08)
+# The regime examples/genome_hic.py documents: 50,000 loci, 200 cohesin
+# loops, the tiled backend at 2048 x 2048, one tau for both conditions from
+# a 128 MiB budget, maxdim 1.
+HIC_N, HIC_LOOPS, HIC_BUDGET_MIB, HIC_TILE = 50_000, 200, 128, 2048
+
+
+def timed(fn):
+    """(fn(), seconds): host clock around the call and a synchronise."""
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def fig21_counts(pd: np.ndarray) -> dict:
+    """Features whose persistence exceeds each Fig. 21 threshold, counted
+    as ``benchmarks/fig21_hic.py`` counts them: an essential class (death
+    infinite) counts at every threshold."""
+    pers = pd[:, 1] - pd[:, 0]
+    return {str(t): int((pers > t).sum()) for t in FIG21_THRESHOLDS}
+
+
+def finite_and_essential(pd: np.ndarray) -> dict:
+    """The classes above each Fig. 21 threshold, finite deaths and
+    essential classes apart."""
+    finite = np.isfinite(pd[:, 1])
+    pers = pd[:, 1] - pd[:, 0]
+    return {str(t): dict(finite=int(((pers > t) & finite).sum()),
+                         essential=int(((pers > t) & ~finite).sum()))
+            for t in FIG21_THRESHOLDS}
+
+
+def coo_triplets(iu, ju, lens, n: int, seed: int = 0):
+    """Harvested edges as a contact map gives them: every pair also
+    reversed, a duplicate of each at a larger value (the shorter
+    measurement must win) and diagonal entries, shuffled."""
+    rng = np.random.default_rng(seed)
+    diag = rng.integers(0, n, size=max(1, n // 100))
+    rows = np.concatenate([iu, ju, ju, diag])
+    cols = np.concatenate([ju, iu, iu, diag])
+    vals = np.concatenate([lens, lens, lens + 1.0, np.zeros(diag.size)])
+    perm = rng.permutation(rows.size)
+    return rows[perm], cols[perm], vals[perm]
+
+
+def hic_suite(dev) -> dict:
+    """The suite's Hi-C pair on the card, one call after another: each
+    condition through the batch engine (as ``fig21_hic.py`` runs it) and the
+    packed engine, both on the tiled harvest, and the control also through
+    the packed engine over ``build_filtration_coo`` of the card's harvest.
+    Every diagram must equal the batch engine's, and H1 at the thresholds
+    >= 0.05 must fall under auxin, as ``fig21_hic.py`` gates it."""
+    from repro_torch import compute_ph
+    from repro_torch.data.pointclouds import hic_pair
+    from repro_torch.scale import build_filtration_coo, harvest_edges
+
+    out = {}
+    for name, points in zip(("control", "auxin"),
+                            hic_pair(HIC_SUITE_N, HIC_SUITE_LOOPS, seed=1)):
+        runs = {"batch": dict(points=points, engine="batch",
+                              backend="tiled"),
+                "packed": dict(points=points, engine="packed",
+                               backend="tiled")}
+        if name == "control":
+            iu, ju, lens = harvest_edges(points=points, tau_max=HIC_SUITE_TAU,
+                                         backend="kernel", device=dev)
+            runs["packed_coo"] = dict(engine="packed",
+                                      filtration=build_filtration_coo(
+                                          *coo_triplets(iu, ju, lens,
+                                                        len(points)),
+                                          n=len(points),
+                                          tau_max=HIC_SUITE_TAU))
+        results, walls, launches = {}, {}, {}
+        for run, kw in runs.items():
+            counters = reset_counters()
+            results[run], walls[run] = timed(lambda: compute_ph(
+                tau_max=HIC_SUITE_TAU, maxdim=2, device=dev, **kw))
+            launches[run] = {k: counters[k].launches for k in PH_KERNELS}
+            if "points" in kw and launches[run]["pairwise_sq_dists"] <= 0:
+                raise AssertionError(f"hic_suite {name} {run}: the tiled "
+                                     "harvest never launched the kernel")
+        ref = results["batch"]
+        check_diagrams(ref, 2, f"hic_suite {name}")
+        for run, res in results.items():
+            for d in range(3):
+                if not np.array_equal(res.diagrams[d], ref.diagrams[d]):
+                    raise AssertionError(f"hic_suite {name}: H{d} of {run} "
+                                         "differs from the batch engine's")
+        out[name] = dict(
+            n_e=int(ref.stats["n_e"]), pairs=n_pairs(ref), wall_s=walls,
+            launches=launches,
+            essential={f"H{d}": int(np.isinf(ref.diagrams[d][:, 1]).sum())
+                       for d in (1, 2)},
+            counts={f"H{d}": fig21_counts(ref.diagrams[d]) for d in (1, 2)})
+    table = [dict(dim=f"H{d}", threshold=t,
+                  control=out["control"]["counts"][f"H{d}"][str(t)],
+                  auxin=out["auxin"]["counts"][f"H{d}"][str(t)])
+             for t in FIG21_THRESHOLDS for d in (1, 2)]
+    for row in table:
+        row["pct_change"] = (100.0 * (row["auxin"] - row["control"])
+                             / max(row["control"], 1))
+    emit("hic_suite", n=HIC_SUITE_N, loops=HIC_SUITE_LOOPS,
+         tau_max=HIC_SUITE_TAU, maxdim=2, identical=True, fig21=table, **out)
+    for row in table:
+        if row["dim"] == "H1" and row["threshold"] >= 0.05 \
+                and not row["pct_change"] < 0:
+            raise AssertionError(f"hic_suite: H1 at {row['threshold']} does "
+                                 "not fall under auxin (Fig. 21)")
+    return out
+
+
+def hic_path(dev) -> dict:
+    """The example's regime on the card: one tau for both conditions (the
+    smaller of ``estimate_tau_max`` at 128 MiB of each), each condition
+    through ``compute_ph(engine="packed", backend="tiled")`` under the
+    profiler, with the counts set to 0 just before it.  At that tau the classes above 0.05 can only be
+    essential ones, so the H1 counts are printed finite and essential apart
+    and nothing is gated on their direction.  Held: all four PH kernels
+    launch on auxin; the auxin harvest equals a harvest through the plain
+    pairwise version, and its serial pre-pass inputs replay exactly through
+    the kernel and the plain version; the control's card harvest, as COO
+    triplets, builds a filtration equal field by field to
+    ``build_filtration_tiled``."""
+    from repro_torch import compute_ph
+    from repro_torch.data.pointclouds import hic_pair
+    from repro_torch.scale import (build_filtration_coo,
+                                   build_filtration_tiled, estimate_tau_max,
+                                   harvest_edges)
+
+    control, auxin = hic_pair(HIC_N, n_loops=HIC_LOOPS, seed=1)
+    budget = HIC_BUDGET_MIB * 2**20
+    taus = {"control": estimate_tau_max(control, budget),
+            "auxin": estimate_tau_max(auxin, budget)}
+    tau = min(taus.values())
+    if not np.isfinite(tau):
+        raise AssertionError("hic_path: the budget does not bind")
+
+    def condition(name, points):
+        counters = reset_counters()
+        (res, wall), evs = profiled(lambda: timed(lambda: compute_ph(
+            points=points, maxdim=1, engine="packed", backend="tiled",
+            tile_m=HIC_TILE, tile_n=HIC_TILE, tau_max=tau, device=dev)))
+        launches = {k: counters[k].launches
+                    for k in PH_KERNELS + OFF_PATH_KERNELS}
+        check_diagrams(res, 1, f"hic_path {name}")
+        st = res.stats
+        return dict(n_e=int(st["n_e"]), wall_s=wall,
+                    t_filtration=st["t_filtration"], t_h0=st["t_h0"],
+                    t_h1=st["t_h1"], t_h1_share=st["t_h1"] / wall,
+                    pairs=n_pairs(res), launches=launches,
+                    h1_n_rounds=st["h1_n_rounds"],
+                    h1_n_reductions=st["h1_n_reductions"],
+                    h1=finite_and_essential(res.diagrams[1]),
+                    **path_profile(evs, wall))
+
+    out = {"control": condition("control", control)}
+    serial = SerialTap()
+    with serial:
+        out["auxin"] = condition("auxin", auxin)
+    for k in PH_KERNELS:
+        if out["auxin"]["launches"][k] <= 0:
+            raise AssertionError(f"hic_path auxin never launched {k}")
+
+    harvest_held(dev, auxin, tau, out["auxin"]["n_e"], "hic_path auxin")
+    (coo, tiled), coo_s = timed(lambda: (
+        build_filtration_coo(*coo_triplets(*harvest_edges(
+            points=control, tau_max=tau, tile_m=HIC_TILE, tile_n=HIC_TILE,
+            backend="kernel", device=dev), HIC_N), n=HIC_N, tau_max=tau),
+        build_filtration_tiled(points=control, tau_max=tau, device=dev)))
+    assert_filtrations_equal(coo, tiled, "hic_path: COO against tiled")
+    if coo.n_e != out["control"]["n_e"]:
+        raise AssertionError("hic_path: the COO edge count differs from "
+                             "compute_ph's")
+    emit("hic_path", n=HIC_N, loops=HIC_LOOPS, budget_mib=HIC_BUDGET_MIB,
+         tile=HIC_TILE, tau_estimates=taus, tau_max=tau, maxdim=1,
+         harvest_identical_to_plain=True, coo_equals_tiled=True,
+         coo_check_s=coo_s, **out)
+    serial_replay(dev, serial, out["auxin"]["launches"]["gf2_serial_reduce"],
+                  "hic_serial_replay")
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 8: token serving at full width
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "qwen3-0.6b"
@@ -1519,6 +1759,8 @@ def main() -> int:
     cross_check(dev)
     serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
     del tap, serial
+    hic_suite(dev)
+    hic = hic_path(dev)
     served = serve(dev)
     served_f32 = serve_f32(dev)
     launches = dict(path["launches"],
@@ -1555,6 +1797,8 @@ def main() -> int:
             library_ms=first(e["library_ms"], e["library_wall_ms"]),
             times_from=("profiler" if e["kernel_ms"] is not None
                         else "per-call wall"),
+            hic_launches={c: hic[c]["launches"].get(kname)
+                          for c in ("control", "auxin")},
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

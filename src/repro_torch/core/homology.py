@@ -2,8 +2,8 @@
 
 Port of ``src/repro/core/homology.py``: same API (numpy points in, numpy
 diagrams out, ``PHResult.stats`` on the same metrics schema) plus a
-``device`` argument.  Backends ``dense`` and ``tiled``; engines ``single``
-and ``packed``.
+``device`` argument.  Backends ``dense`` and ``tiled``; engines ``single``,
+``batch`` and ``packed``.
 
 ``compute_ph`` is the user-facing entry point: point cloud or distance matrix
 in, persistence diagrams out, with the paper's full pipeline — filtration +
@@ -167,8 +167,8 @@ def compute_ph(
     sparse: neighborhoods (Dory) vs dense order matrix (DoryNS); default
     picks NS for small n and always the sparse path for streamed
     filtrations.
-    engine: "single" (1-thread analog) or "packed" (serial-parallel on
-    bit-packed GF(2) blocks).
+    engine: "single" (1-thread analog), "batch" (serial-parallel, §4.4;
+    host numpy) or "packed" (serial-parallel on bit-packed GF(2) blocks).
     backend: "dense" materializes the (n, n) distance matrix; "tiled"
     streams it in (tile_m, tile_n) blocks (:mod:`repro_torch.scale`).
     With ``memory_budget_bytes`` and no finite ``tau_max`` the threshold
@@ -183,7 +183,7 @@ def compute_ph(
     ``n_shards`` (the distributed reduction and the sharded harvest,
     ROADMAP.md §1 items 4-5), ``exchange_every`` other than 4 (the
     distributed reduction's cadence, item 4; the diagrams do not depend on
-    it), ``engine="batch"`` (item 1) and ``sanitize`` (item 7).
+    it) and ``sanitize`` (item 7).
     """
     if mesh is not None or n_shards is not None:
         raise NotImplementedError(
@@ -193,15 +193,11 @@ def compute_ph(
         raise NotImplementedError(
             "exchange_every != 4 (the distributed reduction's exchange "
             "cadence) is not ported yet: ROADMAP.md §1 item 4")
-    if engine == "batch":
-        raise NotImplementedError(
-            "engine='batch' (core/serial_parallel.py) is not ported yet: "
-            "ROADMAP.md §1 item 1")
     if sanitize:
         raise NotImplementedError(
             "sanitize=True (analyze/invariants.py) is not ported yet: "
             "ROADMAP.md §1 item 7")
-    if engine not in ("single", "packed"):
+    if engine not in ("single", "batch", "packed"):
         raise ValueError(f"unknown engine {engine!r}")
     if backend not in ("dense", "tiled"):
         raise ValueError(f"unknown backend {backend!r}")
@@ -239,7 +235,15 @@ def compute_ph(
         reg.gauge("base_memory_bytes").set(float(filt.base_memory_bytes()))
         if sparse is None:
             sparse = (not filt.has_dense_order) or filt.n > 1024
-        if engine == "packed":
+        if engine == "batch":
+            from .serial_parallel import reduce_dimension_batched
+
+            def _reduce(adapter, cols, mode=mode, cleared=None):
+                return reduce_dimension_batched(
+                    adapter, cols, mode=mode, cleared=cleared,
+                    batch_size=batch_size,
+                    store_budget_bytes=memory_budget_bytes)
+        elif engine == "packed":
             from .packed_reduce import reduce_dimension_packed
 
             def _reduce(adapter, cols, mode=mode, cleared=None):

@@ -66,7 +66,7 @@ from .pairing import EMPTY_KEY
 from .pivot_cache import PackedPivotCache
 from .reduction import (DimensionAdapter, PivotStore, ReductionResult,
                         clearance_commit, clearing_filter, finalize_result,
-                        merge_cancel)
+                        merge_cancel, refuse_resume_hooks)
 
 _MAX_SEGMENTS = 12   # host path consolidates past this many segments
 _EVICT_MAX = 8       # rounds needing new keys for fewer rows evict instead
@@ -668,11 +668,8 @@ def reduce_dimension_packed(
         raise NotImplementedError(
             "n_shards > 1 / mesh= / exchange_every != 4 (the distributed "
             "reduction) are not ported yet: ROADMAP.md §1 item 4")
-    if seed_gens is not None or commit_sink is not None \
-            or essential_log is not None:
-        raise NotImplementedError(
-            "seed_gens= / commit_sink= / essential_log= (warm resume) are "
-            "not ported yet: ROADMAP.md §1 item 7")
+    refuse_resume_hooks(seed_gens=seed_gens, commit_sink=commit_sink,
+                        essential_log=essential_log)
     dev = resolve_device(device)
     tl = Tracer(forward_to=active_tracer())
     use_kernels = _resolve_use_kernels(use_kernels, dev)

@@ -1,9 +1,10 @@
 """Cohomology reduction engines (Dory §4.3).
 
 Port of ``src/repro/core/reduction.py`` (host numpy, unchanged semantics).
-The sanitizer hooks and the warm-restart arguments (``seed_gens``,
-``commit_log``, ``essential_log``) and the replica ``install`` path stay
-in the reference until the port takes over the service layer.
+The engines take the reference's warm-restart arguments (``seed_gens``,
+``commit_log``, ``essential_log``) in its order but refuse them, and the
+sanitizer hooks and the replica ``install`` path stay in the reference,
+until the port takes over the service layer (ROADMAP.md §1 item 7).
 
 Implements the paper's reduction family on packed paired-index keys:
 
@@ -441,21 +442,44 @@ def clearance_commit(store: PivotStore, adapter: DimensionAdapter,
                       int(ne_ids[k])))
 
 
+def refuse_resume_hooks(**hooks) -> None:
+    """``NotImplementedError`` if any warm-restart hook is given: the port
+    does not take them yet (the resume layer, ROADMAP.md §1 item 7)."""
+    if any(v is not None for v in hooks.values()):
+        names = " / ".join(f"{k}=" for k in hooks)
+        raise NotImplementedError(f"{names} (warm resume) are not ported "
+                                  "yet: ROADMAP.md §1 item 7")
+
+
 def reduce_dimension(
     adapter: DimensionAdapter,
     column_ids: np.ndarray,
     mode: str = "explicit",
     cleared=None,
+    return_store: bool = False,
     store_budget_bytes: Optional[int] = None,
-) -> ReductionResult:
+    seed_gens: Optional[Dict[int, np.ndarray]] = None,
+    commit_log: Optional[list] = None,
+    essential_log: Optional[list] = None,
+):
     """Single-column (paper 1-thread) cohomology reduction.
+
+    The reference's parameters in the reference's order; it runs on the
+    host only, so it takes no ``device``.
 
     ``column_ids`` must be in *decreasing* filtration order (``F^-1``), with
     clearing already applied or supplied via ``cleared`` (set or int array).
     ``store_budget_bytes`` bounds the explicit pivot store: columns past the
     budget are kept implicitly (V^⊥) and re-materialized on lookup — same
-    diagram, bounded memory (see :class:`PivotStore`).
+    diagram, bounded memory (see :class:`PivotStore`).  ``return_store``
+    returns ``(result, store)``.
+
+    Not in this port yet, refused with ``NotImplementedError``:
+    ``seed_gens``, ``commit_log`` and ``essential_log`` (the resume hooks,
+    ROADMAP.md §1 item 7).
     """
+    refuse_resume_hooks(seed_gens=seed_gens, commit_log=commit_log,
+                        essential_log=essential_log)
     store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes)
     pairs: List[tuple] = []
     essentials: List[float] = []
@@ -506,7 +530,10 @@ def reduce_dimension(
     reg.gauge("stored_bytes").set(store.bytes_stored)
     reg.gauge("n_stored_columns").set(len(store.columns))
     reg.counter("n_spilled").inc(store.n_spilled)
-    return finalize_result(pairs, essentials, essential_ids, reg.as_stats())
+    result = finalize_result(pairs, essentials, essential_ids, reg.as_stats())
+    if return_store:
+        return result, store
+    return result
 
 
 def self_owner_of(store: PivotStore, adapter: DimensionAdapter, low: int) -> int:

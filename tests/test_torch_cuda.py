@@ -314,6 +314,39 @@ def test_compute_ph_card_matches_cpu(dev):
     assert card.stats["h1_use_kernels"] == 1.0
 
 
+@pytest.mark.parametrize("mode", ["explicit", "implicit"])
+def test_compute_ph_batch_engine_card_matches_cpu(dev, mode):
+    """The batch engine is host numpy; on the card its tiled harvest runs
+    the pairwise kernel."""
+    pts = np.random.default_rng(5).normal(size=(60, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="batch", mode=mode,
+              backend="tiled", tile_m=32, tile_n=32, batch_size=16)
+    before = pairwise_sq_dists.launches
+    card = compute_ph(device="cuda", **kw)
+    assert pairwise_sq_dists.launches > before
+    host = compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    assert card.diagrams[1].shape[0] > 0
+
+
+@pytest.mark.parametrize("engine", ["packed", "batch"])
+@pytest.mark.parametrize("condition", [0, 1])
+def test_hic_pair_card_matches_cpu(dev, engine, condition):
+    """The suite's Hi-C pair at n = 350 (tau 0.6, maxdim 2), as
+    ``chip_smoke.py``'s ``hic_suite`` runs it on the card."""
+    from repro_torch.data.pointclouds import hic_pair
+
+    points = hic_pair(350, 24, seed=1)[condition]
+    kw = dict(points=points, tau_max=0.6, maxdim=2, engine=engine,
+              backend="tiled")
+    card = compute_ph(device="cuda", **kw)
+    host = compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    assert card.stats["n_e"] == host.stats["n_e"]
+
+
 # ---------------------------------------------------------------------------
 # flash attention (2e-4 in float32, 1e-2 in bfloat16: module docstring)
 # ---------------------------------------------------------------------------

@@ -146,11 +146,20 @@ def test_default_device_needs_a_card():
 
 @pytest.mark.parametrize("kw", [dict(n_shards=2, engine="packed"),
                                 dict(mesh=object(), engine="packed"),
-                                dict(engine="batch"),
                                 dict(sanitize=True)])
 def test_unported_options_refused(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         compute_ph(points=cloud(0, n=8), maxdim=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("backend", ["dense", "tiled"])
+def test_batch_engine_runs(backend):
+    kw = dict(points=cloud(3, n=16), maxdim=2, backend=backend, tile_m=6,
+              tile_n=6, batch_size=5, device="cpu")
+    batch = compute_ph(engine="batch", **kw)
+    single = compute_ph(engine="single", **kw)
+    assert_same_diagrams(single, batch)
+    assert batch.stats["h1_batch_size"] == 5
 
 
 def test_trace_records_spans():

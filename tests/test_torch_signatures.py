@@ -1,6 +1,7 @@
 """The port's entry points take the reference's parameters in the
-reference's order, with only a trailing ``device`` added, and refuse each
-value they cannot take yet with ``NotImplementedError`` naming its
+reference's order, with only a trailing ``device`` added where they run
+on the card and nothing added where they run on the host only, and refuse
+each value they cannot take yet with ``NotImplementedError`` naming its
 ROADMAP.md item."""
 import inspect
 
@@ -12,15 +13,27 @@ from repro.core import compute_ph as ref_compute_ph
 from repro.core.h0 import compute_h0 as ref_h0
 from repro.core.homology import make_h1_adapter as ref_h1_adapter
 from repro.core.packed_reduce import reduce_dimension_packed as ref_packed
+from repro.core.reduction import reduce_dimension as ref_reduce
+from repro.core.serial_parallel import reduce_dimension_batched as ref_batched
+from repro.scale.sparse_input import build_filtration_coo as ref_coo
 from repro_torch import compute_ph
 from repro_torch.core.filtration import build_filtration
 from repro_torch.core.h0 import compute_h0
 from repro_torch.core.homology import make_h1_adapter
 from repro_torch.core.packed_reduce import reduce_dimension_packed
+from repro_torch.core.reduction import reduce_dimension
+from repro_torch.core.serial_parallel import reduce_dimension_batched
+from repro_torch.scale import build_filtration_coo
 
 
 def _params(fn):
     return list(inspect.signature(fn).parameters.values())
+
+
+def _same_default(a, b) -> bool:
+    return (a.default is b.default or a.default == b.default
+            or (isinstance(a.default, float) and np.isnan(a.default)
+                and np.isnan(b.default)))
 
 
 @pytest.mark.parametrize("ref,port", [(ref_compute_ph, compute_ph),
@@ -30,11 +43,20 @@ def test_signature_matches_reference(ref, port):
     assert [p.name for p in got] == [p.name for p in want] + ["device"]
     for a, b in zip(want, got):
         assert a.kind == b.kind, a.name
-        same = (a.default is b.default or a.default == b.default
-                or (isinstance(a.default, float) and np.isnan(a.default)
-                    and np.isnan(b.default)))
-        assert same, a.name
+        assert _same_default(a, b), a.name
     assert got[-1].default is None
+
+
+@pytest.mark.parametrize("ref,port", [(ref_reduce, reduce_dimension),
+                                      (ref_batched, reduce_dimension_batched),
+                                      (ref_coo, build_filtration_coo)])
+def test_host_signature_is_the_reference(ref, port):
+    """Host-only entry points: exactly the reference's parameters."""
+    want, got = _params(ref), _params(port)
+    assert [p.name for p in got] == [p.name for p in want]
+    for a, b in zip(want, got):
+        assert a.kind == b.kind, a.name
+        assert _same_default(a, b), a.name
 
 
 def _cloud():
@@ -45,12 +67,21 @@ def _cloud():
     (dict(exchange_every=2, engine="packed"), r"§1 item 4$"),
     (dict(n_shards=2, engine="packed"), r"§1 items 4-5$"),
     (dict(mesh=object(), engine="packed"), r"§1 items 4-5$"),
-    (dict(engine="batch"), r"§1 item 1$"),
     (dict(sanitize=True), r"§1 item 7$"),
 ])
 def test_compute_ph_refusals_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("mode", ["explicit", "implicit"])
+def test_compute_ph_takes_engine_batch(mode):
+    kw = dict(points=_cloud(), maxdim=2, engine="batch", mode=mode,
+              batch_size=4)
+    ref, mine = ref_compute_ph(**kw), compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+    assert mine.stats["h1_batch_size"] == 4
 
 
 def test_compute_ph_takes_exchange_every():
@@ -99,3 +130,13 @@ def test_reduce_dimension_packed_positional_reference_call(use_kernels):
     assert np.array_equal(ref.diagram(), mine.diagram())
     np.testing.assert_array_equal(ref.pivot_lows, mine.pivot_lows)
     assert mine.stats["n_shards"] == 1
+
+
+@pytest.mark.parametrize("kw", [dict(seed_gens={}), dict(commit_log=[]),
+                                dict(essential_log=[])])
+@pytest.mark.parametrize("fn", [reduce_dimension, reduce_dimension_batched])
+def test_host_engine_refusals_name_their_item(fn, kw):
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    with pytest.raises(NotImplementedError, match=r"§1 item 7$"):
+        fn(adapter, cols, cleared=cleared, **kw)
