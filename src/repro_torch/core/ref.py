@@ -82,7 +82,6 @@ def standard_reduction(dists: np.ndarray, tau_max: float = np.inf, maxdim: int =
 
     pairs: Dict[int, List[Tuple[float, float]]] = {d: [] for d in range(maxdim + 1)}
     paired_rows = set(pivot_of_row.keys())
-    paired_cols = set(pivot_of_row.values())
     for j in range(n_cols):
         if lows[j] >= 0:
             i = lows[j]
@@ -93,7 +92,6 @@ def standard_reduction(dists: np.ndarray, tau_max: float = np.inf, maxdim: int =
             # column reduced to zero: birth; essential iff never a pivot row.
             if j not in paired_rows and dim[j] <= maxdim:
                 pairs[dim[j]].append((diam[j], np.inf))
-    _ = paired_cols
     return {
         d: np.array(sorted(pairs[d]), dtype=np.float64).reshape(-1, 2)
         for d in range(maxdim + 1)

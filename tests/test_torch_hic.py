@@ -56,7 +56,7 @@ def test_hic_pair_matches_reference(seed):
 @pytest.mark.parametrize("condition", [0, 1])
 def test_hic_pair_diagrams_match_reference(engine, condition):
     points = pointclouds.hic_pair(120, 8, seed=1)[condition]
-    kw = dict(points=points, tau_max=0.6, maxdim=2, engine=engine,
+    kw = dict(points=points, tau_max=0.5, maxdim=2, engine=engine,
               backend="tiled", tile_m=64, tile_n=64)
     ref = ref_compute_ph(**kw)
     mine = compute_ph(device="cpu", **kw)
