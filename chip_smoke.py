@@ -2,7 +2,9 @@
 
     python3 chip_smoke.py            # needs one card; no arguments
 
-Phases, one JSON line each:
+Phases, one JSON line each, in this order (serving first: after the PH
+paths' long profiles, a short profiled serving epoch has lost one of its
+28 flash launches from the profile, in two runs of three):
 
 1. ``device``   — the card (``nvidia-smi`` name and power limit), torch and
    CUDA versions.
@@ -30,7 +32,26 @@ Phases, one JSON line each:
    (one block's shared memory, clusters of 2, 5, 8 and 16, the global
    route; G = 2), each exact against the plain version and timed
    (``kernels_serial_routes``).
-4. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
+4. ``serve``    — token serving at the full width of qwen3-0.6b
+   (``repro_torch.serve.engine.ServeEngine``, seeded random weights): 16
+   requests of 1024–2048 prompt tokens and 32 new tokens through 8 slots
+   (two prefill epochs of 8 x 2048 tokens, 2 x 32 decode steps).  The flash
+   kernel must launch during the run.  One more epoch (a prefill and 8
+   decode steps) runs under ``torch.profiler`` for the card's busy and idle
+   share; each of its flash launches must be the tensor-core kernel, one a
+   layer (28 a prefill).  Then one epoch's prefill runs twice, through the
+   flash kernel as served and through ``_sdpa_masked`` (the same batch with
+   its ``arange`` positions passed explicitly, which the model sends
+   there), and the logits must agree within ``3e-2 * max(1, max
+   |logits|)``.
+5. ``serve_f32`` — one serving epoch of full-width qwen3-0.6b computing in
+   float32 (``compute_dtype="float32"``, seeded random weights): 8 requests
+   of 1,024–2,048 prompt tokens, one prefill (8 x 2048 tokens) and one
+   decode step, under ``torch.profiler``; its 28 flash launches must all be the
+   float32 SIMT kernel.  Then that epoch's prefill through the flash kernel
+   and through ``_sdpa_masked``, timed; the logits must agree within
+   ``1e-3 * max(1, max |logits|)``.
+6. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
    ``engine="packed"``); the launch count of every kernel of the path
    during that call must be > 0 (``gf2_parallel_xor``'s is reported: 0),
@@ -53,54 +74,56 @@ Phases, one JSON line each:
    state with equal results: at 128 x 128 and 128 x 2048 words (8 repeats)
    and on the 200 captured rounds.  The new form's summed time must not
    exceed the old's in any of the three.
-5. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
+7. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
-6. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
-   at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
-   tau 0.6, maxdim 2), on the card, one call after another: each condition
-   through the batch engine and the packed engine on the tiled harvest, and
-   the control also through the packed engine over ``build_filtration_coo``
-   of the card's harvest (every pair also reversed, a duplicate at a larger
-   value, diagonal entries).  Every diagram ``np.array_equal`` to the batch
-   engine's; each run's wall and launches; the Fig. 21 table (H1 and H2
-   features with persistence above 0.02, 0.05 and 0.08, auxin against
-   control); H1 at 0.05 and 0.08 must fall under auxin, as
-   ``fig21_hic.py`` gates it.
-7. ``hic_path`` — the regime ``examples/genome_hic.py`` documents:
-   ``hic_pair(50_000, 200, seed=1)``, one ``tau_max`` for both conditions
-   (the smaller of ``estimate_tau_max`` at 128 MiB of each), each condition
-   through ``compute_ph(maxdim=1, engine="packed", backend="tiled")`` at
-   2048 x 2048 tiles under ``torch.profiler``, with the counts set to 0
-   just before it: n_e, the synchronised wall, the phase split, the card's
-   busy and idle share, each PH kernel's launches (all four must launch on
-   auxin) and device seconds and the H1 classes above each Fig. 21 threshold,
-   finite deaths and essential classes apart (no gate on direction: at a
-   tau near 0.03 a class of persistence above 0.05 can only be essential).
-   The auxin harvest must equal a harvest through the plain pairwise
-   version, and its serial pre-pass inputs replay exactly through the
-   kernel and the plain version (``hic_serial_replay``).  The control's
-   card harvest, as COO triplets, must build a filtration equal field by
-   field to ``build_filtration_tiled`` on the card.
-8. ``serve``    — token serving at the full width of qwen3-0.6b
-   (``repro_torch.serve.engine.ServeEngine``, seeded random weights): 16
-   requests of 1024–2048 prompt tokens and 32 new tokens through 8 slots
-   (two prefill epochs of 8 x 2048 tokens, 2 x 32 decode steps).  The flash
-   kernel must launch during the run.  One more epoch (a prefill and 8
-   decode steps) runs under ``torch.profiler`` for the card's busy and idle
-   share; each of its flash launches must be the tensor-core kernel, one a
-   layer (28 a prefill).  Then one epoch's prefill runs twice, through the
-   flash kernel as served and through ``_sdpa_masked`` (the same batch with
-   its ``arange`` positions passed explicitly, which the model sends
-   there), and the logits must agree within ``3e-2 * max(1, max
-   |logits|)``.
-9. ``serve_f32`` — one serving epoch of full-width qwen3-0.6b computing in
-   float32 (``compute_dtype="float32"``, seeded random weights): 8 requests
-   of 1,024–2,048 prompt tokens, one prefill (8 x 2048 tokens) and one
-   decode step, under ``torch.profiler``; its 28 flash launches must all be the
-   float32 SIMT kernel.  Then that epoch's prefill through the flash kernel
-   and through ``_sdpa_masked``, timed; the logits must agree within
-   ``1e-3 * max(1, max |logits|)``.
+8. ``dist_path`` — the main path's call again through the distributed
+   reduction (``n_shards=4, exchange_every=4``, the reference's
+   ``--dist-shards 4`` regime at the main path's size) under
+   ``torch.profiler``, the counts set to 0 just before it: its H0 and H1
+   diagrams must equal ``main_path``'s, and ``gf2_find_low`` and
+   ``gf2_scatter_xor`` must launch on the fused 4 x 128-row blocks
+   (``gf2_serial_reduce`` runs only in a superstep that holds one slice:
+   its launches are printed, not gated).  It prints the wall and phase
+   split, the supersteps, exchange rounds and bytes, tournament
+   reductions and sweep probes, the simulated 4-device walls
+   (``sim_*``), the card's busy and idle share, each kernel's launches
+   and device seconds and the most hit rows one round handed the
+   kernels.
+9. ``dist_check`` — ``cross_check``'s clouds through the distributed
+   reduction on the card, each result equal to that cloud's P = 1 card
+   diagrams: torus4 at P in {2, 4} x ``exchange_every`` in {1, 8},
+   explicit; o3 (maxdim 2) at P = 3, implicit, ``exchange_every=4``.
+10. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+    at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
+    tau 0.6, maxdim 2), on the card, one call after another: each condition
+    through the batch engine and the packed engine on the tiled harvest, and
+    the control also through the packed engine over ``build_filtration_coo``
+    of the card's harvest (every pair also reversed, a duplicate at a larger
+    value, diagonal entries).  Every diagram ``np.array_equal`` to the batch
+    engine's; each run's wall and launches; the Fig. 21 table (H1 and H2
+    features with persistence above 0.02, 0.05 and 0.08, auxin against
+    control); H1 at 0.05 and 0.08 must fall under auxin, as
+    ``fig21_hic.py`` gates it.
+11. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
+    (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
+    its loci and a quarter of its budget, ``hic_pair(25_000, 200,
+    seed=1)`` at 32 MiB, one ``tau_max`` for both conditions (the smaller
+    of ``estimate_tau_max`` at 32 MiB of each, about 0.030).  The cut takes
+    auxin from about 2.4 M edges to 0.59 M, a quarter of the regime's
+    work.  Each condition
+    through ``compute_ph(maxdim=1, engine="packed", backend="tiled")`` at
+    2048 x 2048 tiles under ``torch.profiler``, with the counts set to 0
+    just before it: n_e, the synchronised wall, the phase split, the card's
+    busy and idle share, each PH kernel's launches (all four must launch on
+    auxin) and device seconds and the H1 classes above each Fig. 21 threshold,
+    finite deaths and essential classes apart (no gate on direction: at a
+    tau near 0.03 a class of persistence above 0.05 can only be essential).
+    The auxin harvest must equal a harvest through the plain pairwise
+    version, and its serial pre-pass inputs replay exactly through the
+    kernel and the plain version (``hic_serial_replay``).  The control's
+    card harvest, as COO triplets, must build a filtration equal field by
+    field to ``build_filtration_tiled`` on the card.
 
 Phase 3 holds the flash kernel against its plain version (``rtol = atol =
 2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
@@ -786,7 +809,7 @@ def prefill_copies(dev, rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 4 and 5: the port's main path, and card vs CPU
+# phases 6 and 7: the port's main path, and card vs CPU
 # ---------------------------------------------------------------------------
 
 PH_KERNELS = ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor",
@@ -849,7 +872,7 @@ class RoundTap:
     """Wraps ``_PackedBatch.xor_rows_kernels``, the kernel branch of
     ``xor_addends``, for the length of a ``with`` block: times every call
     (host clock; the round ends in a synchronising copy), notes its rows
-    and coordinates, and keeps the inputs of the first ``keep`` calls, with
+    (their sum and the most in one round) and coordinates, and keeps the inputs of the first ``keep`` calls, with
     a copy of the batch state they met and their time on the path, for
     :func:`round_step` to replay.  The copies run inside the main path's
     timed call; ``capture_s`` is their host time, which the main path
@@ -860,6 +883,7 @@ class RoundTap:
         self.calls = 0
         self.seconds = 0.0
         self.rows = 0
+        self.max_rows = 0
         self.coords = 0
         self.rounds = []
         self.path_s = []
@@ -886,6 +910,7 @@ class RoundTap:
             tap.seconds += dt
             tap.calls += 1
             tap.rows += len(packed_hit)
+            tap.max_rows = max(tap.max_rows, len(packed_hit))
             tap.coords += len(pos)
             return out
 
@@ -1164,6 +1189,7 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
                h1_n_supersteps=st["h1_n_supersteps"],
                h1_n_rounds=st["h1_n_rounds"],
                h1_n_reductions=st["h1_n_reductions"],
+               **{f"h1_{k}": st[f"h1_{k}"] for k in BLOCK_COUNTS},
                **path_profile(evs, wall),
                kernel_round_calls=tap.calls,
                kernel_round_s=tap.seconds,
@@ -1172,17 +1198,17 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
                wall_less_capture_s=wall - tap.capture_s - serial.capture_s,
                harvest_identical_to_plain=True)
     emit("main_path", **out)
-    return out
+    return out, res
 
 
-def cross_check(dev) -> None:
+def cross_check(dev) -> dict:
+    """Each case on the card and on the CPU: identical diagrams and
+    filtrations.  Returns each case's card result and wall, by name."""
     from repro_torch import compute_ph
-    from repro_torch.data.pointclouds import clifford_torus, o3_points
     from repro_torch.scale.tiles import build_filtration_tiled
 
-    cases = [("torus4", clifford_torus(10_000, seed=0), 0.15, 1),
-             ("o3", o3_points(1024, seed=0), 1.1, 2)]
-    for name, points, tau, maxdim in cases:
+    out = {}
+    for name, points, tau, maxdim in check_cases():
         times = {}
         results = {}
         for where in (dev, torch.device("cpu")):
@@ -1203,19 +1229,131 @@ def cross_check(dev) -> None:
              maxdim=maxdim, n_e=int(card.stats["n_e"]), pairs=n_pairs(card),
              card_s=times["cuda"], cpu_s=times["cpu"],
              card_use_kernels=card.stats["h1_use_kernels"], identical=True)
+        out[name] = dict(result=card, card_s=times["cuda"])
+    return out
+
+
+def check_cases():
+    """``cross_check``'s clouds: (name, points, tau_max, maxdim)."""
+    from repro_torch.data.pointclouds import clifford_torus, o3_points
+
+    return [("torus4", clifford_torus(10_000, seed=0), 0.15, 1),
+            ("o3", o3_points(1024, seed=0), 1.1, 2)]
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the Hi-C pair (paper §6, Fig. 21)
+# phases 8 and 9: the distributed packed reduction (n_shards on one card)
+# ---------------------------------------------------------------------------
+
+DIST_SHARDS, DIST_EVERY = 4, 4     # the reference's --dist-shards 4 default
+DIST_SIM = ("sim_wall_s", "sim_conc_s", "sim_sweep_s", "sim_sync_s")
+DIST_COUNTS = ("n_supersteps", "n_exchange_rounds", "exchange_bytes",
+               "n_tournament_reductions", "n_sweep_probes", "n_rounds",
+               "n_reductions")
+# How the packed blocks held their rows: a fused block that grows where its
+# slices' own blocks would evict rebuilds a 4x larger block each time.
+BLOCK_COUNTS = ("n_consolidations", "n_expansions", "n_evictions")
+
+
+def dist_path(dev, n: int, main) -> dict:
+    """The main path's run again with ``n_shards=4, exchange_every=4``
+    under the profiler, the counts set to 0 just before it: its H0 and H1
+    diagrams must equal ``main``'s, and ``gf2_find_low`` and
+    ``gf2_scatter_xor`` must launch (the fused 4 x 128-row blocks go
+    through them); ``gf2_serial_reduce`` runs only in a superstep that
+    holds one slice, so its launches are printed, not gated."""
+    from repro_torch import compute_ph
+    from repro_torch.data.pointclouds import clifford_torus
+
+    points = clifford_torus(n, seed=0)
+    counters = reset_counters()
+    tap = RoundTap(keep=0)
+
+    def run():
+        t0 = time.perf_counter()
+        out = compute_ph(points=points, maxdim=1, backend="tiled",
+                         engine="packed", memory_budget_bytes=96 * 2**20,
+                         tile_m=2048, tile_n=2048, n_shards=DIST_SHARDS,
+                         exchange_every=DIST_EVERY, device=dev)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    with tap:
+        (res, wall), evs = profiled(run)
+    launches = {k: counters[k].launches
+                for k in PH_KERNELS + OFF_PATH_KERNELS}
+    for name in ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor"):
+        if launches[name] <= 0:
+            raise AssertionError(f"dist path never launched {name}")
+    for d in (0, 1):
+        if not np.array_equal(res.diagrams[d], main.diagrams[d]):
+            raise AssertionError(f"dist path: H{d} differs from the main "
+                                 "path's")
+    st = res.stats
+    if st["h1_n_shards"] != DIST_SHARDS or st["h1_n_exchange_rounds"] <= 0:
+        raise AssertionError("dist path: no exchange round at 4 shards")
+    out = dict(n=n, n_shards=DIST_SHARDS, exchange_every=DIST_EVERY,
+               n_e=int(st["n_e"]), wall_s=wall,
+               t_filtration=st["t_filtration"], t_h0=st["t_h0"],
+               t_h1=st["t_h1"], pairs=n_pairs(res), launches=launches,
+               **{f"h1_{k}": st[f"h1_{k}"]
+                  for k in DIST_COUNTS + DIST_SIM + BLOCK_COUNTS},
+               h1_sim_wall_bookkeeping_s=st["h1_sim_wall_bookkeeping_s"],
+               **path_profile(evs, wall),
+               kernel_round_calls=tap.calls, kernel_round_s=tap.seconds,
+               kernel_round_rows=tap.rows, max_hit_rows=tap.max_rows,
+               diagrams_equal_main_path=True)
+    emit("dist_path", **out)
+    return out
+
+
+def dist_check(dev, cards: dict) -> None:
+    """``cross_check``'s clouds through the distributed reduction on the
+    card, each result ``np.array_equal`` to that cloud's P = 1 card
+    diagrams: torus4 at P in {2, 4} x ``exchange_every`` in {1, 8},
+    explicit; o3 (maxdim 2, where the exchanges of the reference's tests
+    happen) at P = 3, implicit, ``exchange_every=4``."""
+    from repro_torch import compute_ph
+
+    runs = {"torus4": [dict(n_shards=p, exchange_every=e, mode="explicit")
+                       for p in (2, 4) for e in (1, 8)],
+            "o3": [dict(n_shards=3, exchange_every=4, mode="implicit")]}
+    for name, points, tau, maxdim in check_cases():
+        one = cards[name]
+        for kw in runs[name]:
+            counters = reset_counters()
+            res, wall = timed(lambda: compute_ph(
+                points=points, tau_max=tau, maxdim=maxdim, backend="tiled",
+                engine="packed", device=dev, **kw))
+            for d in range(maxdim + 1):
+                if not np.array_equal(res.diagrams[d],
+                                      one["result"].diagrams[d]):
+                    raise AssertionError(f"dist_check {name} {kw}: H{d} "
+                                         "differs from P = 1 on the card")
+            top = f"h{maxdim}"
+            emit("dist_check", case=name, n=len(points), tau_max=tau,
+                 maxdim=maxdim, **kw, wall_s=wall, p1_card_s=one["card_s"],
+                 launches={k: counters[k].launches for k in PH_KERNELS},
+                 **{f"{top}_{k}": res.stats[f"{top}_{k}"]
+                    for k in DIST_COUNTS},
+                 identical_to_p1=True)
+
+
+# ---------------------------------------------------------------------------
+# phases 10 and 11: the Hi-C pair (paper §6, Fig. 21)
 # ---------------------------------------------------------------------------
 
 # benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
 HIC_SUITE_N, HIC_SUITE_LOOPS, HIC_SUITE_TAU = 350, 24, 0.6
 FIG21_THRESHOLDS = (0.02, 0.05, 0.08)
-# The regime examples/genome_hic.py documents: 50,000 loci, 200 cohesin
+# The regime examples/genome_hic.py documents (50,000 loci, 200 cohesin
 # loops, the tiled backend at 2048 x 2048, one tau for both conditions from
-# a 128 MiB budget, maxdim 1.
-HIC_N, HIC_LOOPS, HIC_BUDGET_MIB, HIC_TILE = 50_000, 200, 128, 2048
+# a 128 MiB budget, maxdim 1), cut so that the whole run stays inside its
+# time limit.  Halving n alone would not cut the work: the budget sets the
+# edge count (auxin's 2.4 M edges at 128 MiB at either n).  So the budget
+# is cut too, to a quarter: auxin 0.59 M edges, about a quarter of the
+# regime's, at tau 0.0305.
+HIC_N, HIC_LOOPS, HIC_BUDGET_MIB, HIC_TILE = 25_000, 200, 32, 2048
 
 
 def timed(fn):
@@ -1324,8 +1462,9 @@ def hic_suite(dev) -> dict:
 
 
 def hic_path(dev) -> dict:
-    """The example's regime on the card: one tau for both conditions (the
-    smaller of ``estimate_tau_max`` at 128 MiB of each), each condition
+    """The example's regime on the card, cut to half its loci and a
+    quarter of its budget (``HIC_N``, ``HIC_BUDGET_MIB``): one tau for both conditions (the smaller of
+    ``estimate_tau_max`` at the budget of each), each condition
     through ``compute_ph(engine="packed", backend="tiled")`` under the
     profiler, with the counts set to 0 just before it.  At that tau the classes above 0.05 can only be
     essential ones, so the H1 counts are printed finite and essential apart
@@ -1395,7 +1534,7 @@ def hic_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 8: token serving at full width
+# phases 4 and 5: token serving at full width
 # ---------------------------------------------------------------------------
 
 SERVE_ARCH = "qwen3-0.6b"
@@ -1753,16 +1892,19 @@ def main() -> int:
          flash_f32_sass=f32_sass_check(_build, ptxas["flash_attention"]))
 
     summary = check_kernels(dev)
-    tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
-    path = main_path(dev, MAIN_PATH_N, tap, serial)
-    round_step(dev, tap)
-    cross_check(dev)
-    serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
-    del tap, serial
-    hic_suite(dev)
-    hic = hic_path(dev)
     served = serve(dev)
     served_f32 = serve_f32(dev)
+    tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
+    path, main_res = main_path(dev, MAIN_PATH_N, tap, serial)
+    round_step(dev, tap)
+    cards = cross_check(dev)
+    serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
+    del tap, serial
+    dist = dist_path(dev, MAIN_PATH_N, main_res)
+    dist_check(dev, cards)
+    del main_res, cards
+    hic_suite(dev)
+    hic = hic_path(dev)
     launches = dict(path["launches"],
                     flash_attention_bf16=served["flash_launches"],
                     flash_attention_f32=served_f32["flash_launches"])
@@ -1799,6 +1941,7 @@ def main() -> int:
                         else "per-call wall"),
             hic_launches={c: hic[c]["launches"].get(kname)
                           for c in ("control", "auxin")},
+            dist_launches=dist["launches"].get(kname),
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

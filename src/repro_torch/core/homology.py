@@ -175,24 +175,27 @@ def compute_ph(
     is picked so the paper's ``(3n + 12 n_e) * 4`` account fits the
     budget; the same budget caps the H2* enumeration transient and bounds
     the reduction store.
+    n_shards: the distributed packed reduction on one device (batches
+    dealt round-robin over ``n_shards`` shards, fused supersteps, a pivot
+    replica fed by Elias–Fano exchange rounds; same diagrams); requires
+    ``engine="packed"``.  ``exchange_every`` batches the pivot-exchange
+    rounds (one wire round per that-many supersteps); diagrams are
+    cadence-independent.
     trace: as in the reference (a path exports a Chrome trace, a
     :class:`~repro_torch.obs.trace.Tracer` collects, ``None`` defers to
     ``REPRO_TRACE``, ``False`` forces it off).
 
-    Not in this port yet, refused with ``NotImplementedError``: ``mesh`` /
-    ``n_shards`` (the distributed reduction and the sharded harvest,
-    ROADMAP.md §1 items 4-5), ``exchange_every`` other than 4 (the
-    distributed reduction's cadence, item 4; the diagrams do not depend on
-    it) and ``sanitize`` (item 7).
+    Not in this port yet, refused with ``NotImplementedError``: ``mesh``
+    (the sharded harvest and the collective pivot exchange, ROADMAP.md §1
+    item 5) and ``sanitize`` (item 7).
     """
-    if mesh is not None or n_shards is not None:
+    if mesh is not None:
         raise NotImplementedError(
-            "mesh= / n_shards= (distributed reduction, sharded harvest) are "
-            "not ported yet: ROADMAP.md §1 items 4-5")
-    if exchange_every != 4:
-        raise NotImplementedError(
-            "exchange_every != 4 (the distributed reduction's exchange "
-            "cadence) is not ported yet: ROADMAP.md §1 item 4")
+            "mesh= (the sharded harvest, the collective pivot exchange) is "
+            "not ported yet: ROADMAP.md §1 item 5")
+    if n_shards is not None and engine != "packed":
+        raise ValueError("n_shards distributes the reduction and requires "
+                         "engine='packed'")
     if sanitize:
         raise NotImplementedError(
             "sanitize=True (analyze/invariants.py) is not ported yet: "
@@ -252,7 +255,9 @@ def compute_ph(
                 return reduce_dimension_packed(
                     adapter, cols, mode=mode, cleared=cleared,
                     batch_size=batch_size,
-                    store_budget_bytes=memory_budget_bytes, device=dev)
+                    store_budget_bytes=memory_budget_bytes,
+                    n_shards=n_shards, exchange_every=exchange_every,
+                    device=dev)
         else:
             def _reduce(adapter, cols, mode=mode, cleared=None):
                 return reduce_dimension(adapter, cols, mode=mode,

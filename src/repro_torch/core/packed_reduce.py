@@ -1,18 +1,18 @@
 """Bit-packed serial-parallel reduction engine (Dory §4.4 × kernels/gf2).
 
 Port of ``src/repro/core/packed_reduce.py``: ``_PackedBatch`` and the
-single-device (P = 1) driver of ``reduce_dimension_packed``, kernel path
-included.  The host-side combinatorics stay numpy, exactly as in the
-reference; on the kernel path the GF(2) kernels of
+fused-superstep loop of ``reduce_dimension_packed`` (P = 1 is its
+one-slice case), kernel path included.  The host-side combinatorics stay
+numpy, exactly as in the reference; on the kernel path the GF(2) kernels of
 :mod:`repro_torch.kernels.gf2` run on ``device`` — hand-written CUDA on a
 card, their plain PyTorch versions on the CPU.  A parallel-phase round
 makes one round trip: the hit rows go to the device, ``gf2_scatter_xor``
 adds the addends' coordinates into them and ``gf2_find_low`` reads each
 segment's window of the result, and rows and lows come back in one copy.
 The serial pre-pass keeps the reference's round trip per call.  The
-distributed superstep driver (tournament, commit sweep, pivot exchange),
-the sanitizer and the fault hooks stay in the reference until the port
-takes them over.
+collective pivot exchange over a mesh (ROADMAP.md §1 item 5), the shard
+supervisor, the sanitizer and the fault hooks (item 7) stay in the
+reference until the port takes them over.
 
 The engine keeps the paper's batch structure — parallel phase against the
 committed pivots, serial phase for intra-batch collisions, clearance
@@ -47,6 +47,36 @@ reduction:
 Diagrams are bit-identical to ``reduce_dimension`` for every mode/budget:
 all engines perform left-to-right GF(2) column additions, and the lows of
 any fully reduced matrix are canonical.
+
+**Distributed mode** (``n_shards``): column batches partition round-robin
+over the shards (batch ``t`` -> shard ``t % P``), and each *superstep*
+fuses the P shards' next batches into ONE resident block of ``P·B`` rows —
+per-device blocks simulated as row slices, which also amortizes the
+per-batch fixed costs (one coboundary enumeration, one block build, one
+store probe per round for all P slices).  On a card the fused block goes
+through the same GF(2) kernels, at up to ``P·B`` hit rows a round.  Phases
+per superstep:
+
+* **concurrent phase** — the parallel phase of every slice runs against a
+  *replica* of the pivot store, complete exactly up to the last exchange
+  round (pivots arrive only through the exchange wire), with per-slice
+  serial passes for intra-slice collisions;
+* **tournament catch-up** — cross-slice collisions resolve in ``log2 P``
+  hypercube rounds (partner ``j XOR step``): the later-ranked slice's row
+  absorbs the earlier one's current (R, gens) snapshot — later batch
+  columns follow earlier ones in processing order, so this matches the
+  left-to-right schedule and only removes work;
+* **commit sweep** — slices commit strictly in global batch order; each
+  slice first re-probes the *authoritative* store (which now holds this
+  superstep's earlier-slice pivots) until stable, so the final schedule is
+  exactly a left-to-right reduction and diagrams stay bit-identical to the
+  single-device engines for every shard count;
+* **pivot exchange** — every ``exchange_every`` supersteps each shard's
+  commit backlog encodes into one Elias–Fano wire payload
+  (:mod:`repro_torch.core.pivot_cache`), crosses a host loop-back, decodes
+  and installs into the replica.  The concurrent phase reads pivots *only*
+  from the replica, so the wire codec sits on the bit-identity critical
+  path by construction.
 """
 from __future__ import annotations
 
@@ -63,13 +93,15 @@ from ..kernels.gf2 import (NO_LOW, find_low_np, gf2_find_low,
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, active_tracer, critical_path
 from .pairing import EMPTY_KEY
-from .pivot_cache import PackedPivotCache
+from .pivot_cache import (PackedPivotCache, decode_commit_delta,
+                          encode_commit_delta)
 from .reduction import (DimensionAdapter, PivotStore, ReductionResult,
                         clearance_commit, clearing_filter, finalize_result,
                         merge_cancel, refuse_resume_hooks)
 
 _MAX_SEGMENTS = 12   # host path consolidates past this many segments
-_EVICT_MAX = 8       # rounds needing new keys for fewer rows evict instead
+_EVICT_MAX = 8       # per slice: rounds needing new keys for fewer rows
+                     # evict instead
 
 
 def _resolve_use_kernels(use_kernels: Optional[bool],
@@ -123,12 +155,17 @@ class _PackedBatch:
     serial pre-pass uses for δ-expansion tracking (zero otherwise).
     ``scalar`` maps evicted rows to plain int64 key arrays; ``lows`` holds
     every row's current low *key* (-1 = empty), which survives segment
-    growth, consolidation and eviction unchanged.
+    growth, consolidation and eviction unchanged.  A round whose missing
+    keys touch at most ``evict_max`` rows evicts them; the superstep loop
+    passes ``_EVICT_MAX`` per slice, so a fused block chooses between
+    eviction and growth as its slices' own blocks would.
     """
 
     def __init__(self, cob: np.ndarray, seed_addends: List[np.ndarray],
-                 use_kernels: bool, device: torch.device, cache=None):
+                 use_kernels: bool, device: torch.device, cache=None,
+                 evict_max: int = _EVICT_MAX):
         B = cob.shape[0]
+        self.evict_max = evict_max
         self.B = B
         self.VW = (B + 31) // 32
         self.use_kernels = use_kernels
@@ -361,7 +398,8 @@ class _PackedBatch:
         kernel path; scalar rows ``merge_cancel``.
 
         Addend keys outside every segment either append as a fresh segment
-        (dense rounds) or evict their rows (sparse rounds, ``_EVICT_MAX``).
+        (dense rounds) or evict their rows (sparse rounds: at most
+        ``evict_max`` rows miss, ``_EVICT_MAX`` per slice of a fused block).
 
         ``addend_lows[i]`` names the pivot low row ``i``'s addend came from;
         a pivot's key array is canonical per low, so its packed positions
@@ -391,7 +429,7 @@ class _PackedBatch:
             pos, missing = self._abs_positions(keys)
             if missing.any():
                 miss_rows = np.unique(ridx[missing])
-                if len(miss_rows) <= _EVICT_MAX:
+                if len(miss_rows) <= self.evict_max:
                     for i in miss_rows:
                         self.evict(int(i))
                         scalar_hit.append(int(i))
@@ -490,21 +528,30 @@ class _PackedBatch:
         return low
 
     def serial_pass(self, gens: List[Dict[int, int]],
-                    ids_int: List[int]) -> Tuple[int, np.ndarray]:
+                    ids_int: List[int],
+                    rows: Optional[np.ndarray] = None
+                    ) -> Tuple[int, np.ndarray]:
         """Resolve intra-batch low collisions in filtration order.
 
         Kernel path: a ``gf2_serial_reduce`` V-augmented pre-pass clears
-        packed-vs-packed collisions on the device (V bits -> gens merge), then
-        the host walk finishes scalar-involved collisions.  Host path: the
-        walk does everything via :meth:`_absorb`.  Returns
+        packed-vs-packed collisions on the device (V bits -> gens merge),
+        then the host walk finishes scalar-involved collisions.  Host path:
+        the walk does everything via :meth:`_absorb`.  ``rows`` restricts
+        the walk to one contiguous slice (the fused-superstep loop
+        resolves per-shard slices independently; the kernel pre-pass
+        assumes the whole block and only runs unrestricted).  Returns
         ``(n_reductions, changed_row_indices)``.
         """
         n_red = 0
         changed: Dict[int, bool] = {}
-        if self.use_kernels:
-            n_red += self._serial_kernel_prepass(gens, ids_int, changed)
+        if rows is None:
+            if self.use_kernels:
+                n_red += self._serial_kernel_prepass(gens, ids_int, changed)
+            row_iter = range(self.B)
+        else:
+            row_iter = [int(r) for r in rows]
         low_to_row: Dict[int, int] = {}
-        for c in range(self.B):
+        for c in row_iter:
             low = int(self.lows[c])
             while low >= 0:
                 j = low_to_row.get(low)
@@ -621,6 +668,55 @@ class _PackedBatch:
                 else next(packed_iter) for i in rows]
 
 
+def _tournament_merge(blk: _PackedBatch, gens: List[Dict[int, int]],
+                      ids_int: List[int],
+                      bounds: np.ndarray) -> Tuple[int, np.ndarray]:
+    """Cross-slice catch-up in ``log2 P`` hypercube rounds.
+
+    Pairing is the reference's ``(j, j XOR step)``
+    (``core.jax_engine.make_distributed_round``); the later-ranked slice
+    absorbs, because every column of a later batch follows every column of
+    an earlier one in processing order — so each absorption is a legal
+    left-to-right column addition and only removes work.  Collisions the
+    hypercube pairing does not cover (and any it creates) are caught by the
+    superstep's store-probe / per-slice serial-pass loop and the exact commit
+    sweep."""
+    n_red = 0
+    changed: set = set()
+    P = len(bounds) - 1
+    step = 1
+    while step < P:
+        for j in range(P):
+            p = j ^ step
+            if p >= j or p >= P:
+                continue   # absorber is the later-ranked slice of the pair
+            plow: Dict[int, int] = {}
+            for r in range(int(bounds[p]), int(bounds[p + 1])):
+                lw = int(blk.lows[r])
+                if lw >= 0:
+                    plow[lw] = r
+            for c in range(int(bounds[j]), int(bounds[j + 1])):
+                lw = int(blk.lows[c])
+                while lw >= 0 and lw in plow:
+                    n_red += 1
+                    changed.add(c)
+                    lw = blk._absorb(c, plow[lw], gens, ids_int)
+                blk.lows[c] = lw
+        step <<= 1
+    return n_red, np.array(sorted(changed), dtype=np.int64)
+
+
+def _resolve_reduce_shards(mesh, n_shards: Optional[int]) -> int:
+    """Shard count of the distributed reduction: ``n_shards`` for the
+    host-partitioned loop-back (the work split of an ``n_shards``-device
+    mesh on one device).  A ``mesh`` waits for the port's mesh type."""
+    if mesh is not None:
+        raise NotImplementedError(
+            "mesh= (the distributed reduction's collective pivot exchange) "
+            "is not ported yet: ROADMAP.md §1 item 5")
+    return 1 if n_shards is None else int(n_shards)
+
+
 def reduce_dimension_packed(
     adapter: DimensionAdapter,
     column_ids: np.ndarray,
@@ -642,41 +738,77 @@ def reduce_dimension_packed(
 
     The reference's parameters in the reference's order, plus ``device``
     last.  Same contract as ``reduce_dimension``: ``column_ids`` in
-    decreasing filtration order, diagrams bit-identical to it.
-    ``device=None`` is the card (``RuntimeError`` without one);
-    ``use_kernels=None`` resolves from the device — the CUDA kernels on
-    ``cuda``, the numpy block mirrors on ``cpu`` — and ``True`` forces the
-    kernel path, which on the CPU runs the kernels' plain versions.
+    decreasing filtration order, diagrams bit-identical to it for every
+    shard count.  ``device=None`` is the card (``RuntimeError`` without
+    one); ``use_kernels=None`` resolves from the device — the CUDA kernels
+    on ``cuda``, the numpy block mirrors on ``cpu`` — and ``True`` forces
+    the kernel path, which on the CPU runs the kernels' plain versions.
+
+    ``n_shards`` > 1 runs the fused-superstep distributed reduction on one
+    device: batches deal round-robin over the shards, each superstep's P
+    batches reduce in one fused block against a pivot replica fed by
+    Elias–Fano-compressed exchange rounds, and commits happen in exact
+    global batch order (module docstring).  ``exchange_every`` (>= 1)
+    batches the exchange rounds — payloads ship every that-many
+    supersteps; staleness is exact-safe because the commit sweep re-probes
+    every pivot the replica has not seen yet (``pending`` below).
     ``cache`` threads a caller-owned :class:`PackedPivotCache` (one is
     created per call otherwise).
 
-    Not in this port yet, refused with ``NotImplementedError``: ``n_shards``
-    > 1, ``mesh`` and ``exchange_every`` other than 4 (the distributed
-    driver, ROADMAP.md §1 item 4); ``seed_gens``, ``commit_sink`` and
-    ``essential_log`` (the resume hooks, item 7).
+    Not in this port yet, refused with ``NotImplementedError``: ``mesh``
+    (the collective exchange, ROADMAP.md §1 item 5); ``seed_gens``,
+    ``commit_sink`` and ``essential_log`` (the resume hooks, item 7).
 
-    Every batch is a ``reduce/*`` span on a local, always-on tracer (it
-    forwards into the user's tracer when ``compute_ph(trace=...)``
-    activated one); the ``sim_*`` walls are derived from that timeline, as
-    in the reference, and for one device reproduce the measured wall.  The
-    reference's distributed counters (``n_shards``, exchange, tournament,
-    sweep) are emitted at their one-device values so both packages report
-    one key set.
+    Every timed region is a span on a local, always-on tracer (it forwards
+    into the user's tracer when ``compute_ph(trace=...)`` activated one),
+    each phase carrying its lane (shard) and superstep.  The host runs
+    every shard's work back-to-back, so ``sim_wall_s`` is the critical path
+    a P-device mesh would execute, *derived* from that span timeline
+    (:func:`repro_torch.obs.trace.critical_path`): per-shard busy time for
+    the data-parallel phases (fused block work attributed by row share,
+    per-slice serial passes timed directly) plus the sequential parts at
+    full cost (tournament, the in-order commit sweep, decode + install).
+    The hand-rolled accounting is kept only as ``sim_wall_bookkeeping_s``,
+    so the two can be cross-checked; for P == 1 both reproduce the measured
+    wall.
     """
-    if mesh is not None or (n_shards is not None and n_shards != 1) \
-            or exchange_every != 4:
-        raise NotImplementedError(
-            "n_shards > 1 / mesh= / exchange_every != 4 (the distributed "
-            "reduction) are not ported yet: ROADMAP.md §1 item 4")
+    P = _resolve_reduce_shards(mesh, n_shards)
+    if exchange_every < 1:
+        raise ValueError("exchange_every must be >= 1")
     refuse_resume_hooks(seed_gens=seed_gens, commit_sink=commit_sink,
                         essential_log=essential_log)
     dev = resolve_device(device)
+    # local timeline: always on (sim_wall is derived from it), forwarding
+    # into the user's tracer when compute_ph(trace=...) activated one
     tl = Tracer(forward_to=active_tracer())
     use_kernels = _resolve_use_kernels(use_kernels, dev)
     if cache is None:
         cache = PackedPivotCache()
+    # P > 1 owns a scratch log that is drained into per-shard wire backlogs
+    # every slice
+    commit_log: Optional[list] = [] if P > 1 else None
     store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes,
-                       cache=cache)
+                       cache=cache, commit_log=commit_log)
+    if P > 1:
+        # the replica mirrors the authority's track_gens: with an explicit
+        # budgeted store the wire ships δ-expansions precisely so that
+        # replica probes can return them (install() never spills, so the
+        # budget carries no other behavior here)
+        replica = PivotStore(adapter, mode,
+                             store_budget_bytes=store_budget_bytes,
+                             cache=cache)
+        lookup_store = replica
+        # commits the replica has not installed yet: each shard's wire
+        # backlog plus a map of their pivot lows -> (slice, superstep) —
+        # the only lows at which the sweep's store re-probe can possibly
+        # hit for rows that already stabilized against the replica, and
+        # the provenance that drives the sweep's critical-path accounting
+        shard_logs: List[list] = [[] for _ in range(P)]
+        pending: Dict[int, Tuple[int, int]] = {}
+    else:
+        lookup_store = store
+    # n_shards < 1 deals to one shard, as in the reference
+    active = list(range(max(P, 1)))
     pairs: List[tuple] = []
     essentials: List[float] = []
     essential_ids: List[int] = []
@@ -686,8 +818,13 @@ def reduce_dimension_packed(
     n_evictions = 0
     n_consolidations = 0
     n_supersteps = 0
+    n_exchange_rounds = 0
+    n_tournament_reductions = 0
+    n_sweep_probes = 0
+    exchange_bytes = 0
     peak_block_bytes = 0
-    # hand-rolled wall, kept ONLY to cross-check the span-derived one
+    # hand-rolled critical-path wall, kept ONLY to cross-check the
+    # span-derived accounting (emitted as sim_wall_bookkeeping_s)
     sim_wall_book = 0.0
     reg = MetricsRegistry()
     queue = clearing_filter(column_ids, cleared)
@@ -699,32 +836,50 @@ def reduce_dimension_packed(
 
     pos = 0
     while pos < len(queue):
+        # ---- superstep: the next up-to-P batches, dealt round-robin over
+        # the shards; slice k is shard active[k]'s local batch ----
         n_supersteps += 1
         step = n_supersteps
+        slice_sizes = []
         start = pos
-        pos = min(pos + eff_batch, len(queue))
+        for _ in range(len(active)):
+            if pos >= len(queue):
+                break
+            take = min(eff_batch, len(queue) - pos)
+            slice_sizes.append(take)
+            pos += take
         ids_arr = np.asarray(queue[start:pos], dtype=np.int64)
+        bounds = np.zeros(len(slice_sizes) + 1, dtype=np.int64)
+        np.cumsum(slice_sizes, out=bounds[1:])
+        n_slices = len(slice_sizes)
         B = len(ids_arr)
         ids_int = [int(i) for i in ids_arr]
         gens: List[Dict[int, int]] = [dict() for _ in range(B)]
+        # per-shard busy accounting, span-encoded (obs.trace.critical_path):
+        # fused block ops split by row share (the ``weights`` attr),
+        # per-slice work on its own device lane, sync parts at full cost
+        wt = tuple(float(sz) / max(B, 1) for sz in slice_sizes)
         t_fused = 0.0
-        t_slice = 0.0
-        with tl.span("reduce/fused", step=step, weights=(1.0,)) as sp:
+        t_slice = np.zeros(max(n_slices, 1))
+        t_seq = 0.0
+        with tl.span("reduce/fused", step=step, weights=wt) as sp:
             cob = adapter.cobdy(ids_arr)
             # seed the bit-space with the first round of addends so the
-            # common case packs exactly once
+            # common case packs exactly once; the concurrent phase probes
+            # the replica (P > 1) — complete up to the last exchange
+            # round — or the store
             lows0 = np.where(cob[:, 0] == EMPTY_KEY, np.int64(-1), cob[:, 0])
             addends, owners, owner_gens = \
-                store.lookup_addends_batched(lows0, ids_arr)
+                lookup_store.lookup_addends_batched(lows0, ids_arr)
             addend_lows = lows0
             batchblk = _PackedBatch(
                 cob, [a for a in addends if a is not None], use_kernels,
-                dev, cache=cache)
+                dev, cache=cache, evict_max=_EVICT_MAX * n_slices)
         t_fused += sp.dur
 
         probe = np.zeros(B, dtype=bool)   # rows whose low moved since probe
         while True:
-            with tl.span("reduce/fused", step=step, weights=(1.0,)) as sp:
+            with tl.span("reduce/fused", step=step, weights=wt) as sp:
                 hit = [i for i in range(B) if addends[i] is not None]
                 if hit:
                     n_rounds += 1
@@ -739,41 +894,188 @@ def reduce_dimension_packed(
                     probe[hit] = batchblk.lows[hit] >= 0
             t_fused += sp.dur
 
-            # intra-batch collisions -> serial pass in filtration order
-            nz = batchblk.lows[batchblk.lows >= 0]
-            if len(np.unique(nz)) != len(nz):
-                with tl.span("reduce/slice", lane=0, step=step) as sp:
-                    n_red, changed = batchblk.serial_pass(gens, ids_int)
+            # intra-slice collisions -> per-slice serial pass in filtration
+            # order (the whole block is one slice when P == 1)
+            for k in range(n_slices):
+                s0, s1 = int(bounds[k]), int(bounds[k + 1])
+                sl_lows = batchblk.lows[s0:s1]
+                nz = sl_lows[sl_lows >= 0]
+                if len(np.unique(nz)) != len(nz):
+                    with tl.span("reduce/slice", lane=k, step=step) as sp:
+                        rows = None if n_slices == 1 else np.arange(s0, s1)
+                        n_red, changed = batchblk.serial_pass(gens, ids_int,
+                                                              rows=rows)
+                        n_reductions += n_red
+                        probe[changed] = batchblk.lows[changed] >= 0
+                    t_slice[k] += sp.dur
+
+            if not probe.any() and n_slices > 1:
+                with tl.span("reduce/tournament", step=step) as sp:
+                    n_red, changed = _tournament_merge(batchblk, gens,
+                                                       ids_int, bounds)
                     n_reductions += n_red
+                    n_tournament_reductions += n_red
                     probe[changed] = batchblk.lows[changed] >= 0
-                t_slice += sp.dur
+                t_seq += sp.dur
 
             if not probe.any():
                 break
-            with tl.span("reduce/fused", step=step, weights=(1.0,)) as sp:
+            with tl.span("reduce/fused", step=step, weights=wt) as sp:
                 probe_lows = np.where(probe, batchblk.lows, -1)
                 probe[:] = False
                 addends, owners, owner_gens = \
-                    store.lookup_addends_batched(probe_lows, ids_arr)
+                    lookup_store.lookup_addends_batched(probe_lows, ids_arr)
                 addend_lows = probe_lows
             t_fused += sp.dur
 
-        with tl.span("reduce/sweep", lane=0, step=step, deps=()) as sw_sp:
-            rows = np.arange(B)
-            clearance_commit(
-                store, adapter, ids_arr, batchblk.lows, gens,
-                lambda rr: batchblk.unpack(rows[np.asarray(rr,
-                                                           dtype=np.int64)]),
-                pairs, essentials, essential_ids=essential_ids)
+        # ---- exact commit sweep, slice by slice in global batch order:
+        # re-probe the *authoritative* store until stable, then
+        # clearance-commit — the realized schedule is a left-to-right
+        # reduction, so diagrams are bit-identical to the single-device
+        # engines.  Every row already stabilized against the replica, so a
+        # store probe can only hit at a ``pending`` low (committed since
+        # the last exchange round — including this superstep's
+        # earlier-slice pivots); only rows at those lows, or rows the
+        # sweep itself changed ("dirty"), need re-probing.  For the
+        # simulated wall, slice k's sweep waits only on the slices whose
+        # *this-superstep* pivots it actually absorbed — ``deps`` records
+        # that DAG ----
+        t_sweep = np.zeros(max(n_slices, 1))
+        deps: List[set] = [set() for _ in range(max(n_slices, 1))]
+        for k in range(n_slices):
+            with tl.span("reduce/sweep", lane=k, step=step) as sw_sp:
+                s0, s1 = int(bounds[k]), int(bounds[k + 1])
+                rows = np.arange(s0, s1)
+                sids = ids_arr[s0:s1]
+                if P > 1:
+                    pending_arr = np.fromiter(pending, dtype=np.int64,
+                                              count=len(pending))
+                    dirty = np.zeros(len(sids), dtype=bool)
+                    while True:
+                        sl_lows = batchblk.lows[s0:s1].copy()
+                        cand = dirty.copy()
+                        if pending_arr.size:
+                            cand |= np.isin(sl_lows, pending_arr)
+                        cand &= sl_lows >= 0
+                        if not cand.any():
+                            break
+                        sl_lows[~cand] = -1
+                        n_sweep_probes += 1
+                        adds, owns, ogens = \
+                            store.lookup_addends_batched(sl_lows, sids)
+                        dirty[:] = False
+                        hit_local = [i for i in range(len(sids))
+                                     if adds[i] is not None]
+                        if hit_local:
+                            n_rounds += 1
+                            n_reductions += len(hit_local)
+                            for i in hit_local:
+                                c = s0 + i
+                                o = int(owns[i])
+                                gens[c][o] = gens[c].get(o, 0) + 1
+                                for g in ogens[i]:
+                                    g = int(g)
+                                    gens[c][g] = gens[c].get(g, 0) + 1
+                                src = pending.get(int(sl_lows[i]))
+                                if src is not None \
+                                        and src[1] == n_supersteps:
+                                    deps[k].add(src[0])
+                            # block-row indexing: the kernel round maps
+                            # these B-long arrays by the hit rows' indices
+                            full_adds: List[Optional[np.ndarray]] = [None] * B
+                            full_lows = np.full(B, -1, dtype=np.int64)
+                            for i in hit_local:
+                                full_adds[s0 + i] = adds[i]
+                                full_lows[s0 + i] = sl_lows[i]
+                            batchblk.xor_addends([s0 + i for i in hit_local],
+                                                 full_adds, full_lows)
+                            dirty[hit_local] = True
+                        cur = batchblk.lows[s0:s1]
+                        nz = cur[cur >= 0]
+                        if len(np.unique(nz)) != len(nz):
+                            n_red, changed = batchblk.serial_pass(
+                                gens, ids_int, rows=rows)
+                            n_reductions += n_red
+                            dirty[changed - s0] = True
+                        dirty &= batchblk.lows[s0:s1] >= 0
+
+                log_mark = len(commit_log) if P > 1 else 0
+                clearance_commit(
+                    store, adapter, sids, batchblk.lows[s0:s1],
+                    gens[s0:s1],
+                    lambda rr, rows=rows: batchblk.unpack(
+                        rows[np.asarray(rr, dtype=np.int64)]),
+                    pairs, essentials, essential_ids=essential_ids)
+                if P > 1 and len(commit_log) > log_mark:
+                    # drain this slice's commits straight into its shard's
+                    # wire backlog; their lows are pending until the next
+                    # exchange.  With gens untracked (explicit, no budget)
+                    # neither side of the wire ever reads a δ-expansion —
+                    # don't ship them
+                    fresh = commit_log[log_mark:]
+                    if not store.track_gens:
+                        for r in fresh:
+                            r["gens"] = None
+                    shard_logs[active[k]].extend(fresh)
+                    for r in fresh:
+                        pending[r["low"]] = (k, n_supersteps)
+                    del commit_log[log_mark:]
+                # the dep DAG is known only now — amend the span so the
+                # timeline alone reconstructs the sweep critical path
+                sw_sp.set(deps=tuple(sorted(deps[k])))
+            t_sweep[k] += sw_sp.dur
+
+        # critical path over the sweep DAG: finish(k) = t_sweep[k] +
+        # max finish over the slices k absorbed from (deps point strictly
+        # backward, so one forward pass is the longest-path DP)
+        finish = np.zeros(max(n_slices, 1))
+        for k in range(n_slices):
+            dep_finish = max((finish[d] for d in deps[k]), default=0.0)
+            finish[k] = dep_finish + t_sweep[k]
+        sweep_cp = float(finish[:max(n_slices, 1)].max()) if n_slices else 0.0
+        t_seq += sweep_cp
 
         peak_block_bytes = max(peak_block_bytes, batchblk.peak_bytes)
         n_consolidations += batchblk.n_consolidations
         n_expansions += batchblk.n_expansions
         n_evictions += batchblk.n_evictions
 
-        step_conc = t_fused + t_slice
+        frac = np.asarray(wt, dtype=np.float64)
+        step_conc = float(np.max(t_fused * frac + t_slice[:n_slices]))
         reg.histogram("superstep_conc_s").observe(step_conc)
-        sim_wall_book += step_conc + sw_sp.dur
+        sim_wall_book += step_conc + t_seq
+
+        # ---- pivot exchange (every ``exchange_every`` supersteps, and
+        # skipped once the queue is drained — the replica is never read
+        # again): each shard ships its backlog as one EF-compressed
+        # payload; every shard installs all decoded payloads into its
+        # replica.  On one device the wire is a host loop-back, and the
+        # replica is installed once — exactly one device's worth of
+        # decode + install work ----
+        if (P > 1 and pos < len(queue)
+                and n_supersteps % exchange_every == 0
+                and any(shard_logs)):
+            n_exchange_rounds += 1
+            t_enc = np.zeros(P)
+            payloads = []
+            for k in range(P):
+                with tl.span("reduce/encode", lane=k, step=step) as sp:
+                    payloads.append(encode_commit_delta(shard_logs[k]))
+                t_enc[k] = sp.dur
+            wire = sum(p.nbytes for p in payloads)
+            exchange_bytes += wire
+            with tl.span("reduce/exchange", step=step,
+                         bytes=int(wire)) as sp:
+                for payload in payloads:
+                    for rec in decode_commit_delta(payload):
+                        replica.install(rec["low"], rec["col_id"],
+                                        rec["mode"], rec["column"],
+                                        rec["gens"])
+            sim_wall_book += float(t_enc.max()) + sp.dur
+            for k in range(P):
+                for r in shard_logs[k]:
+                    pending.pop(r["low"], None)
+                shard_logs[k] = []
 
     # the reported sim walls are DERIVED from the span timeline — the
     # bookkeeping above survives only as its cross-check
@@ -792,12 +1094,12 @@ def reduce_dimension_packed(
     reg.counter("n_consolidations").inc(n_consolidations)
     reg.gauge("peak_block_bytes").record_max(peak_block_bytes)
     reg.gauge("use_kernels").set(float(use_kernels))
-    reg.gauge("n_shards").set(1)
+    reg.gauge("n_shards").set(P)
     reg.counter("n_supersteps").inc(n_supersteps)
-    reg.counter("n_exchange_rounds").inc(0)
-    reg.counter("n_tournament_reductions").inc(0)
-    reg.counter("n_sweep_probes").inc(0)
-    reg.counter("exchange_bytes").inc(0)
+    reg.counter("n_exchange_rounds").inc(n_exchange_rounds)
+    reg.counter("n_tournament_reductions").inc(n_tournament_reductions)
+    reg.counter("n_sweep_probes").inc(n_sweep_probes)
+    reg.counter("exchange_bytes").inc(exchange_bytes)
     for key, val in cp.items():
         reg.gauge(key).set(val)
     reg.gauge("sim_wall_bookkeeping_s").set(sim_wall_book)

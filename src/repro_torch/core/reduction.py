@@ -1,9 +1,11 @@
 """Cohomology reduction engines (Dory §4.3).
 
 Port of ``src/repro/core/reduction.py`` (host numpy, unchanged semantics).
-The engines take the reference's warm-restart arguments (``seed_gens``,
-``commit_log``, ``essential_log``) in its order but refuse them, and the
-sanitizer hooks and the replica ``install`` path stay in the reference,
+:class:`PivotStore` takes the reference's ``commit_log`` and ``install``,
+which the distributed packed reduction uses for its wire backlogs and pivot
+replicas.  The engines take the reference's warm-restart arguments
+(``seed_gens``, ``commit_log``, ``essential_log``) in its order but refuse
+them, and the sanitizer hooks and ``seed_column`` stay in the reference,
 until the port takes over the service layer (ROADMAP.md §1 item 7).
 
 Implements the paper's reduction family on packed paired-index keys:
@@ -140,7 +142,7 @@ class PivotStore:
 
     def __init__(self, adapter: DimensionAdapter, mode: str,
                  store_budget_bytes: Optional[int] = None,
-                 cache=None):
+                 cache=None, commit_log: Optional[list] = None):
         assert mode in ("explicit", "implicit")
         self.adapter = adapter
         self.mode = mode
@@ -158,6 +160,9 @@ class PivotStore:
         # re-materializations and trivial-owner coboundaries by low — both
         # canonical per low, so cache hits can never perturb bit-identity
         self.cache = cache
+        # when set, every non-trivial commit appends a wire-format record
+        # here (the distributed reduction drains it each superstep)
+        self.commit_log = commit_log
         # max-heap (as negated sizes) over explicit column byte sizes for the
         # largest-explicit-column-first spill policy; entries are permanent
         # (a column is popped exactly once, when demoted)
@@ -262,6 +267,37 @@ class PivotStore:
             # keep the δ-expansion too when spilling is possible: a later
             # spilled column that absorbed this one needs it (see class
             # docstring); counted against the budget for honesty
+            self.gens_lists.append(gens if self.track_gens else None)
+            if self.track_gens:
+                self.bytes_stored += gens.nbytes
+        else:
+            self.columns.append(gens)
+            self.gens_lists.append(gens)
+            self.bytes_stored += gens.nbytes
+        if self.commit_log is not None:
+            self.commit_log.append({
+                "low": low, "col_id": col_id, "mode": mode,
+                "column": r if mode == "explicit" else None,
+                "gens": gens,
+            })
+
+    def install(self, low: int, col_id: int, mode: str, column, gens) -> None:
+        """Install a decoded replicated pivot verbatim (no budget logic).
+
+        The distributed reduction's *replica* store is built exclusively
+        through this path, from records that crossed the pivot-exchange
+        wire.  A replica never spills or demotes — it holds whatever mode
+        the authoritative store committed (a later demotion on the
+        authority is representational only and is not replicated)."""
+        assert mode in ("explicit", "implicit")
+        self.low_to_idx[low] = len(self.columns)
+        self.col_ids.append(col_id)
+        self.col_modes.append(mode)
+        gens = np.ascontiguousarray(gens, dtype=np.int64)
+        if mode == "explicit":
+            column = np.ascontiguousarray(column, dtype=np.int64)
+            self.columns.append(column)
+            self.bytes_stored += column.nbytes
             self.gens_lists.append(gens if self.track_gens else None)
             if self.track_gens:
                 self.bytes_stored += gens.nbytes

@@ -165,6 +165,30 @@ def test_scatter_xor_kernel_int64_index(dev):
     assert int((rows[-1] != 0).sum()) > 0
 
 
+def test_scatter_xor_kernel_fused_block_past_2_31_bits(dev):
+    """The distributed reduction's fused block at P = 4: 4 x 128 hit rows, a
+    bucketed width of 131,200 words, 512 * 131,200 * 32 > 2**31 bits, so
+    the flat indices ``local * cap * 32 + pos`` cross as int64; every
+    slice's rows get coordinates, the last row near the top bit."""
+    c, w = 4 * 128, 131_200
+    assert c * w * 32 > 2**31
+    rows = torch.zeros((c, w), dtype=torch.int32, device=dev)
+    rng = np.random.default_rng(11)
+    local = rng.integers(0, c, size=20_000)
+    pos = rng.integers(0, w * 32, size=20_000)
+    flat = np.concatenate([local * (w * 32) + pos,
+                           [c * w * 32 - 1, (c - 1) * w * 32, 5]])
+    flat = np.concatenate([flat, flat[::7]])     # repeats cancel
+    idx = torch.from_numpy(flat.astype(np.int64))
+    want = gf2.gf2_scatter_xor_plain(rows.clone(), idx)
+    before = gf2.gf2_scatter_xor.launches
+    gf2.gf2_scatter_xor(rows, idx)
+    torch.cuda.synchronize()
+    assert gf2.gf2_scatter_xor.launches == before + 1
+    assert torch.equal(rows, want)
+    assert int(rows[-1, -1]) != 0
+
+
 @pytest.mark.parametrize("bad", [-1, 4 * 8 * 32, 2**40])
 def test_scatter_xor_kernel_rejects_index_outside_block(dev, bad):
     """An index outside the (4, 8) block raises before any launch and
@@ -312,6 +336,58 @@ def test_compute_ph_card_matches_cpu(dev):
     assert all(b > a for a, b in zip(counts, after))
     assert gf2.gf2_parallel_xor.launches == dense   # off the path
     assert card.stats["h1_use_kernels"] == 1.0
+
+
+@pytest.mark.parametrize("exchange_every", [1, 4])
+@pytest.mark.parametrize("n_shards", [2, 4])
+def test_compute_ph_dist_card_matches_cpu(dev, n_shards, exchange_every):
+    """The distributed packed reduction on the card: the fused P·B-row
+    block through the GF(2) kernels, diagrams equal to the CPU run's and to
+    P = 1 on the card."""
+    pts = np.random.default_rng(4).normal(size=(60, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed",
+              backend="tiled", tile_m=32, tile_n=32, batch_size=8)
+    counts = [f.launches for f in (gf2.gf2_find_low, gf2.gf2_scatter_xor)]
+    card = compute_ph(device="cuda", n_shards=n_shards,
+                      exchange_every=exchange_every, **kw)
+    after = [f.launches for f in (gf2.gf2_find_low, gf2.gf2_scatter_xor)]
+    assert all(b > a for a, b in zip(counts, after))
+    host = compute_ph(device="cpu", n_shards=n_shards,
+                      exchange_every=exchange_every, **kw)
+    one = compute_ph(device="cuda", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+        assert np.array_equal(card.diagrams[d], one.diagrams[d]), d
+    assert card.stats["h2_n_shards"] == n_shards
+    assert card.stats["h2_n_exchange_rounds"] > 0
+    assert card.stats["h1_use_kernels"] == 1.0
+
+
+def test_compute_ph_dist_one_slice_superstep_launches_serial_kernel(dev):
+    """At P = 2 the H1 queue's last superstep holds one slice of 17 rows
+    with colliding lows, so its serial pass runs unrestricted and the
+    ``gf2_serial_reduce`` pre-pass launches on the card; the fused
+    supersteps before it never launch it."""
+    pts = np.random.default_rng(2).normal(size=(32, 3))
+    kw = dict(points=pts, maxdim=2, engine="packed", n_shards=2,
+              batch_size=32)
+    before = gf2.gf2_serial_reduce.launches
+    card = compute_ph(device="cuda", **kw)
+    assert gf2.gf2_serial_reduce.launches > before
+    host = compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    assert card.stats["h1_n_supersteps"] == 8
+
+
+def test_compute_ph_dist_default_device_is_the_card(dev):
+    pts = np.random.default_rng(7).normal(size=(24, 3))
+    res = compute_ph(points=pts, maxdim=2, engine="packed", n_shards=4)
+    assert res.stats["h1_use_kernels"] == 1.0
+    host = compute_ph(points=pts, maxdim=2, engine="packed", n_shards=4,
+                      device="cpu")
+    for d in (0, 1, 2):
+        assert np.array_equal(res.diagrams[d], host.diagrams[d]), d
 
 
 @pytest.mark.parametrize("mode", ["explicit", "implicit"])

@@ -144,7 +144,7 @@ def test_default_device_needs_a_card():
         compute_ph(points=cloud(0, n=8), maxdim=1)
 
 
-@pytest.mark.parametrize("kw", [dict(n_shards=2, engine="packed"),
+@pytest.mark.parametrize("kw", [dict(mesh=object(), backend="tiled"),
                                 dict(mesh=object(), engine="packed"),
                                 dict(sanitize=True)])
 def test_unported_options_refused(kw):

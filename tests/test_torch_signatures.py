@@ -1,8 +1,9 @@
 """The port's entry points take the reference's parameters in the
 reference's order, with only a trailing ``device`` added where they run
-on the card and nothing added where they run on the host only, and refuse
-each value they cannot take yet with ``NotImplementedError`` naming its
-ROADMAP.md item."""
+on the card and nothing added where they run on the host only, raise the
+reference's ``ValueError`` where it does, and refuse each value they
+cannot take yet with ``NotImplementedError`` naming its ROADMAP.md
+item."""
 import inspect
 
 import numpy as np
@@ -64,14 +65,40 @@ def _cloud():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(exchange_every=2, engine="packed"), r"§1 item 4$"),
-    (dict(n_shards=2, engine="packed"), r"§1 items 4-5$"),
-    (dict(mesh=object(), engine="packed"), r"§1 items 4-5$"),
+    (dict(mesh=object(), engine="packed"), r"§1 item 5$"),
+    (dict(mesh=object(), backend="tiled"), r"§1 item 5$"),
+    (dict(mesh=object(), engine="packed", n_shards=2), r"§1 item 5$"),
     (dict(sanitize=True), r"§1 item 7$"),
 ])
 def test_compute_ph_refusals_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(n_shards=2),
+                                dict(n_shards=3, exchange_every=1),
+                                dict(exchange_every=2),
+                                dict(n_shards=1, exchange_every=7),
+                                dict(n_shards=0)])
+def test_compute_ph_takes_n_shards_and_exchange_every(kw):
+    """The distributed reduction's options, at P = 1 too: the reference's
+    diagrams and shard count."""
+    kw = dict(points=_cloud(), maxdim=2, engine="packed", batch_size=8, **kw)
+    ref, mine = ref_compute_ph(**kw), compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+    assert mine.stats["h1_n_shards"] == ref.stats["h1_n_shards"]
+
+
+@pytest.mark.parametrize("kw,match", [
+    (dict(n_shards=2, engine="batch"), "engine='packed'"),
+    (dict(n_shards=2, engine="single"), "engine='packed'"),
+    (dict(exchange_every=0, engine="packed"), "exchange_every"),
+])
+def test_compute_ph_value_errors_match_reference(kw, match):
+    for fn in (ref_compute_ph, lambda **k: compute_ph(device="cpu", **k)):
+        with pytest.raises(ValueError, match=match):
+            fn(points=_cloud(), maxdim=1, **kw)
 
 
 @pytest.mark.parametrize("mode", ["explicit", "implicit"])
@@ -98,9 +125,8 @@ def _h1(build, h0, adapter):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(n_shards=2), r"§1 item 4$"),
-    (dict(mesh=object()), r"§1 item 4$"),
-    (dict(exchange_every=1), r"§1 item 4$"),
+    (dict(mesh=object()), r"§1 item 5$"),
+    (dict(mesh=object(), n_shards=4), r"§1 item 5$"),
     (dict(seed_gens={}), r"§1 item 7$"),
     (dict(commit_sink=[]), r"§1 item 7$"),
     (dict(essential_log=[]), r"§1 item 7$"),
@@ -111,6 +137,31 @@ def test_reduce_dimension_packed_refusals_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         reduce_dimension_packed(adapter, cols, cleared=cleared,
                                 device="cpu", **kw)
+
+
+@pytest.mark.parametrize("kw", [dict(n_shards=2), dict(n_shards=4,
+                                                       exchange_every=1),
+                                dict(exchange_every=1)])
+def test_reduce_dimension_packed_takes_shards_and_cadence(kw):
+    adapter, cols, cleared = _h1(ref_build, ref_h0, ref_h1_adapter)
+    ref = ref_packed(adapter, cols, cleared=cleared, batch_size=8, **kw)
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    mine = reduce_dimension_packed(adapter, cols, cleared=cleared,
+                                   batch_size=8, device="cpu", **kw)
+    assert np.array_equal(ref.diagram(), mine.diagram())
+    for k in ("n_shards", "n_supersteps", "n_exchange_rounds",
+              "exchange_bytes", "n_tournament_reductions",
+              "n_sweep_probes"):
+        assert mine.stats[k] == ref.stats[k], k
+
+
+def test_reduce_dimension_packed_refuses_cadence_below_one():
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    with pytest.raises(ValueError, match="exchange_every"):
+        reduce_dimension_packed(adapter, cols, cleared=cleared,
+                                exchange_every=0, device="cpu")
 
 
 @pytest.mark.parametrize("use_kernels", [False, True])
