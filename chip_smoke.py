@@ -77,24 +77,37 @@ paths' long profiles, a short profiled serving epoch has lost one of its
 7. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
-8. ``dist_path`` — the main path's call again through the distributed
-   reduction (``n_shards=4, exchange_every=4``, the reference's
-   ``--dist-shards 4`` regime at the main path's size) under
-   ``torch.profiler``, the counts set to 0 just before it: its H0 and H1
-   diagrams must equal ``main_path``'s, and ``gf2_find_low`` and
-   ``gf2_scatter_xor`` must launch on the fused 4 x 128-row blocks
+8. ``mesh_path`` — ``compute_ph`` over a 4-entry data mesh of the card
+   (``make_data_mesh(4, devices=["cuda:0"] * 4)``, ``exchange_every=4``):
+   the main path's cloud, tiles and 96 MiB budget at the main path's tau
+   (the per-device reading of the budget would pick a larger one), under
+   ``torch.profiler``, the counts set to 0 just before it.  The sharded
+   harvest gives each entry one tile a round on its own CUDA stream and
+   the reduction's pivot exchange gathers over the mesh.  Its filtration's
+   ``edges`` and ``edge_len`` and its H0 and H1 diagrams must equal
+   ``main_path``'s, ``pairwise_sq_dists`` must launch once a tile (325),
+   ``gf2_find_low`` and ``gf2_scatter_xor`` must launch and an exchange
+   round must happen.  It prints the wall and phase split, the harvest's
+   tiles, rounds and per-round transfer (``gather_bytes``), the
+   supersteps, exchange rounds and bytes, tournament reductions, sweep
+   probes, rounds and reductions, the simulated 4-device walls (``sim_*``),
+   the card's busy and idle share and each kernel's launches.
+9. ``dist_path`` — the distributed reduction at ``cross_check``'s torus4
+   cloud (n = 10,000 at its tau, P = 4, ``exchange_every=4``), twice under
+   ``torch.profiler``: over the host loop-back (``n_shards=4``) and over
+   the 4-entry mesh.  Diagrams and every split counter must be equal
+   between the two, the diagrams equal to the cloud's P = 1 card result;
+   ``gf2_find_low`` and ``gf2_scatter_xor`` must launch
    (``gf2_serial_reduce`` runs only in a superstep that holds one slice:
-   its launches are printed, not gated).  It prints the wall and phase
-   split, the supersteps, exchange rounds and bytes, tournament
-   reductions and sweep probes, the simulated 4-device walls
-   (``sim_*``), the card's busy and idle share, each kernel's launches
-   and device seconds and the most hit rows one round handed the
+   its launches are printed, not gated) and an exchange round happen.
+   One line each: wall and phase split, the split counters, ``sim_*``,
+   idle share, launches and the most hit rows one round handed the
    kernels.
-9. ``dist_check`` — ``cross_check``'s clouds through the distributed
+10. ``dist_check`` — ``cross_check``'s clouds through the distributed
    reduction on the card, each result equal to that cloud's P = 1 card
    diagrams: torus4 at P in {2, 4} x ``exchange_every`` in {1, 8},
    explicit; o3 (maxdim 2) at P = 3, implicit, ``exchange_every=4``.
-10. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+11. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
     at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
     tau 0.6, maxdim 2), on the card, one call after another: each condition
     through the batch engine and the packed engine on the tiled harvest, and
@@ -105,7 +118,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     features with persistence above 0.02, 0.05 and 0.08, auxin against
     control); H1 at 0.05 and 0.08 must fall under auxin, as
     ``fig21_hic.py`` gates it.
-11. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
+12. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
     (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
     its loci and a quarter of its budget, ``hic_pair(25_000, 200,
     seed=1)`` at 32 MiB, one ``tau_max`` for both conditions (the smaller
@@ -137,10 +150,13 @@ reports its TFLOP/s and its share of the bound.  The serving prefill's
 head expansion and layout copies around the kernel (``_flash_prefill``)
 are timed beside it.
 
-Then the ``nvidia-smi`` line, the kernels summary and, last, ``{"ok": true,
-"device": ...}``.  Any failed check raises and the script exits non-zero;
-without a card it exits 2 and prints no result.  It imports nothing of the
-JAX package.
+Then the ``nvidia-smi`` line, the kernels summary (each kernel's
+launches on the main path, the Hi-C path, ``dist_path``'s loop-back and
+``mesh_path``) and, last, ``{"ok": true, "device": ...}``.  Any failed
+check raises and the script exits non-zero; without a card it exits 2,
+and without ``src/repro_torch`` beside it (the script copied alone) it
+exits 1, printing no result either way.  It imports nothing of the JAX
+package.
 """
 from __future__ import annotations
 
@@ -172,11 +188,15 @@ FLASH_F32_TOL = 2e-4
 # nothing else: at the two timed shapes its largest error is held to 1e-5.
 FLASH_F32_MAX_ERR = 1e-5
 HERE = os.path.dirname(os.path.abspath(__file__))
+T0 = time.perf_counter()
 CSRC = "src/repro_torch/kernels/csrc"
 
 
 def emit(phase: str, **fields) -> None:
-    print(json.dumps({"phase": phase, **fields}), flush=True)
+    """One JSON line; ``elapsed_s`` is the script's seconds so far, which
+    says where the run's time limit goes."""
+    print(json.dumps({"phase": phase, **fields,
+                      "elapsed_s": time.perf_counter() - T0}), flush=True)
 
 
 def nvidia_smi() -> str:
@@ -1155,12 +1175,50 @@ def harvest_held(dev, points, tau: float, n_e: int, what: str) -> None:
                              "compute_ph's")
 
 
-def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
+class FiltrationTap:
+    """Wraps ``repro_torch.scale``'s ``build_filtration_tiled`` and
+    ``build_filtration_sharded`` (the names ``compute_ph`` calls) for the
+    length of a ``with`` block, keeping the last build's ``edges``,
+    ``edge_len`` and ``TileStats``: the mesh path's filtration is held to
+    the main path's through them."""
+
+    def __enter__(self):
+        import repro_torch.scale as scale
+
+        self.real = {name: getattr(scale, name)
+                     for name in ("build_filtration_tiled",
+                                  "build_filtration_sharded")}
+        tap = self
+
+        def wrap(real):
+            def tapped(*args, **kw):
+                out = real(*args, **kw)
+                filt, tap.stats = out if kw.get("return_stats") \
+                    else (out, None)
+                tap.edges, tap.edge_len = filt.edges, filt.edge_len
+                return out
+            return tapped
+
+        for name, real in self.real.items():
+            setattr(scale, name, wrap(real))
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.scale as scale
+
+        for name, real in self.real.items():
+            setattr(scale, name, real)
+
+
+def main_path(dev, n: int, tap: RoundTap, serial: SerialTap):
+    """The main path under the profiler; returns its line, its result and
+    its filtration's ``(edges, edge_len)``."""
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
 
     points = clifford_torus(n, seed=0)
     counters = reset_counters()
+    filt = FiltrationTap()
 
     def run():
         t0 = time.perf_counter()
@@ -1172,7 +1230,7 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
 
     # The whole call runs under the profiler: its device events give the
     # card's busy time and each kernel's device time on the path.
-    with tap, serial:
+    with tap, serial, filt:
         (res, wall), evs = profiled(run)
     launches = {k: counters[k].launches
                 for k in PH_KERNELS + OFF_PATH_KERNELS}
@@ -1198,7 +1256,7 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap) -> dict:
                wall_less_capture_s=wall - tap.capture_s - serial.capture_s,
                harvest_identical_to_plain=True)
     emit("main_path", **out)
-    return out, res
+    return out, res, (filt.edges, filt.edge_len)
 
 
 def cross_check(dev) -> dict:
@@ -1242,7 +1300,8 @@ def check_cases():
 
 
 # ---------------------------------------------------------------------------
-# phases 8 and 9: the distributed packed reduction (n_shards on one card)
+# phases 8 to 10: compute_ph over a 4-entry mesh of the card, and the
+# distributed packed reduction (n_shards on one card)
 # ---------------------------------------------------------------------------
 
 DIST_SHARDS, DIST_EVERY = 4, 4     # the reference's --dist-shards 4 default
@@ -1255,56 +1314,165 @@ DIST_COUNTS = ("n_supersteps", "n_exchange_rounds", "exchange_bytes",
 BLOCK_COUNTS = ("n_consolidations", "n_expansions", "n_evictions")
 
 
-def dist_path(dev, n: int, main) -> dict:
-    """The main path's run again with ``n_shards=4, exchange_every=4``
-    under the profiler, the counts set to 0 just before it: its H0 and H1
-    diagrams must equal ``main``'s, and ``gf2_find_low`` and
-    ``gf2_scatter_xor`` must launch (the fused 4 x 128-row blocks go
-    through them); ``gf2_serial_reduce`` runs only in a superstep that
-    holds one slice, so its launches are printed, not gated."""
+def card_mesh(dev, p: int = DIST_SHARDS):
+    """A ``(data=p,)`` mesh whose every entry is this card."""
+    from repro_torch.launch.mesh import make_data_mesh
+
+    return make_data_mesh(p, devices=[dev] * p)
+
+
+def mesh_path(dev, n: int, main, harvest, tau: float) -> dict:
+    """``compute_ph`` over a 4-entry data mesh of the card
+    (``make_data_mesh(4, devices=["cuda:0"] * 4)``, ``exchange_every=4``):
+    the main path's cloud, tiles and budget at the main path's tau, under
+    the profiler, the counts set to 0 just before it.  The sharded
+    harvest gives each entry one tile a round on its own stream; the
+    reduction's pivot exchange gathers over the mesh.  Gates: the
+    filtration's ``edges`` and ``edge_len`` equal the main path's, H0 and
+    H1 equal ``main``'s, ``pairwise_sq_dists`` launches once a tile (325),
+    ``gf2_find_low`` and ``gf2_scatter_xor`` launch, an exchange round
+    happens."""
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
+    from repro_torch.scale.shard import partition_tiles
 
     points = clifford_torus(n, seed=0)
+    mesh = card_mesh(dev)
+    shards = partition_tiles(n, 2048, 2048, DIST_SHARDS)
+    n_tiles = sum(len(t) for t in shards)
     counters = reset_counters()
-    tap = RoundTap(keep=0)
+    tap, filt = RoundTap(keep=0), FiltrationTap()
 
     def run():
         t0 = time.perf_counter()
-        out = compute_ph(points=points, maxdim=1, backend="tiled",
-                         engine="packed", memory_budget_bytes=96 * 2**20,
-                         tile_m=2048, tile_n=2048, n_shards=DIST_SHARDS,
-                         exchange_every=DIST_EVERY, device=dev)
+        out = compute_ph(points=points, tau_max=tau, maxdim=1,
+                         backend="tiled", engine="packed",
+                         memory_budget_bytes=96 * 2**20, tile_m=2048,
+                         tile_n=2048, mesh=mesh, exchange_every=DIST_EVERY)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    with tap:
+    with tap, filt:
         (res, wall), evs = profiled(run)
     launches = {k: counters[k].launches
                 for k in PH_KERNELS + OFF_PATH_KERNELS}
-    for name in ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor"):
+    if launches["pairwise_sq_dists"] != n_tiles:
+        raise AssertionError(f"mesh path: {launches['pairwise_sq_dists']} "
+                             f"pairwise launches for {n_tiles} tiles")
+    for name in ("gf2_find_low", "gf2_scatter_xor"):
         if launches[name] <= 0:
-            raise AssertionError(f"dist path never launched {name}")
+            raise AssertionError(f"mesh path never launched {name}")
+    edges, edge_len = harvest
+    if not (np.array_equal(filt.edges, edges)
+            and np.array_equal(filt.edge_len, edge_len)):
+        raise AssertionError("mesh path: filtration differs from the main "
+                             "path's")
     for d in (0, 1):
         if not np.array_equal(res.diagrams[d], main.diagrams[d]):
-            raise AssertionError(f"dist path: H{d} differs from the main "
+            raise AssertionError(f"mesh path: H{d} differs from the main "
                                  "path's")
     st = res.stats
-    if st["h1_n_shards"] != DIST_SHARDS or st["h1_n_exchange_rounds"] <= 0:
-        raise AssertionError("dist path: no exchange round at 4 shards")
-    out = dict(n=n, n_shards=DIST_SHARDS, exchange_every=DIST_EVERY,
-               n_e=int(st["n_e"]), wall_s=wall,
+    if st["n_shards"] != DIST_SHARDS or st["h1_n_shards"] != DIST_SHARDS \
+            or st["h1_n_exchange_rounds"] <= 0:
+        raise AssertionError("mesh path: no exchange round over 4 entries")
+    out = dict(n=n, mesh=repr(mesh), exchange_every=DIST_EVERY,
+               tau_max=tau, n_e=int(st["n_e"]), wall_s=wall,
                t_filtration=st["t_filtration"], t_h0=st["t_h0"],
                t_h1=st["t_h1"], pairs=n_pairs(res), launches=launches,
+               harvest_tiles=n_tiles,
+               harvest_rounds=max(len(t) for t in shards),
+               gather_bytes=filt.stats.gather_bytes,
+               candidate_pairs=filt.stats.candidate_pairs,
+               per_device_peak_bytes=st["per_device_peak_bytes"],
+               per_device_base_bytes=st["per_device_base_bytes"],
                **{f"h1_{k}": st[f"h1_{k}"]
                   for k in DIST_COUNTS + DIST_SIM + BLOCK_COUNTS},
-               h1_sim_wall_bookkeeping_s=st["h1_sim_wall_bookkeeping_s"],
                **path_profile(evs, wall),
                kernel_round_calls=tap.calls, kernel_round_s=tap.seconds,
-               kernel_round_rows=tap.rows, max_hit_rows=tap.max_rows,
+               max_hit_rows=tap.max_rows, filtration_equal_main_path=True,
                diagrams_equal_main_path=True)
-    emit("dist_path", **out)
+    emit("mesh_path", **out)
     return out
+
+
+def dist_path(dev, cards: dict) -> dict:
+    """The distributed reduction at ``cross_check``'s torus4 cloud (n =
+    10,000 at its tau), P = 4, ``exchange_every=4``, twice, each under the
+    profiler with the counts set to 0 just before it: over the host
+    loop-back (``n_shards=4``) and over the 4-entry mesh of the card.
+    Diagrams and every split counter must be equal between the two and the
+    diagrams equal to the cloud's P = 1 card result; ``gf2_find_low`` and
+    ``gf2_scatter_xor`` must launch (the fused 4 x 128-row blocks go
+    through them; ``gf2_serial_reduce`` runs only in a superstep that holds
+    one slice, so its launches are printed, not gated) and an exchange
+    round must happen."""
+    from repro_torch import compute_ph
+    from repro_torch.scale.tiles import tile_grid
+
+    name, points, tau, maxdim = check_cases()[0]
+    one = cards[name]["result"]
+    runs = {}
+    for route, kw in (("loopback", dict(n_shards=DIST_SHARDS, device=dev)),
+                      ("mesh", dict(mesh=card_mesh(dev)))):
+        counters = reset_counters()
+        tap = RoundTap(keep=0)
+
+        def run():
+            t0 = time.perf_counter()
+            out = compute_ph(points=points, tau_max=tau, maxdim=maxdim,
+                             backend="tiled", engine="packed",
+                             exchange_every=DIST_EVERY, **kw)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+
+        with tap:
+            (res, wall), evs = profiled(run)
+        launches = {k: counters[k].launches
+                    for k in PH_KERNELS + OFF_PATH_KERNELS}
+        for k in ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor"):
+            if launches[k] <= 0:
+                raise AssertionError(f"dist path ({route}) never launched "
+                                     f"{k}")
+        for d in range(maxdim + 1):
+            if not np.array_equal(res.diagrams[d], one.diagrams[d]):
+                raise AssertionError(f"dist path ({route}): H{d} differs "
+                                     "from P = 1 on the card")
+        st = res.stats
+        if st["h1_n_shards"] != DIST_SHARDS \
+                or st["h1_n_exchange_rounds"] <= 0:
+            raise AssertionError(f"dist path ({route}): no exchange round "
+                                 "at 4 shards")
+        runs[route] = dict(
+            route=route, n=len(points), n_shards=DIST_SHARDS,
+            exchange_every=DIST_EVERY, tau_max=tau, n_e=int(st["n_e"]),
+            wall_s=wall, t_filtration=st["t_filtration"], t_h0=st["t_h0"],
+            t_h1=st["t_h1"], p1_card_s=cards[name]["card_s"],
+            pairs=n_pairs(res), launches=launches,
+            **{f"h1_{k}": st[f"h1_{k}"]
+               for k in DIST_COUNTS + DIST_SIM + BLOCK_COUNTS},
+            h1_sim_wall_bookkeeping_s=st["h1_sim_wall_bookkeeping_s"],
+            **path_profile(evs, wall),
+            kernel_round_calls=tap.calls, kernel_round_s=tap.seconds,
+            kernel_round_rows=tap.rows, max_hit_rows=tap.max_rows,
+            diagrams_equal_p1=True)
+        runs[route]["_diagrams"] = res.diagrams
+    loop, mesh = runs["loopback"], runs["mesh"]
+    for d in range(maxdim + 1):
+        if not np.array_equal(loop["_diagrams"][d], mesh["_diagrams"][d]):
+            raise AssertionError(f"dist path: H{d} differs between the "
+                                 "loop-back and the mesh")
+    for k in DIST_COUNTS + BLOCK_COUNTS:
+        if loop[f"h1_{k}"] != mesh[f"h1_{k}"]:
+            raise AssertionError(f"dist path: h1_{k} differs between the "
+                                 "loop-back and the mesh")
+    if mesh["launches"]["pairwise_sq_dists"] \
+            != len(tile_grid(len(points), 2048, 2048)):
+        raise AssertionError("dist path (mesh): not one pairwise launch a "
+                             "tile")
+    for run in (loop, mesh):
+        del run["_diagrams"]
+        emit("dist_path", **run, split_equal_between_routes=True)
+    return loop
 
 
 def dist_check(dev, cards: dict) -> None:
@@ -1871,6 +2039,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing was run", file=sys.stderr)
         return 2
+    if not os.path.isdir(os.path.join(HERE, "src", "repro_torch")):
+        print("chip_smoke: src/repro_torch is not beside this script (it "
+              "runs from the root of a checkout); nothing was run",
+              file=sys.stderr)
+        return 1
     sys.path.insert(0, os.path.join(HERE, "src"))
     from repro_torch.kernels import _build
 
@@ -1895,14 +2068,17 @@ def main() -> int:
     served = serve(dev)
     served_f32 = serve_f32(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
-    path, main_res = main_path(dev, MAIN_PATH_N, tap, serial)
+    path, main_res, main_filt = main_path(dev, MAIN_PATH_N, tap, serial)
     round_step(dev, tap)
     cards = cross_check(dev)
     serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
     del tap, serial
-    dist = dist_path(dev, MAIN_PATH_N, main_res)
+    meshed = mesh_path(dev, MAIN_PATH_N, main_res, main_filt,
+                       path["tau_max"])
+    del main_res, main_filt
+    dist = dist_path(dev, cards)
     dist_check(dev, cards)
-    del main_res, cards
+    del cards
     hic_suite(dev)
     hic = hic_path(dev)
     launches = dict(path["launches"],
@@ -1942,6 +2118,7 @@ def main() -> int:
             hic_launches={c: hic[c]["launches"].get(kname)
                           for c in ("control", "auxin")},
             dist_launches=dist["launches"].get(kname),
+            mesh_launches=meshed["launches"].get(kname),
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -197,6 +197,14 @@ def _tri_keys_from_orders(kp, o_ac, o_bc, oa, ob, oc):
     return np.where(common, keys, EMPTY_KEY)
 
 
+def min_tri_cobdy(filt: Filtration, tri_keys: np.ndarray,
+                  sparse: bool = True) -> np.ndarray:
+    """Smallest cofacet key per triangle (trivial-pair check, H2*)."""
+    fn = tri_cobdy_sparse if sparse else tri_cobdy_ns
+    keys = fn(filt, np.atleast_1d(tri_keys))
+    return keys[:, 0]
+
+
 def greatest_boundary_triangle(filt: Filtration, tet_keys: np.ndarray) -> np.ndarray:
     """For tetra <k1,k2>: greatest facet = <k1, max vertex of edge(k2)>
     (paper §4.3.5) — the candidate trivial-pair owner."""
@@ -243,7 +251,20 @@ def case1_triangles_of_edges(filt: Filtration, e_orders: np.ndarray,
 
 def _lookup_order(filt: Filtration, row: np.ndarray, v: np.ndarray) -> np.ndarray:
     """Order of edge {row_i, v_ij} via batched binary search in N^row
-    (sparse lookup; -1 where absent).  row: (B,), v: (B, K)."""
+    (sparse lookup; -1 where absent).  row: (B,), v: (B, K).
+
+    One row (the batch engine's per-column coboundaries) searches that
+    row's ``degree`` neighbours directly: the same answers with a third of
+    the numpy calls of the flattened batch search."""
+    if len(row) == 1:
+        r = int(row[0])
+        deg = int(filt.degree[r])
+        if deg == 0:
+            return np.full(np.shape(v), -1, dtype=np.int64)
+        nbr = filt.nbr_vtx[r, :deg].astype(np.int64)      # sorted, no pad
+        pos = np.minimum(np.searchsorted(nbr, v[0]), deg - 1)
+        o = filt.nbr_vtx_ord[r, pos].astype(np.int64)
+        return np.where(nbr[pos] == v[0], o, -1)[None]
     nbr = filt.nbr_vtx[row].astype(np.int64)            # (B, K) sorted, pad = n
     ords = filt.nbr_vtx_ord[row].astype(np.int64)
     B, K = nbr.shape

@@ -1,8 +1,6 @@
-"""Persistence-diagram comparison.
+"""Persistence-diagram utilities: comparison, summaries, TDA features.
 
-Port of ``src/repro/core/diagrams.py``: ``canonicalize`` and the
-comparisons (numpy, unchanged semantics).  The summaries and TDA features
-stay in the reference until a ported caller needs them.
+Port of ``src/repro/core/diagrams.py`` (host numpy, unchanged semantics).
 """
 from __future__ import annotations
 
@@ -46,3 +44,49 @@ def assert_diagrams_equal(pds_a: Dict[int, np.ndarray],
             raise AssertionError(
                 f"H{d} diagrams differ:\nA ({a.shape[0]} pts):\n{a}\n"
                 f"B ({b.shape[0]} pts):\n{b}")
+
+
+def betti_curve(pd: np.ndarray, taus: np.ndarray) -> np.ndarray:
+    """Betti number as a function of scale (vectorized)."""
+    pd = np.asarray(pd, dtype=np.float64).reshape(-1, 2)
+    if pd.size == 0:
+        return np.zeros_like(taus, dtype=np.int64)
+    alive = (pd[:, 0][None, :] <= taus[:, None]) & (pd[:, 1][None, :] > taus[:, None])
+    return alive.sum(axis=1)
+
+
+def total_persistence(pd: np.ndarray, tau_cap: float = np.inf) -> float:
+    """Sum of (death - birth), with inf deaths capped at ``tau_cap``."""
+    pd = canonicalize(pd)
+    if pd.size == 0:
+        return 0.0
+    death = np.minimum(pd[:, 1], tau_cap)
+    return float(np.clip(death - pd[:, 0], 0, None).sum())
+
+
+def summary(pd: np.ndarray, tau_cap: float = np.inf) -> Dict[str, float]:
+    pd = canonicalize(pd)
+    n_inf = int(np.isinf(pd[:, 1]).sum()) if pd.size else 0
+    return {
+        "count": float(pd.shape[0]),
+        "n_essential": float(n_inf),
+        "total_persistence": total_persistence(pd, tau_cap),
+        "max_persistence": float(
+            np.max(np.minimum(pd[:, 1], tau_cap) - pd[:, 0])) if pd.size else 0.0,
+    }
+
+
+def persistence_image(pd: np.ndarray, resolution: int = 16,
+                      sigma: float = 0.1, tau_cap: float = 1.0) -> np.ndarray:
+    """Pixelated PD embedding (PI-Net-style target; used by the TDA monitor)."""
+    pd = canonicalize(pd)
+    img = np.zeros((resolution, resolution), dtype=np.float64)
+    if pd.size == 0:
+        return img
+    birth = np.clip(pd[:, 0], 0, tau_cap)
+    pers = np.clip(np.minimum(pd[:, 1], tau_cap) - pd[:, 0], 0, tau_cap)
+    xs = np.linspace(0, tau_cap, resolution)
+    gx = np.exp(-0.5 * ((xs[None, :] - birth[:, None]) / sigma) ** 2)
+    gy = np.exp(-0.5 * ((xs[None, :] - pers[:, None]) / sigma) ** 2)
+    img = np.einsum("ki,kj->ij", gy * pers[:, None], gx)
+    return img / max(img.max(), 1e-12)

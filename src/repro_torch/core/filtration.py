@@ -148,6 +148,13 @@ class Filtration:
         """Paper appendix E: base memory = ``(3n + 12 n_e) * 4`` bytes."""
         return (3 * self.n + 12 * self.n_e) * 4
 
+    def edge_order_of(self, a: int, b: int) -> int:
+        return int(self.order[a, b])
+
+    def diam_value(self, key_primary) -> np.ndarray:
+        """Filtration value (length of diameter edge) for primary key(s)."""
+        return self.edge_len[np.asarray(key_primary, dtype=np.int64)]
+
 
 def filtration_from_arrays(fields: Dict[str, Any]) -> Filtration:
     """A :class:`Filtration` from another package's fields, as plain data.

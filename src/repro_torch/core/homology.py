@@ -14,6 +14,7 @@ trivial pairs detected on the fly throughout.
 from __future__ import annotations
 
 import dataclasses
+import os
 from typing import Dict, Optional
 
 import numpy as np
@@ -175,27 +176,42 @@ def compute_ph(
     is picked so the paper's ``(3n + 12 n_e) * 4`` account fits the
     budget; the same budget caps the H2* enumeration transient and bounds
     the reduction store.
-    n_shards: the distributed packed reduction on one device (batches
+    mesh: with ``backend="tiled"``, a
+    :class:`~repro_torch.launch.mesh.Mesh` with a ``data`` axis shards the
+    tile harvest across its entries (:mod:`repro_torch.scale.shard`; one
+    ``pairwise_sq_dists`` launch a tile, each entry on its own stream) —
+    output bit-identical to the serial tiled and dense builds for every
+    device count — and ``memory_budget_bytes`` is then read *per device*.
+    With ``engine="packed"`` the same mesh distributes the GF(2) reduction
+    over its data axis (the pivot exchange a gather over it), and is then
+    legal with any backend or a prebuilt filtration.  ``device`` must be
+    ``None`` (the mesh's first entry runs the reduction) or of the mesh's
+    device type.
+    n_shards: the distributed packed reduction without a mesh (batches
     dealt round-robin over ``n_shards`` shards, fused supersteps, a pivot
-    replica fed by Elias–Fano exchange rounds; same diagrams); requires
-    ``engine="packed"``.  ``exchange_every`` batches the pivot-exchange
-    rounds (one wire round per that-many supersteps); diagrams are
-    cadence-independent.
+    replica fed by Elias–Fano exchange rounds over a host loop-back; same
+    diagrams); requires ``engine="packed"``.  ``exchange_every`` batches
+    the pivot-exchange rounds (one wire round per that-many supersteps);
+    diagrams are cadence-independent.
     trace: as in the reference (a path exports a Chrome trace, a
     :class:`~repro_torch.obs.trace.Tracer` collects, ``None`` defers to
     ``REPRO_TRACE``, ``False`` forces it off).
 
-    Not in this port yet, refused with ``NotImplementedError``: ``mesh``
-    (the sharded harvest and the collective pivot exchange, ROADMAP.md §1
-    item 5) and ``sanitize`` (item 7).
+    Not in this port yet, refused with ``NotImplementedError``: the GF(2)
+    sanitizer, whether asked for by ``sanitize=True`` or, with
+    ``sanitize=None``, by the ``REPRO_SANITIZE`` environment variable as
+    the reference reads it (ROADMAP.md §1 item 7).
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the sharded harvest, the collective pivot exchange) is "
-            "not ported yet: ROADMAP.md §1 item 5")
+    if mesh is not None and engine != "packed" \
+            and (filtration is not None or backend != "tiled"):
+        raise ValueError("mesh sharding requires backend='tiled' and no "
+                         "prebuilt filtration (or engine='packed', which "
+                         "distributes the reduction for any backend)")
     if n_shards is not None and engine != "packed":
         raise ValueError("n_shards distributes the reduction and requires "
                          "engine='packed'")
+    if sanitize is None:
+        sanitize = os.environ.get("REPRO_SANITIZE", "0") not in ("", "0")
     if sanitize:
         raise NotImplementedError(
             "sanitize=True (analyze/invariants.py) is not ported yet: "
@@ -204,6 +220,13 @@ def compute_ph(
         raise ValueError(f"unknown engine {engine!r}")
     if backend not in ("dense", "tiled"):
         raise ValueError(f"unknown backend {backend!r}")
+    harvest_shards = 1
+    if mesh is not None:
+        from ..launch.mesh import mesh_device
+        from ..scale.shard import shard_of_mesh
+
+        harvest_shards = shard_of_mesh(mesh)[1]
+        device = mesh_device(mesh, device)
     dev = resolve_device(device)
     reg = MetricsRegistry()
     tile_stats = None
@@ -216,19 +239,36 @@ def compute_ph(
             if filtration is not None:
                 filt = filtration
             elif backend == "tiled":
-                from ..scale import build_filtration_tiled, estimate_tau_max
+                from ..scale import (build_filtration_sharded,
+                                     build_filtration_tiled,
+                                     estimate_tau_max)
 
                 if memory_budget_bytes is not None \
                         and not np.isfinite(tau_max):
                     if points is None:
                         raise ValueError("memory_budget_bytes needs points "
                                          "to estimate tau_max")
-                    tau_max = estimate_tau_max(points, memory_budget_bytes)
+                    # the reference passes no backend: the transient is
+                    # sized as the numpy path's, and so is it here
+                    tau_max = estimate_tau_max(points, memory_budget_bytes,
+                                               n_shards=harvest_shards,
+                                               tile_m=tile_m, tile_n=tile_n)
                     reg.gauge("tau_max_estimated").set(float(tau_max))
-                filt, tile_stats = build_filtration_tiled(
-                    points=points, dists=dists, tau_max=tau_max,
-                    tile_m=tile_m, tile_n=tile_n, device=dev,
-                    return_stats=True)
+                if mesh is not None:
+                    filt, tile_stats = build_filtration_sharded(
+                        points=points, dists=dists, tau_max=tau_max,
+                        tile_m=tile_m, tile_n=tile_n, mesh=mesh,
+                        device=dev, return_stats=True)
+                    reg.gauge("n_shards").set(float(tile_stats.n_shards))
+                    reg.gauge("per_device_peak_bytes").set(
+                        float(tile_stats.per_device_peak_bytes()))
+                    reg.gauge("per_device_base_bytes").set(
+                        float(tile_stats.per_device_base_bytes()))
+                else:
+                    filt, tile_stats = build_filtration_tiled(
+                        points=points, dists=dists, tau_max=tau_max,
+                        tile_m=tile_m, tile_n=tile_n, device=dev,
+                        return_stats=True)
             else:
                 filt = build_filtration(points=points, dists=dists,
                                         tau_max=tau_max)
@@ -256,8 +296,8 @@ def compute_ph(
                     adapter, cols, mode=mode, cleared=cleared,
                     batch_size=batch_size,
                     store_budget_bytes=memory_budget_bytes,
-                    n_shards=n_shards, exchange_every=exchange_every,
-                    device=dev)
+                    n_shards=n_shards, mesh=mesh,
+                    exchange_every=exchange_every, device=dev)
         else:
             def _reduce(adapter, cols, mode=mode, cleared=None):
                 return reduce_dimension(adapter, cols, mode=mode,

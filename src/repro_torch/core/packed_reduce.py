@@ -9,10 +9,11 @@ card, their plain PyTorch versions on the CPU.  A parallel-phase round
 makes one round trip: the hit rows go to the device, ``gf2_scatter_xor``
 adds the addends' coordinates into them and ``gf2_find_low`` reads each
 segment's window of the result, and rows and lows come back in one copy.
-The serial pre-pass keeps the reference's round trip per call.  The
-collective pivot exchange over a mesh (ROADMAP.md §1 item 5), the shard
-supervisor, the sanitizer and the fault hooks (item 7) stay in the
-reference until the port takes them over.
+The serial pre-pass keeps the reference's round trip per call.  With a
+mesh (:mod:`repro_torch.launch.mesh`) the pivot exchange gathers the
+stacked payloads over the mesh's data axis (``_make_exchange``); the shard
+supervisor, the sanitizer and the fault hooks (ROADMAP.md §1 item 7) stay
+in the reference until the port takes them over.
 
 The engine keeps the paper's batch structure — parallel phase against the
 committed pivots, serial phase for intra-batch collisions, clearance
@@ -48,14 +49,14 @@ Diagrams are bit-identical to ``reduce_dimension`` for every mode/budget:
 all engines perform left-to-right GF(2) column additions, and the lows of
 any fully reduced matrix are canonical.
 
-**Distributed mode** (``n_shards``): column batches partition round-robin
-over the shards (batch ``t`` -> shard ``t % P``), and each *superstep*
-fuses the P shards' next batches into ONE resident block of ``P·B`` rows —
-per-device blocks simulated as row slices, which also amortizes the
-per-batch fixed costs (one coboundary enumeration, one block build, one
-store probe per round for all P slices).  On a card the fused block goes
-through the same GF(2) kernels, at up to ``P·B`` hit rows a round.  Phases
-per superstep:
+**Distributed mode** (``n_shards``/``mesh``): column batches partition
+round-robin over the shards (batch ``t`` -> shard ``t % P``), and each
+*superstep* fuses the P shards' next batches into ONE resident block of
+``P·B`` rows — per-device blocks simulated as row slices, which also
+amortizes the per-batch fixed costs (one coboundary enumeration, one block
+build, one store probe per round for all P slices).  On a card the fused
+block goes through the same GF(2) kernels, at up to ``P·B`` hit rows a
+round.  Phases per superstep:
 
 * **concurrent phase** — the parallel phase of every slice runs against a
   *replica* of the pivot store, complete exactly up to the last exchange
@@ -88,8 +89,9 @@ import torch
 from ..device import DeviceLike, resolve_device
 from ..kernels.gf2 import (NO_LOW, find_low_np, gf2_find_low,
                            gf2_scatter_xor, gf2_serial_reduce, scatter_bits,
-                           scatter_xor_bits, set_bit_positions, to_numpy,
-                           to_tensor)
+                           scatter_xor_bits, set_bit_positions,
+                           stack_wire_payloads, to_numpy, to_tensor,
+                           unstack_wire_payloads)
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, active_tracer, critical_path
 from .pairing import EMPTY_KEY
@@ -707,14 +709,49 @@ def _tournament_merge(blk: _PackedBatch, gens: List[Dict[int, int]],
 
 
 def _resolve_reduce_shards(mesh, n_shards: Optional[int]) -> int:
-    """Shard count of the distributed reduction: ``n_shards`` for the
-    host-partitioned loop-back (the work split of an ``n_shards``-device
-    mesh on one device).  A ``mesh`` waits for the port's mesh type."""
+    """Shard count for the distributed driver: the mesh's data-axis size,
+    or ``n_shards`` for the host-partitioned loop-back (same work split,
+    no mesh needed — mirrors ``scale.shard.harvest_edges_sharded``)."""
     if mesh is not None:
-        raise NotImplementedError(
-            "mesh= (the distributed reduction's collective pivot exchange) "
-            "is not ported yet: ROADMAP.md §1 item 5")
+        from ..scale.shard import shard_of_mesh
+        axis, mesh_shards = shard_of_mesh(mesh)
+        if n_shards is not None and int(n_shards) != mesh_shards:
+            raise ValueError(
+                f"n_shards={n_shards} disagrees with the mesh's "
+                f"{axis}-axis size {mesh_shards}; pass only one of them")
+        return mesh_shards
     return 1 if n_shards is None else int(n_shards)
+
+
+def _make_exchange(mesh):
+    """Pivot-exchange round: per-shard wire payloads -> all shards' payloads.
+
+    With a mesh, payloads stack into a ``(P, L)`` uint32 buffer (``L``
+    bucketed to a power of two, ``stack_wire_payloads``): row ``k`` goes to
+    entry ``k`` of the mesh's data axis, and every entry gathers the whole
+    buffer from the rows (the reference's ``all_gather`` under
+    ``shard_map``).  The host reads the gathered buffer back once, as the
+    reference's ``np.asarray`` of the replicated result does, so only the
+    first entry's copy is made: the replicas on the other entries wait for
+    a transport between cards (ROADMAP.md §1 item 5).  The buffer
+    travels as an ``int32`` view of the same bits (``torch.uint32`` takes
+    few operations).  Without a mesh the exchange is the host loop-back —
+    identical payload path (encode -> exchange -> decode), no devices."""
+    if mesh is None:
+        return lambda payloads: payloads
+    from ..dist.sharding import data_axis
+
+    devices = mesh.axis_devices(data_axis(mesh, "reduce"))
+
+    def exchange(payloads: List[np.ndarray]) -> List[np.ndarray]:
+        buf, lens = stack_wire_payloads(payloads)
+        rows = [torch.from_numpy(buf[k].view(np.int32)).to(dev)
+                for k, dev in enumerate(devices)]
+        gathered = torch.stack([row.to(devices[0]) for row in rows])
+        return unstack_wire_payloads(
+            gathered.cpu().numpy().view(np.uint32), lens)
+
+    return exchange
 
 
 def reduce_dimension_packed(
@@ -755,9 +792,17 @@ def reduce_dimension_packed(
     ``cache`` threads a caller-owned :class:`PackedPivotCache` (one is
     created per call otherwise).
 
-    Not in this port yet, refused with ``NotImplementedError``: ``mesh``
-    (the collective exchange, ROADMAP.md §1 item 5); ``seed_gens``,
-    ``commit_sink`` and ``essential_log`` (the resume hooks, item 7).
+    A ``mesh`` (:class:`~repro_torch.launch.mesh.Mesh`) fixes P to its
+    data-axis size (a disagreeing ``n_shards`` raises the reference's
+    ``ValueError``) and carries each exchange round as a gather over that
+    axis (``_make_exchange``); the kernels run on ``device``, which then
+    defaults to the mesh's first entry and must be of the mesh's device
+    type.  The split, the counters and the diagrams are those of the
+    loop-back at the same P.
+
+    Not in this port yet, refused with ``NotImplementedError``:
+    ``seed_gens``, ``commit_sink`` and ``essential_log`` (the resume hooks,
+    ROADMAP.md §1 item 7).
 
     Every timed region is a span on a local, always-on tracer (it forwards
     into the user's tracer when ``compute_ph(trace=...)`` activated one),
@@ -777,6 +822,9 @@ def reduce_dimension_packed(
         raise ValueError("exchange_every must be >= 1")
     refuse_resume_hooks(seed_gens=seed_gens, commit_sink=commit_sink,
                         essential_log=essential_log)
+    if mesh is not None:
+        from ..launch.mesh import mesh_device
+        device = mesh_device(mesh, device)
     dev = resolve_device(device)
     # local timeline: always on (sim_wall is derived from it), forwarding
     # into the user's tracer when compute_ph(trace=...) activated one
@@ -797,6 +845,7 @@ def reduce_dimension_packed(
         replica = PivotStore(adapter, mode,
                              store_budget_bytes=store_budget_bytes,
                              cache=cache)
+        exchange = _make_exchange(mesh)
         lookup_store = replica
         # commits the replica has not installed yet: each shard's wire
         # backlog plus a map of their pivot lows -> (slice, superstep) —
@@ -1049,9 +1098,9 @@ def reduce_dimension_packed(
         # skipped once the queue is drained — the replica is never read
         # again): each shard ships its backlog as one EF-compressed
         # payload; every shard installs all decoded payloads into its
-        # replica.  On one device the wire is a host loop-back, and the
-        # replica is installed once — exactly one device's worth of
-        # decode + install work ----
+        # replica.  The wire is a gather over the mesh's data axis, or the
+        # host loop-back without a mesh, and the replica is installed once —
+        # exactly one device's worth of decode + install work ----
         if (P > 1 and pos < len(queue)
                 and n_supersteps % exchange_every == 0
                 and any(shard_logs)):
@@ -1066,7 +1115,7 @@ def reduce_dimension_packed(
             exchange_bytes += wire
             with tl.span("reduce/exchange", step=step,
                          bytes=int(wire)) as sp:
-                for payload in payloads:
+                for payload in exchange(payloads):
                     for rec in decode_commit_delta(payload):
                         replica.install(rec["low"], rec["col_id"],
                                         rec["mode"], rec["column"],

@@ -42,3 +42,13 @@ def unpack(key):
 def pack_np(kp: np.ndarray, ks: np.ndarray) -> np.ndarray:
     """Vectorized pack for numpy arrays (any broadcastable shapes)."""
     return (kp.astype(np.int64) << _SHIFT) | (ks.astype(np.int64) & _MASK)
+
+
+def primary(key):
+    """``k_p`` of a packed key (diameter-edge order)."""
+    return np.asarray(key, dtype=np.int64) >> _SHIFT
+
+
+def secondary(key):
+    """``k_s`` of a packed key."""
+    return np.asarray(key, dtype=np.int64) & _MASK

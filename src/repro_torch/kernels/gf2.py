@@ -32,6 +32,8 @@ bit *is* the engines' ``low``.  The packed engine moves between key arrays
 and bit blocks with ``scatter_bits`` / ``scatter_xor_bits`` /
 ``set_bit_positions`` (plus ``find_low_np``); ``pack_keys_to_bits`` /
 ``bits_to_keys`` are the whole-block forms of the same mapping.
+``stack_wire_payloads`` / ``unstack_wire_payloads`` pack the pivot
+exchange's per-shard payloads into one ``(P, L)`` buffer and back.
 """
 from __future__ import annotations
 
@@ -186,6 +188,36 @@ def find_low_np(block: np.ndarray) -> np.ndarray:
     lsb = (words & -words).astype(np.float64)
     bit = np.frexp(lsb)[1] - 1
     return np.where(any_set, w * 32 + bit, NO_LOW).astype(np.int32)
+
+
+def stack_wire_payloads(payloads: Sequence[np.ndarray],
+                        min_words: int = 1024):
+    """Stack per-shard packed uint32 wire payloads into one ``(P, L)``
+    collective buffer, ``L`` bucketed to a power of two.
+
+    The distributed engine's pivot exchange gathers the buffer onto every
+    mesh device (``repro_torch.core.packed_reduce._make_exchange``);
+    bucketing ``L`` keeps the buffer at a handful of shapes instead of one
+    per superstep, and ``min_words`` floors the bucket so early (small)
+    rounds share one shape.  Returns ``(buf, lens)``;
+    :func:`unstack_wire_payloads` crops the gather result back to the real
+    payloads.
+    """
+    lens = [int(p.size) for p in payloads]
+    L = max(int(min_words), max(lens, default=1))
+    L = 1 << (L - 1).bit_length()
+    buf = np.zeros((len(payloads), L), dtype=np.uint32)
+    for k, p in enumerate(payloads):
+        buf[k, :p.size] = p
+    return buf, lens
+
+
+def unstack_wire_payloads(gathered: np.ndarray,
+                          lens: Sequence[int]) -> List[np.ndarray]:
+    """Inverse of :func:`stack_wire_payloads` on the gathered ``(P, L)``
+    buffer: every shard's payload, zero padding cropped."""
+    out = np.asarray(gathered, dtype=np.uint32)
+    return [out[k, :n] for k, n in enumerate(lens)]
 
 
 # ---------------------------------------------------------------------------

@@ -20,8 +20,10 @@ Two backends:
   numpy tile whatever produced the f32 candidates.
 
 ``backend="auto"`` takes ``"kernel"`` on a CUDA device and ``"numpy"`` on
-the CPU.  The sharded harvest and the fault-injection retries of the
-reference are not ported yet.
+the CPU.  The sharded harvest over a mesh (:mod:`repro_torch.scale.shard`)
+replays each shard's tile list through the same per-tile dispatch
+(``iter_tile_edges(tiles=)``).  The reference's fault-injection retries
+(``tile_retries``) come with the service layer (ROADMAP.md §1 item 7).
 """
 from __future__ import annotations
 
@@ -43,7 +45,18 @@ SqDistsFn = Callable[[torch.Tensor, torch.Tensor], torch.Tensor]
 
 @dataclasses.dataclass
 class TileStats:
-    """Accounting for one streamed build (benchmarks assert against this)."""
+    """Accounting for one streamed build (benchmarks assert against this).
+
+    For sharded builds (``repro_torch.scale.shard``) the per-tile fields
+    describe *one device*: ``peak_tile_bytes`` is the largest tile resident
+    on any single device, ``gather_bytes`` the per-round transfer to the
+    host, and ``shard_peak_harvest_bytes`` the largest per-device COO
+    fragment set held before the host merge.  ``n_shards == 1`` for serial
+    builds.  The port's device rounds bring back each tile's candidate
+    index lists, not the reference's stacked f32 round, so its
+    ``gather_bytes`` (and ``candidate_pairs``) differ from the
+    reference's by design.
+    """
 
     n: int = 0
     n_e: int = 0
@@ -56,12 +69,36 @@ class TileStats:
     harvest_bytes: int = 0        # final sorted COO triplet arrays
     merge_peak_bytes: int = 0     # worst transient during concat + lexsort
     base_memory_bytes: int = 0    # paper (3n + 12 n_e) * 4 for the result
+    n_shards: int = 1             # devices/shards the tile grid was split over
+    mesh_axis: str = ""           # mesh axis name for device-sharded builds
+    gather_bytes: int = 0         # sharded: per-round transfer to the host
+    shard_peak_harvest_bytes: int = 0   # largest per-shard fragment set
 
     def peak_extra_bytes(self) -> int:
         """Peak transient memory of the build: one tile + the merge worst case
         (chunks + concat copy, then sort index + permuted copies)."""
         return self.peak_tile_bytes + max(self.merge_peak_bytes,
                                           self.harvest_bytes)
+
+    def per_device_base_bytes(self) -> int:
+        """Per-device share of the paper's ``(3n + 12 n_e) * 4`` account.
+
+        The ``3n`` vertex arrays are duplicated on every device; the
+        ``12 n_e`` edge arrays split ~evenly across shards (ceiling share).
+        """
+        shards = max(1, self.n_shards)
+        ne_share = -(-self.n_e // shards)
+        return (3 * self.n + 12 * ne_share) * 4
+
+    def per_device_peak_bytes(self) -> int:
+        """Peak per-device transient of a sharded harvest: the resident tile
+        scratch plus the round gather plus this device's un-merged COO
+        fragments.  ``scale.budget.tile_transient_bytes`` a-priori bounds
+        the first two terms only (``peak_tile_bytes + gather_bytes``); the
+        fragment term rides the edge share of the
+        :meth:`per_device_base_bytes` account instead."""
+        return (self.peak_tile_bytes + self.gather_bytes
+                + self.shard_peak_harvest_bytes)
 
 
 def _resolve_backend(backend: str, device: torch.device) -> str:
@@ -182,6 +219,45 @@ def _f32_threshold(points: np.ndarray, sq: np.ndarray,
         if np.isfinite(tau_max) else np.float32(np.inf)
 
 
+def _f32_dists_threshold(tau_max: float) -> np.float32:
+    """Conservative f32 candidate threshold for a precomputed *length*
+    matrix: casting a length to f32 perturbs it by at most eps32/2
+    relative, so a 4-eps margin can only add candidates (each re-measured
+    against the exact f64 entry), never drop a true edge."""
+    if not np.isfinite(tau_max):
+        return np.float32(np.inf)
+    eps32 = float(np.finfo(np.float32).eps)
+    return np.float32(tau_max + 4.0 * eps32 * max(tau_max, 1.0))
+
+
+def _refine_f32_dists_tile(cand: np.ndarray, dists: np.ndarray,
+                           si: int, ei: int, sj: int, ej: int,
+                           tau_max: float, stats: Optional[TileStats]
+                           ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Exact f64 re-measure of one device-filtered dists tile.
+
+    ``cand`` is the tile's f32 candidate mask (already cropped to the real
+    ``(ei - si, ej - sj)`` extent) computed on device against
+    :func:`_f32_dists_threshold`; the exact lengths come straight from the
+    f64 matrix, so the output is bit-identical to the host dists tile for
+    any device count.
+    """
+    upper = _upper_mask(si, ei, sj, ej)
+    if upper is not None:
+        cand = cand & upper
+    if stats is not None:
+        stats.peak_tile_bytes = max(
+            stats.peak_tile_bytes,
+            2 * cand.nbytes + (0 if upper is None else upper.nbytes))
+    ri, rj = np.nonzero(cand)
+    iu, ju = si + ri, sj + rj
+    lens = np.asarray(dists[iu, ju], dtype=np.float64)
+    if stats is not None:
+        stats.candidate_pairs += int(iu.size)
+    keep = lens <= tau_max
+    return iu[keep], ju[keep], lens[keep]
+
+
 def iter_tile_edges(
     points: Optional[np.ndarray] = None,
     dists: Optional[np.ndarray] = None,
@@ -191,12 +267,16 @@ def iter_tile_edges(
     backend: str = "auto",
     device: DeviceLike = None,
     stats: Optional[TileStats] = None,
+    tiles: Optional[list] = None,
     sq_dists: Optional[SqDistsFn] = None,
 ) -> Iterator[Tuple[np.ndarray, np.ndarray, np.ndarray]]:
     """Yield COO edge chunks ``(iu, ju, lens)`` per tile, ``i < j`` only.
 
-    Tiles stream serially in :func:`tile_grid` order.  Chunks are disjoint
-    and their union is exactly the dense path's thresholded upper triangle.
+    Tiles stream serially in :func:`tile_grid` order — or in the explicit
+    ``tiles`` list of ``(si, sj)`` origins, which is how ``scale.shard``
+    replays one shard's partition through this exact dispatch.  Chunks are
+    disjoint and their union over a full grid is exactly the dense path's
+    thresholded upper triangle.
     ``sq_dists`` replaces the f32 tile function of the kernel backend
     (default: the ``pairwise_sq_dists`` kernel wrapper); whatever it
     proposes, the exact re-measure keeps the chunks unchanged.
@@ -227,7 +307,9 @@ def iter_tile_edges(
     if stats is not None:
         stats.n = n
 
-    for si, sj in tile_grid(n, tile_m, tile_n):
+    if tiles is None:
+        tiles = tile_grid(n, tile_m, tile_n)
+    for si, sj in tiles:
         ei, ej = min(si + tile_m, n), min(sj + tile_n, n)
         if stats is not None:
             stats.tiles_visited += 1

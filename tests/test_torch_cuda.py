@@ -25,6 +25,7 @@ from repro_torch.kernels.flash_attention import (flash_attention,
                                                  flash_attention_plain)
 from repro_torch.kernels.pairwise_dist import (pairwise_sq_dists,
                                                pairwise_sq_dists_plain)
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.models.transformer import forward, init_params
 
 pytestmark = pytest.mark.cuda
@@ -388,6 +389,71 @@ def test_compute_ph_dist_default_device_is_the_card(dev):
                       device="cpu")
     for d in (0, 1, 2):
         assert np.array_equal(res.diagrams[d], host.diagrams[d]), d
+
+
+def _card_mesh(p):
+    return make_data_mesh(p, devices=["cuda:0"] * p)
+
+
+@pytest.mark.parametrize("mode", ["explicit", "implicit"])
+@pytest.mark.parametrize("p", [2, 4])
+def test_compute_ph_mesh_card_matches_loopback_and_cpu(dev, p, mode):
+    """A ``["cuda:0"] * P`` mesh: the sharded harvest launches the pairwise
+    kernel once a tile, each entry on its own stream, and the reduction's
+    exchange gathers on the card; diagrams and split counters equal the
+    loop-back on the card and the cpu x P mesh."""
+    from repro_torch.scale.tiles import tile_grid
+
+    pts = np.random.default_rng(4).normal(size=(60, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed", mode=mode,
+              backend="tiled", tile_m=16, tile_n=16, batch_size=8,
+              exchange_every=1)
+    before = pairwise_sq_dists.launches
+    card = compute_ph(mesh=_card_mesh(p), **kw)
+    assert pairwise_sq_dists.launches - before == len(tile_grid(60, 16, 16))
+    loop = compute_ph(n_shards=p, device="cuda", **kw)
+    host = compute_ph(mesh=make_data_mesh(p, devices=["cpu"] * p), **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], loop.diagrams[d]), d
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    for h in ("h1", "h2"):
+        for k in ("n_supersteps", "n_exchange_rounds", "exchange_bytes",
+                  "n_tournament_reductions", "n_reductions"):
+            key = f"{h}_{k}"
+            assert card.stats[key] == loop.stats[key] == host.stats[key], key
+    assert card.stats["h1_use_kernels"] == 1.0
+    assert card.stats["h2_n_exchange_rounds"] > 0
+
+
+@pytest.mark.parametrize("which", ["points", "dists"])
+def test_sharded_harvest_card_matches_cpu(dev, which):
+    """The device rounds on a ``["cuda:0"] * 4`` mesh, points and a dists
+    matrix: filtrations equal to the serial build on the card and to the
+    cpu x 4 mesh."""
+    from repro_torch.scale import build_filtration_sharded
+    from repro_torch.scale.tiles import build_filtration_tiled
+
+    pts = np.random.default_rng(9).normal(size=(300, 9))
+    data = dict(points=pts)
+    if which == "dists":
+        data = dict(dists=np.linalg.norm(pts[:, None] - pts[None], axis=-1))
+    kw = dict(tau_max=3.5, tile_m=64, tile_n=64, **data)
+    card, stats = build_filtration_sharded(mesh=_card_mesh(4),
+                                           return_stats=True, **kw)
+    host = build_filtration_sharded(
+        mesh=make_data_mesh(4, devices=["cpu"] * 4), **kw)
+    serial = build_filtration_tiled(device="cuda", **kw)
+    for other in (host, serial):
+        assert np.array_equal(card.edges, other.edges)
+        assert np.array_equal(card.edge_len, other.edge_len)
+    assert stats.n_shards == 4 and stats.backend == "kernel"
+    assert card.n_e > 1000
+
+
+def test_mesh_device_mismatch_raises(dev):
+    with pytest.raises(ValueError, match="device type"):
+        compute_ph(points=np.zeros((8, 2)), maxdim=1, engine="packed",
+                   mesh=_card_mesh(2), device="cpu")
 
 
 @pytest.mark.parametrize("mode", ["explicit", "implicit"])

@@ -49,6 +49,31 @@ def tie_heavy(seed, n=30):
 
 
 @pytest.mark.parametrize("seed,tau", [(0, np.inf), (1, 1.2), (2, 0.7)])
+def test_single_row_lookup_order_equal_reference(seed, tau):
+    """The one-row search of ``_lookup_order`` gives the reference's
+    answers and the port's own batched search's, on every vertex (an
+    isolated one included at tau 0.7) and on queries outside 0..n."""
+    from repro.core.coboundary import _lookup_order as ref_lookup
+    from repro_torch.core.coboundary import _lookup_order
+
+    pts = cloud(seed)
+    rf, tf = (ref_build(points=pts, tau_max=tau),
+              build_filtration(points=pts, tau_max=tau))
+    rng = np.random.default_rng(seed)
+    v = rng.integers(-2, tf.n + 3, size=(tf.n, 12)).astype(np.int64)
+    v[:, :4] = tf.nbr_vtx[:, :4]                  # hits, and pads at n
+    rows = np.arange(tf.n, dtype=np.int64)
+    batched = _lookup_order(tf, rows, v)
+    for r in range(tf.n):
+        got = _lookup_order(tf, rows[r:r + 1], v[r:r + 1])
+        assert got.dtype == np.int64 and got.shape == (1, 12)
+        np.testing.assert_array_equal(got, batched[r:r + 1])
+        np.testing.assert_array_equal(
+            got, ref_lookup(rf, rows[r:r + 1], v[r:r + 1]))
+    assert (batched >= 0).any() and (batched < 0).any()
+
+
+@pytest.mark.parametrize("seed,tau", [(0, np.inf), (1, 1.2), (2, 0.7)])
 def test_dense_filtration_equal(seed, tau):
     pts = cloud(seed)
     assert_filtrations_equal(ref_build(points=pts, tau_max=tau),

@@ -52,7 +52,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.serve.engine, repro_torch.launch.serve, "
             "repro_torch.core.serial_parallel, repro_torch.core.ref, "
             "repro_torch.scale.sparse_input, repro_torch.dist.compression, "
-            "repro_torch.resilience.faults; "
+            "repro_torch.resilience.faults, repro_torch.launch.mesh, "
+            "repro_torch.dist.sharding, repro_torch.scale.shard, "
+            "repro_torch.scale.budget, repro_torch.serve; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -144,12 +144,30 @@ def test_default_device_needs_a_card():
         compute_ph(points=cloud(0, n=8), maxdim=1)
 
 
-@pytest.mark.parametrize("kw", [dict(mesh=object(), backend="tiled"),
-                                dict(mesh=object(), engine="packed"),
-                                dict(sanitize=True)])
-def test_unported_options_refused(kw):
+def test_unported_options_refused():
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_ph(points=cloud(0, n=8), maxdim=1, device="cpu", **kw)
+        compute_ph(points=cloud(0, n=8), maxdim=1, device="cpu",
+                   sanitize=True)
+
+
+@pytest.mark.parametrize("kw", [dict(backend="tiled"),
+                                dict(engine="packed")])
+def test_mesh_options(kw):
+    """The options that waited for the port's mesh: a foreign mesh object
+    raises ``TypeError``, a cpu x 3 data mesh runs and gives the
+    reference's diagrams (and, with the tiled backend, its filtration)."""
+    from repro_torch.launch.mesh import make_data_mesh
+
+    pts = cloud(0, n=14)
+    with pytest.raises(TypeError):
+        compute_ph(points=pts, maxdim=2, device="cpu", mesh=object(), **kw)
+    mesh = make_data_mesh(3, devices=["cpu"] * 3)
+    mine = compute_ph(points=pts, maxdim=2, mesh=mesh, tile_m=5, tile_n=5,
+                      batch_size=4, **kw)
+    ref_kw = dict(kw, n_shards=3) if kw.get("engine") == "packed" else kw
+    ref = ref_compute_ph(points=pts, maxdim=2, tile_m=5, tile_n=5,
+                         batch_size=4, **ref_kw)
+    assert_same_diagrams(ref, mine)
 
 
 @pytest.mark.parametrize("backend", ["dense", "tiled"])

@@ -54,6 +54,26 @@ def test_configs_equal_reference():
             assert t.pdtype == getattr(torch, str(j.pdtype))
 
 
+SERVE_EXPORTS = ("ServeEngine", "Request", "extend_cache",
+                 "make_prefill_step", "make_decode_step", "sample_greedy")
+
+
+@pytest.mark.parametrize("name", SERVE_EXPORTS)
+def test_serve_package_exports(name):
+    """``repro_torch.serve`` re-exports the ported names of
+    ``repro.serve``; ``sample_temperature`` (item 10) and the PH-service
+    names (item 7) stay absent until they are ported."""
+    import repro.serve
+    import repro_torch.serve
+
+    assert hasattr(repro.serve, name)
+    got = getattr(repro_torch.serve, name)
+    assert got.__module__.startswith("repro_torch.serve.")
+    assert name in repro_torch.serve.__all__
+    for absent in ("sample_temperature", "PHServeEngine"):
+        assert not hasattr(repro_torch.serve, absent)
+
+
 def test_get_config_loads_the_ports_modules():
     cfg = get_config("qwen3-0.6b")
     assert type(cfg).__module__ == "repro_torch.models.config"

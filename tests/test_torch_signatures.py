@@ -1,9 +1,9 @@
 """The port's entry points take the reference's parameters in the
 reference's order, with only a trailing ``device`` added where they run
 on the card and nothing added where they run on the host only, raise the
-reference's ``ValueError`` where it does, and refuse each value they
-cannot take yet with ``NotImplementedError`` naming its ROADMAP.md
-item."""
+reference's ``ValueError`` where it does, take the port's own mesh and
+nothing else for ``mesh=``, and refuse each value they cannot take yet
+with ``NotImplementedError`` naming its ROADMAP.md item."""
 import inspect
 
 import numpy as np
@@ -24,6 +24,7 @@ from repro_torch.core.homology import make_h1_adapter
 from repro_torch.core.packed_reduce import reduce_dimension_packed
 from repro_torch.core.reduction import reduce_dimension
 from repro_torch.core.serial_parallel import reduce_dimension_batched
+from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.scale import build_filtration_coo
 
 
@@ -64,15 +65,64 @@ def _cloud():
     return np.random.default_rng(5).normal(size=(14, 3))
 
 
+def _cpu_mesh(p):
+    return make_data_mesh(p, devices=["cpu"] * p)
+
+
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object(), engine="packed"), r"§1 item 5$"),
-    (dict(mesh=object(), backend="tiled"), r"§1 item 5$"),
-    (dict(mesh=object(), engine="packed", n_shards=2), r"§1 item 5$"),
     (dict(sanitize=True), r"§1 item 7$"),
+    (dict(sanitize=True, engine="packed", mesh=_cpu_mesh(2)), r"§1 item 7$"),
 ])
 def test_compute_ph_refusals_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+
+
+@pytest.mark.parametrize("value", ["1", "yes"])
+def test_repro_sanitize_env_is_refused(monkeypatch, value):
+    """``sanitize=None`` reads ``REPRO_SANITIZE`` as the reference does; the
+    variable arming the sanitizer is refused as ``sanitize=True`` is."""
+    monkeypatch.setenv("REPRO_SANITIZE", value)
+    with pytest.raises(NotImplementedError, match=r"§1 item 7$"):
+        compute_ph(points=_cloud(), maxdim=1, device="cpu")
+
+
+@pytest.mark.parametrize("value,sanitize", [("1", False), ("0", None),
+                                            ("", None)])
+def test_repro_sanitize_env_off_runs(monkeypatch, value, sanitize):
+    """``sanitize=False`` with the variable set, or the variable at "0" or
+    empty, runs normally: the reference's diagrams."""
+    monkeypatch.setenv("REPRO_SANITIZE", value)
+    kw = dict(points=_cloud(), maxdim=1, engine="packed")
+    mine = compute_ph(device="cpu", sanitize=sanitize, **kw)
+    ref = ref_compute_ph(sanitize=False, **kw)
+    for d in (0, 1):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+    assert "sanitize_checks" not in mine.stats
+
+
+@pytest.mark.parametrize("case", ["packed", "tiled", "mismatch"])
+def test_compute_ph_mesh_cases(case):
+    """``mesh=`` in ``compute_ph``: a foreign mesh object (a jax mesh, or
+    anything but the port's ``Mesh``) raises ``TypeError``; a real mesh
+    runs the sharded harvest with the reference's diagrams; an
+    ``n_shards`` that disagrees with the mesh raises the reference's
+    ``ValueError``."""
+    kw = dict(points=_cloud(), maxdim=1, device="cpu")
+    if case == "packed":
+        with pytest.raises(TypeError, match="Mesh"):
+            compute_ph(mesh=object(), engine="packed", **kw)
+    elif case == "tiled":
+        mine = compute_ph(mesh=_cpu_mesh(2), backend="tiled", tile_m=4,
+                          tile_n=4, **kw)
+        ref = ref_compute_ph(points=_cloud(), maxdim=1)
+        for d in (0, 1):
+            assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+        assert mine.stats["n_shards"] == 2
+    else:
+        with pytest.raises(ValueError, match="n_shards=2 disagrees with "
+                           "the mesh's data-axis size 3"):
+            compute_ph(mesh=_cpu_mesh(3), engine="packed", n_shards=2, **kw)
 
 
 @pytest.mark.parametrize("kw", [dict(n_shards=2),
@@ -94,6 +144,9 @@ def test_compute_ph_takes_n_shards_and_exchange_every(kw):
     (dict(n_shards=2, engine="batch"), "engine='packed'"),
     (dict(n_shards=2, engine="single"), "engine='packed'"),
     (dict(exchange_every=0, engine="packed"), "exchange_every"),
+    (dict(mesh=object()), "mesh sharding requires backend='tiled'"),
+    (dict(mesh=object(), engine="batch", backend="tiled",
+          filtration=object()), "mesh sharding requires"),
 ])
 def test_compute_ph_value_errors_match_reference(kw, match):
     for fn in (ref_compute_ph, lambda **k: compute_ph(device="cpu", **k)):
@@ -125,8 +178,6 @@ def _h1(build, h0, adapter):
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(mesh=object()), r"§1 item 5$"),
-    (dict(mesh=object(), n_shards=4), r"§1 item 5$"),
     (dict(seed_gens={}), r"§1 item 7$"),
     (dict(commit_sink=[]), r"§1 item 7$"),
     (dict(essential_log=[]), r"§1 item 7$"),
@@ -137,6 +188,33 @@ def test_reduce_dimension_packed_refusals_name_their_item(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         reduce_dimension_packed(adapter, cols, cleared=cleared,
                                 device="cpu", **kw)
+
+
+@pytest.mark.parametrize("case", ["foreign", "mismatch", "runs"])
+def test_reduce_dimension_packed_mesh_cases(case):
+    """``mesh=`` in ``reduce_dimension_packed``: a foreign object raises
+    ``TypeError``, an ``n_shards`` that disagrees with the mesh the
+    reference's ``ValueError``, and a real mesh runs the loop-back's
+    split."""
+    adapter, cols, cleared = _h1(build_filtration, compute_h0,
+                                 make_h1_adapter)
+    kw = dict(cleared=cleared, batch_size=8)
+    if case == "foreign":
+        with pytest.raises(TypeError, match="Mesh"):
+            reduce_dimension_packed(adapter, cols, mesh=object(), **kw)
+    elif case == "mismatch":
+        with pytest.raises(ValueError, match="n_shards=4 disagrees"):
+            reduce_dimension_packed(adapter, cols, mesh=_cpu_mesh(2),
+                                    n_shards=4, **kw)
+    else:
+        mine = reduce_dimension_packed(adapter, cols, mesh=_cpu_mesh(2),
+                                       **kw)
+        loop = reduce_dimension_packed(adapter, cols, n_shards=2,
+                                       device="cpu", **kw)
+        assert np.array_equal(loop.diagram(), mine.diagram())
+        for k in ("n_shards", "n_supersteps", "n_exchange_rounds",
+                  "exchange_bytes", "n_tournament_reductions"):
+            assert mine.stats[k] == loop.stats[k], k
 
 
 @pytest.mark.parametrize("kw", [dict(n_shards=2), dict(n_shards=4,
