@@ -103,11 +103,34 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    One line each: wall and phase split, the split counters, ``sim_*``,
    idle share, launches and the most hit rows one round handed the
    kernels.
-10. ``dist_check`` — ``cross_check``'s clouds through the distributed
-   reduction on the card, each result equal to that cloud's P = 1 card
-   diagrams: torus4 at P in {2, 4} x ``exchange_every`` in {1, 8},
-   explicit; o3 (maxdim 2) at P = 3, implicit, ``exchange_every=4``.
-11. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+10. ``dist_check`` — ``cross_check``'s o3 cloud (maxdim 2) through the
+   distributed reduction on the card at P = 3, implicit,
+   ``exchange_every=4``, equal to its P = 1 card diagrams.  (Its torus4
+   runs at P 2 and 4 left to make room for ``serve_ph``: ``dist_path``
+   runs that cloud at P = 4 over both transports, and the card test
+   ``test_compute_ph_dist_card_matches_cpu`` holds P in {2, 4} x cadence.)
+11. ``serve_ph`` — the PH service, ``repro_torch.serve.PHServeEngine``
+   (packed engine, a 4 MiB admission account, 256 MiB of tenant cache, 8
+   clouds a batch) on the card, in the shape of the reference launcher's
+   ``run_ph`` traffic, under ``torch.profiler`` with the counts set to 0
+   just before it: a cold wave of 8 clouds of 1,500 points
+   (``rng.normal``, seed 0) at the 0.5 % quantile of pair lengths
+   (``sample_pair_lengths``, seed 0), served as one union batch; an
+   update wave of 8 requests alternating tau growth to 1.5x and the
+   arrival of 64 points, each on its own cached cloud and served warm;
+   one request at 3x tau that admission clamps to the account and serves
+   warm at the granted tau.  Every request at maxdim 1 (the service's
+   default 2, cut for time).  Every response's path must be the planned
+   one; the 9 warm responses and 2 of the cold wave must equal (H0, H1) a
+   cold ``compute_ph`` on the card at the granted tau; ``gf2_find_low``
+   and ``gf2_scatter_xor`` must launch.  A checkpoint saved and reloaded
+   keeps its ``content_hash``; under a ``resume.load`` bit flip the
+   reload raises ``CheckpointCorruption`` and a cold reduction through
+   the engine's reducer gives the cached diagrams.  It prints the walls
+   of both waves and the clamped request, requests/s, the cache-hit
+   ratio, each ``serve_ph_*`` counter, p50 and p95 latency, each
+   kernel's launches and the card's idle share.
+12. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
     at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
     tau 0.6, maxdim 2), on the card, one call after another: each condition
     through the batch engine and the packed engine on the tiled harvest, and
@@ -118,7 +141,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     features with persistence above 0.02, 0.05 and 0.08, auxin against
     control); H1 at 0.05 and 0.08 must fall under auxin, as
     ``fig21_hic.py`` gates it.
-12. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
+13. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
     (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
     its loci and a quarter of its budget, ``hic_pair(25_000, 200,
     seed=1)`` at 32 MiB, one ``tau_max`` for both conditions (the smaller
@@ -151,8 +174,8 @@ head expansion and layout copies around the kernel (``_flash_prefill``)
 are timed beside it.
 
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
-launches on the main path, the Hi-C path, ``dist_path``'s loop-back and
-``mesh_path``) and, last, ``{"ok": true, "device": ...}``.  Any failed
+launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
+``mesh_path`` and ``serve_ph``) and, last, ``{"ok": true, "device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
 and without ``src/repro_torch`` beside it (the script copied alone) it
 exits 1, printing no result either way.  It imports nothing of the JAX
@@ -1476,19 +1499,18 @@ def dist_path(dev, cards: dict) -> dict:
 
 
 def dist_check(dev, cards: dict) -> None:
-    """``cross_check``'s clouds through the distributed reduction on the
-    card, each result ``np.array_equal`` to that cloud's P = 1 card
-    diagrams: torus4 at P in {2, 4} x ``exchange_every`` in {1, 8},
-    explicit; o3 (maxdim 2, where the exchanges of the reference's tests
-    happen) at P = 3, implicit, ``exchange_every=4``."""
+    """``cross_check``'s o3 cloud (maxdim 2, where the exchanges of the
+    reference's tests happen) through the distributed reduction on the
+    card at P = 3, implicit, ``exchange_every=4``, ``np.array_equal`` to
+    its P = 1 card diagrams.  The torus4 cloud at P 2 and 4 is held by
+    ``dist_path`` (P = 4 over both transports) and by the card tests
+    (``test_compute_ph_dist_card_matches_cpu``: P in {2, 4} x cadence)."""
     from repro_torch import compute_ph
 
-    runs = {"torus4": [dict(n_shards=p, exchange_every=e, mode="explicit")
-                       for p in (2, 4) for e in (1, 8)],
-            "o3": [dict(n_shards=3, exchange_every=4, mode="implicit")]}
+    runs = {"o3": [dict(n_shards=3, exchange_every=4, mode="implicit")]}
     for name, points, tau, maxdim in check_cases():
         one = cards[name]
-        for kw in runs[name]:
+        for kw in runs.get(name, ()):
             counters = reset_counters()
             res, wall = timed(lambda: compute_ph(
                 points=points, tau_max=tau, maxdim=maxdim, backend="tiled",
@@ -1508,7 +1530,174 @@ def dist_check(dev, cards: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phases 10 and 11: the Hi-C pair (paper §6, Fig. 21)
+# phase 11: the PH service (PHServeEngine over warm resume)
+# ---------------------------------------------------------------------------
+
+# The reference launcher's run_ph traffic at a size a service holds on the
+# card: 8 clouds of 1,500 points (about 5,700 edges each at the 0.5 %
+# quantile of pair lengths), a 4 MiB admission account, 256 MiB of tenant
+# cache, the packed engine; maxdim 1, cut from the service's default 2.
+# At the 1 % quantile (about 11,000 edges a cloud) the phase took 64.1 s
+# on an H100, more than the 60 s it may take of the run; at 0.5 %, 37.3 s.
+SERVE_PH_N, SERVE_PH_CLOUDS, SERVE_PH_Q = 1500, 8, 0.005
+SERVE_PH_BUDGET, SERVE_PH_STORE = 4 << 20, 256 << 20
+SERVE_PH_ARRIVALS = 64
+
+
+def serve_ph_traffic(rng, clouds, tau: float):
+    """The update wave: 8 requests, even uids grow tau to 1.5x on one
+    cached cloud, odd uids bring 64 new points to another; then one
+    request at 3x tau on the first, which admission clamps.  Returns
+    (uid, dataset, points, tau, expected path) rows."""
+    rows = []
+    for k in range(SERVE_PH_CLOUDS):
+        uid = SERVE_PH_CLOUDS + k
+        if k % 2 == 0:
+            rows.append((uid, f"ds{k}", clouds[k], 1.5 * tau, "warm_tau"))
+        else:
+            grown = np.concatenate(
+                [clouds[k], rng.normal(size=(SERVE_PH_ARRIVALS, 3))], axis=0)
+            rows.append((uid, f"ds{k}", grown, tau, "warm_points"))
+    rows.append((2 * SERVE_PH_CLOUDS, "ds0", clouds[0], 3.0 * tau,
+                 "warm_tau"))
+    return rows
+
+
+def serve_ph(dev) -> dict:
+    """``PHServeEngine(engine="packed", device=dev)`` under the profiler,
+    the counts set to 0 just before it: a cold wave of 8 clouds served as
+    one union batch, an update wave of 8 warm requests (tau growth, point
+    arrival) and one request at 3x tau that admission clamps to the 4 MiB
+    account and serves warm.  Gates: every path as planned; 9 warm and 2
+    cold responses equal (H0, H1) to a cold ``compute_ph`` on the card at
+    the granted tau; find-low and scatter-XOR launched; a checkpoint saved
+    and reloaded keeps its hash, and under a ``resume.load`` bit flip the
+    reload raises ``CheckpointCorruption`` and a cold reduction through
+    the engine's reducer gives the cached diagrams."""
+    import tempfile
+
+    from repro_torch import compute_ph
+    from repro_torch.core.resume import (ReductionCheckpoint,
+                                         canonical_diagram, cold_reduce)
+    from repro_torch.resilience.faults import (CheckpointCorruption,
+                                               FaultPlan, FaultSpec, inject)
+    from repro_torch.scale.budget import sample_pair_lengths
+    from repro_torch.serve.ph import PHRequest, PHServeEngine
+
+    rng = np.random.default_rng(0)
+    clouds = [rng.normal(size=(SERVE_PH_N, 3))
+              for _ in range(SERVE_PH_CLOUDS)]
+    tau = float(np.quantile(sample_pair_lengths(clouds[0], seed=0),
+                            SERVE_PH_Q))
+    updates = serve_ph_traffic(rng, clouds, tau)
+    engine = PHServeEngine(engine="packed",
+                           memory_budget_bytes=SERVE_PH_BUDGET,
+                           store_budget_bytes=SERVE_PH_STORE,
+                           max_batch_clouds=SERVE_PH_CLOUDS, seed=0,
+                           device=dev)
+    counters = reset_counters()
+
+    def run():
+        walls = {}
+        for k, p in enumerate(clouds):
+            engine.submit(PHRequest(uid=k, points=p, tau_max=tau,
+                                    dataset=f"ds{k}", maxdim=1))
+        _, walls["cold_wave_s"] = timed(engine.run)
+        for uid, ds, p, t, _ in updates[:-1]:
+            engine.submit(PHRequest(uid=uid, points=p, tau_max=t,
+                                    dataset=ds, maxdim=1))
+        _, walls["update_wave_s"] = timed(engine.run)
+        uid, ds, p, t, _ = updates[-1]
+        engine.submit(PHRequest(uid=uid, points=p, tau_max=t, dataset=ds,
+                                maxdim=1))
+        _, walls["clamped_s"] = timed(engine.run)
+        return walls
+
+    walls, evs = profiled(run)
+    launches = {k: counters[k].launches for k in PH_KERNELS}
+    wall = sum(walls.values())
+    done = engine.done
+    plan = [(k, f"ds{k}", clouds[k], tau, "batched")
+            for k in range(SERVE_PH_CLOUDS)] + updates
+    for uid, _, _, _, path in plan:
+        r = done[uid]
+        if not r.admitted or r.path != path or r.degraded:
+            raise AssertionError(f"serve_ph: request {uid} took {r.path} "
+                                 f"(admitted {r.admitted}), planned {path}")
+    clamped = done[updates[-1][0]]
+    if not (clamped.granted_tau < 3.0 * tau
+            and "clamped" in clamped.admission.reason):
+        raise AssertionError("serve_ph: the 3x tau request was not clamped "
+                             "to the account")
+    for k in ("gf2_find_low", "gf2_scatter_xor"):
+        if launches[k] <= 0:
+            raise AssertionError(f"serve_ph: the service never launched {k}")
+    # every warm response and two of the cold wave against a cold run
+    checked = []
+    for uid, _, points, _, _ in plan[:2] + updates:
+        r = done[uid]
+        res, cold_s = timed(lambda: compute_ph(
+            points=points, tau_max=r.granted_tau, maxdim=1, engine="packed",
+            device=dev))
+        for d in (0, 1):
+            if not np.array_equal(r.diagrams[d],
+                                  canonical_diagram(res.diagrams[d])):
+                raise AssertionError(f"serve_ph: request {uid} ({r.path}) "
+                                     f"H{d} differs from a cold compute_ph")
+        checked.append(dict(uid=uid, path=r.path, n=len(points),
+                            granted_tau=r.granted_tau,
+                            n_e=int(res.stats["n_e"]), cold_s=cold_s,
+                            served_s=r.latency_s))
+    # a checkpoint through disk, clean and under a bit flip
+    entry = engine._cache[("default", "ds1")]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "ds1.npz")
+        digest = entry.checkpoint.save(path)
+        if ReductionCheckpoint.load(path).content_hash() != digest \
+                or digest != entry.checkpoint.content_hash():
+            raise AssertionError("serve_ph: a reloaded checkpoint changed "
+                                 "its content hash")
+        nbytes = os.path.getsize(path)
+        with inject(FaultPlan.of(FaultSpec("resume.load", "bitflip"))) \
+                as inj:
+            try:
+                ReductionCheckpoint.load(path)
+            except CheckpointCorruption:
+                (fallback, _), fallback_s = timed(lambda: cold_reduce(
+                    entry.filtration, maxdim=1, reducer=engine._reducer))
+            else:
+                raise AssertionError("serve_ph: a bit-flipped checkpoint "
+                                     "loaded")
+        if inj.n_fired("resume.load", "bitflip") != 1:
+            raise AssertionError("serve_ph: the bit flip did not fire once")
+    for d in (0, 1):
+        if not np.array_equal(canonical_diagram(fallback[d]),
+                              entry.diagrams[d]):
+            raise AssertionError(f"serve_ph: the cold fallback's H{d} "
+                                 "differs from the cached diagrams")
+    stats = engine.stats()
+    lat = np.array([done[u].latency_s for u in sorted(done)])
+    out = dict(
+        n=SERVE_PH_N, clouds=SERVE_PH_CLOUDS, quantile=SERVE_PH_Q,
+        tau_max=tau, granted_clamped_tau=clamped.granted_tau,
+        n_e_clamped=checked[-1]["n_e"], budget_bytes=SERVE_PH_BUDGET,
+        store_budget_bytes=SERVE_PH_STORE, maxdim=1, **walls,
+        requests=len(done), requests_per_s=len(done) / wall,
+        cache_hit_ratio=stats["serve_ph_n_cache_hits"]
+        / stats["serve_ph_n_requests"],
+        latency_p50_s=float(np.percentile(lat, 50)),
+        latency_p95_s=float(np.percentile(lat, 95)),
+        serve_ph={k: v for k, v in stats.items()
+                  if k.startswith("serve_ph_")},
+        launches=launches, **path_profile(evs, wall), checked=checked,
+        checkpoint_bytes=nbytes, checkpoint_hash=digest,
+        bitflip_fallback_s=fallback_s, all_equal_cold=True)
+    emit("serve_ph", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phases 12 and 13: the Hi-C pair (paper §6, Fig. 21)
 # ---------------------------------------------------------------------------
 
 # benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
@@ -2079,6 +2268,7 @@ def main() -> int:
     dist = dist_path(dev, cards)
     dist_check(dev, cards)
     del cards
+    sph = serve_ph(dev)
     hic_suite(dev)
     hic = hic_path(dev)
     launches = dict(path["launches"],
@@ -2119,6 +2309,7 @@ def main() -> int:
                           for c in ("control", "auxin")},
             dist_launches=dist["launches"].get(kname),
             mesh_launches=meshed["launches"].get(kname),
+            serve_ph_launches=sph["launches"].get(kname),
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -11,9 +11,10 @@ adds the addends' coordinates into them and ``gf2_find_low`` reads each
 segment's window of the result, and rows and lows come back in one copy.
 The serial pre-pass keeps the reference's round trip per call.  With a
 mesh (:mod:`repro_torch.launch.mesh`) the pivot exchange gathers the
-stacked payloads over the mesh's data axis (``_make_exchange``); the shard
-supervisor, the sanitizer and the fault hooks (ROADMAP.md §1 item 7) stay
-in the reference until the port takes them over.
+stacked payloads over the mesh's data axis (``_make_exchange``).  The
+warm-restart hooks are the reference's; the shard supervisor, the
+sanitizer and the superstep and wire fault sites (ROADMAP.md §1 item 7)
+stay in the reference until the port takes them over.
 
 The engine keeps the paper's batch structure — parallel phase against the
 committed pivots, serial phase for intra-batch collisions, clearance
@@ -99,7 +100,7 @@ from .pivot_cache import (PackedPivotCache, decode_commit_delta,
                           encode_commit_delta)
 from .reduction import (DimensionAdapter, PivotStore, ReductionResult,
                         clearance_commit, clearing_filter, finalize_result,
-                        merge_cancel, refuse_resume_hooks)
+                        merge_cancel, seed_column)
 
 _MAX_SEGMENTS = 12   # host path consolidates past this many segments
 _EVICT_MAX = 8       # per slice: rounds needing new keys for fewer rows
@@ -800,9 +801,12 @@ def reduce_dimension_packed(
     type.  The split, the counters and the diagrams are those of the
     loop-back at the same P.
 
-    Not in this port yet, refused with ``NotImplementedError``:
-    ``seed_gens``, ``commit_sink`` and ``essential_log`` (the resume hooks,
-    ROADMAP.md §1 item 7).
+    ``seed_gens`` / ``commit_sink`` / ``essential_log`` carry the same
+    warm-restart + capture contract as ``reduce_dimension``
+    (:mod:`repro_torch.core.resume`): a seeded row starts from its
+    recorded residual with its gens parity pre-loaded, on the numpy path
+    and the kernel path alike (the residual's keys enter the block's first
+    segment), and every commit reaches ``commit_sink`` at any P.
 
     Every timed region is a span on a local, always-on tracer (it forwards
     into the user's tracer when ``compute_ph(trace=...)`` activated one),
@@ -820,8 +824,6 @@ def reduce_dimension_packed(
     P = _resolve_reduce_shards(mesh, n_shards)
     if exchange_every < 1:
         raise ValueError("exchange_every must be >= 1")
-    refuse_resume_hooks(seed_gens=seed_gens, commit_sink=commit_sink,
-                        essential_log=essential_log)
     if mesh is not None:
         from ..launch.mesh import mesh_device
         device = mesh_device(mesh, device)
@@ -832,9 +834,10 @@ def reduce_dimension_packed(
     use_kernels = _resolve_use_kernels(use_kernels, dev)
     if cache is None:
         cache = PackedPivotCache()
+    # P == 1 appends commits straight into the caller's sink (if any);
     # P > 1 owns a scratch log that is drained into per-shard wire backlogs
-    # every slice
-    commit_log: Optional[list] = [] if P > 1 else None
+    # every slice — the sink then receives copies of each drained record
+    commit_log: Optional[list] = [] if P > 1 else commit_sink
     store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes,
                        cache=cache, commit_log=commit_log)
     if P > 1:
@@ -913,6 +916,29 @@ def reduce_dimension_packed(
         t_seq = 0.0
         with tl.span("reduce/fused", step=step, weights=wt) as sp:
             cob = adapter.cobdy(ids_arr)
+            if seed_gens:
+                # warm restart: seeded rows start from their recorded
+                # residual (a valid left-to-right partial reduction state)
+                # with gens parity pre-loaded — pad the row width when a
+                # residual outgrows one coboundary row
+                residuals: Dict[int, np.ndarray] = {}
+                for i in range(B):
+                    seed = seed_gens.get(ids_int[i])
+                    if seed is not None and len(seed):
+                        residuals[i] = seed_column(adapter, ids_int[i], seed)
+                        gens[i] = {int(g): 1 for g in seed}
+                if residuals:
+                    width = max(cob.shape[1],
+                                max(r.size for r in residuals.values()))
+                    if width > cob.shape[1]:
+                        pad = np.full((B, width - cob.shape[1]), EMPTY_KEY,
+                                      dtype=np.int64)
+                        cob = np.concatenate([cob, pad], axis=1)
+                    else:
+                        cob = cob.copy()
+                    for i, r in residuals.items():
+                        cob[i, :] = EMPTY_KEY
+                        cob[i, :r.size] = r
             # seed the bit-space with the first round of addends so the
             # common case packs exactly once; the concurrent phase probes
             # the replica (P > 1) — complete up to the last exchange
@@ -1054,14 +1080,18 @@ def reduce_dimension_packed(
                     gens[s0:s1],
                     lambda rr, rows=rows: batchblk.unpack(
                         rows[np.asarray(rr, dtype=np.int64)]),
-                    pairs, essentials, essential_ids=essential_ids)
+                    pairs, essentials, essential_ids=essential_ids,
+                    essential_log=essential_log)
                 if P > 1 and len(commit_log) > log_mark:
                     # drain this slice's commits straight into its shard's
                     # wire backlog; their lows are pending until the next
                     # exchange.  With gens untracked (explicit, no budget)
                     # neither side of the wire ever reads a δ-expansion —
-                    # don't ship them
+                    # don't ship them.  The caller's sink gets record
+                    # copies *before* the gens strip mutates them.
                     fresh = commit_log[log_mark:]
+                    if commit_sink is not None:
+                        commit_sink.extend(dict(r) for r in fresh)
                     if not store.track_gens:
                         for r in fresh:
                             r["gens"] = None

@@ -3,10 +3,10 @@
 Port of ``src/repro/core/reduction.py`` (host numpy, unchanged semantics).
 :class:`PivotStore` takes the reference's ``commit_log`` and ``install``,
 which the distributed packed reduction uses for its wire backlogs and pivot
-replicas.  The engines take the reference's warm-restart arguments
-(``seed_gens``, ``commit_log``, ``essential_log``) in its order but refuse
-them, and the sanitizer hooks and ``seed_column`` stay in the reference,
-until the port takes over the service layer (ROADMAP.md §1 item 7).
+replicas.  The engines take the reference's warm-restart hooks
+(``seed_gens``, ``commit_log``, ``essential_log``; :func:`seed_column`),
+which :mod:`repro_torch.core.resume` drives.  The sanitizer hooks stay in
+the reference (ROADMAP.md §1 item 7).
 
 Implements the paper's reduction family on packed paired-index keys:
 
@@ -425,21 +425,41 @@ def _parity_gens(gens_parity: Dict[int, int]) -> np.ndarray:
     return g
 
 
+def seed_column(adapter: DimensionAdapter, col_id: int,
+                seed: np.ndarray) -> np.ndarray:
+    """Initial residual of a warm-started column (resume support).
+
+    ``R0(col) = ⊕_{g ∈ seed ∪ {col}} δg`` — the partial reduction state a
+    prior run recorded as the column's V-expansion, re-expressed against the
+    *current* coboundary.  Every ``g`` precedes ``col`` in decreasing
+    filtration order, so handing this to an engine in place of ``δ(col)``
+    is a valid left-to-right partial reduction: completing it greedily
+    yields the canonical pairing, bit-identical to a cold run.
+    """
+    seed = np.asarray(seed, dtype=np.int64)
+    gens = np.concatenate([seed, np.array([col_id], dtype=np.int64)])
+    return parity_reduce(adapter.cobdy(gens).ravel())
+
+
 def clearance_commit(store: PivotStore, adapter: DimensionAdapter,
                      ids: np.ndarray, lows: np.ndarray,
                      gens_list, get_columns,
                      pairs: List[tuple], essentials: List[float],
-                     essential_ids: Optional[List[int]] = None) -> None:
-    """Batched clearance (§4.4 "clearance" step) of the packed engine:
-    batched value lookups, trivial-pair detection, commits in batch order.
+                     essential_ids: Optional[List[int]] = None,
+                     essential_log: Optional[list] = None) -> None:
+    """Batched clearance (§4.4 "clearance" step), shared by the batch and
+    packed engines: batched value lookups, trivial-pair detection, commits
+    in batch order.
 
     ``lows``: (B,) int64 current lows (-1 = empty column -> essential).
     ``get_columns(rows)`` materializes the R key arrays for exactly the
     rows whose explicit columns the store will hold — it is never called
     for trivial pairs (nothing stored, §4.3.5) nor for a pure implicit
     store (only gens stored).  Appends ``(birth, death, low, col_id)``
-    tuples and essential births in place; ``essential_ids`` collects the
-    essential column ids alongside.
+    tuples and essential births in place.  ``essential_ids`` collects the
+    essential column ids alongside; ``essential_log`` additionally records
+    each essential column's δ-expansion (``{"col_id", "gens"}``) so a
+    warm restart can replay it (:mod:`repro_torch.core.resume`).
     """
     ids_arr = np.asarray(ids, dtype=np.int64)
     lows = np.asarray(lows, dtype=np.int64)
@@ -450,6 +470,12 @@ def clearance_commit(store: PivotStore, adapter: DimensionAdapter,
         essentials.extend(float(b) for b in births)
         if essential_ids is not None:
             essential_ids.extend(int(ids_arr[i]) for i in empty)
+        if essential_log is not None:
+            for i in empty:
+                essential_log.append({
+                    "col_id": int(ids_arr[i]),
+                    "gens": _parity_gens(gens_list[i]),
+                })
     nonempty = [i for i in range(B) if lows[i] >= 0]
     if not nonempty:
         return
@@ -478,15 +504,6 @@ def clearance_commit(store: PivotStore, adapter: DimensionAdapter,
                       int(ne_ids[k])))
 
 
-def refuse_resume_hooks(**hooks) -> None:
-    """``NotImplementedError`` if any warm-restart hook is given: the port
-    does not take them yet (the resume layer, ROADMAP.md §1 item 7)."""
-    if any(v is not None for v in hooks.values()):
-        names = " / ".join(f"{k}=" for k in hooks)
-        raise NotImplementedError(f"{names} (warm resume) are not ported "
-                                  "yet: ROADMAP.md §1 item 7")
-
-
 def reduce_dimension(
     adapter: DimensionAdapter,
     column_ids: np.ndarray,
@@ -510,13 +527,16 @@ def reduce_dimension(
     diagram, bounded memory (see :class:`PivotStore`).  ``return_store``
     returns ``(result, store)``.
 
-    Not in this port yet, refused with ``NotImplementedError``:
-    ``seed_gens``, ``commit_log`` and ``essential_log`` (the resume hooks,
-    ROADMAP.md §1 item 7).
+    Warm restarts (:mod:`repro_torch.core.resume`): ``seed_gens`` maps
+    column ids to the δ-expansion a prior run recorded for them — a seeded
+    column starts from :func:`seed_column`'s residual with its gens parity
+    pre-loaded, so committed/logged expansions stay *full* raw-δ
+    expansions.  ``commit_log`` threads through to :class:`PivotStore`
+    (every non-trivial commit appended); ``essential_log`` records
+    ``{"col_id", "gens"}`` for every essential column.
     """
-    refuse_resume_hooks(seed_gens=seed_gens, commit_log=commit_log,
-                        essential_log=essential_log)
-    store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes)
+    store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes,
+                       commit_log=commit_log)
     pairs: List[tuple] = []
     essentials: List[float] = []
     essential_ids: List[int] = []
@@ -526,14 +546,22 @@ def reduce_dimension(
 
     for col_id in column_ids:
         col_id = int(col_id)
-        r = adapter.cobdy(np.array([col_id], dtype=np.int64))[0]
-        r = r[r != EMPTY_KEY]
-        gens_parity: Dict[int, int] = {}
+        seed = seed_gens.get(col_id) if seed_gens else None
+        if seed is not None and len(seed):
+            r = seed_column(adapter, col_id, seed)
+            gens_parity: Dict[int, int] = {int(g): 1 for g in seed}
+        else:
+            r = adapter.cobdy(np.array([col_id], dtype=np.int64))[0]
+            r = r[r != EMPTY_KEY]
+            gens_parity = {}
         while True:
             if r.size == 0:
                 essentials.append(float(
                     adapter.birth_value(np.array([col_id], dtype=np.int64))[0]))
                 essential_ids.append(col_id)
+                if essential_log is not None:
+                    essential_log.append({"col_id": col_id,
+                                          "gens": _parity_gens(gens_parity)})
                 break
             low = int(r[0])
             addend = store.lookup_addend(low, col_id)

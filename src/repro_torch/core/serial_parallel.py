@@ -2,9 +2,8 @@
 
 Port of ``src/repro/core/serial_parallel.py``.  Host numpy, as in the
 reference: this is the paper's batched engine, not a kernel path.  It
-takes the reference's parameters in its order and refuses the
-warm-restart hooks (``seed_gens``, ``commit_log``, ``essential_log``:
-ROADMAP.md §1 item 7).
+takes the reference's parameters in its order, the warm-restart hooks
+(``seed_gens``, ``commit_log``, ``essential_log``) included.
 
 Rather than reducing one column at a time, a *batch* of B columns is
 processed per round:
@@ -35,7 +34,7 @@ from ..obs.trace import span
 from .pairing import EMPTY_KEY
 from .reduction import (DimensionAdapter, PivotStore, ReductionResult,
                         clearance_commit, clearing_filter, finalize_result,
-                        merge_cancel, refuse_resume_hooks, self_owner_of,
+                        merge_cancel, seed_column, self_owner_of,
                         store_gens)
 
 
@@ -77,14 +76,13 @@ def reduce_dimension_batched(
     ``store_budget_bytes`` bounds the pivot store exactly like the single
     engine's: explicit ``R^⊥`` columns past the budget spill to implicit
     ``V^⊥`` form, largest-explicit-column-first (see :class:`PivotStore`).
-
-    Not in this port yet, refused with ``NotImplementedError``:
-    ``seed_gens``, ``commit_log`` and ``essential_log`` (the resume hooks,
-    ROADMAP.md §1 item 7).
+    ``seed_gens`` / ``commit_log`` / ``essential_log`` carry the same warm
+    restart + capture contract as :func:`~repro_torch.core.reduction
+    .reduce_dimension` (seeded columns start from their recorded residual;
+    commits and essential expansions are logged for checkpointing).
     """
-    refuse_resume_hooks(seed_gens=seed_gens, commit_log=commit_log,
-                        essential_log=essential_log)
-    store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes)
+    store = PivotStore(adapter, mode, store_budget_bytes=store_budget_bytes,
+                       commit_log=commit_log)
     pairs: List[tuple] = []
     essentials: List[float] = []
     essential_ids: List[int] = []
@@ -98,6 +96,12 @@ def reduce_dimension_batched(
         cob = adapter.cobdy(ids)
         rs: List[np.ndarray] = [row[row != EMPTY_KEY] for row in cob]
         gens: List[Dict[int, int]] = [dict() for _ in range(B)]
+        if seed_gens:
+            for i in range(B):
+                seed = seed_gens.get(int(ids[i]))
+                if seed is not None and len(seed):
+                    rs[i] = seed_column(adapter, int(ids[i]), seed)
+                    gens[i] = {int(g): 1 for g in seed}
         marked = [False] * B
         empty = [False] * B
 
@@ -149,7 +153,8 @@ def reduce_dimension_batched(
                              for i in range(B)], dtype=np.int64)
             clearance_commit(store, adapter, ids, lows, gens,
                              lambda rows: [rs[int(i)] for i in rows],
-                             pairs, essentials, essential_ids=essential_ids)
+                             pairs, essentials, essential_ids=essential_ids,
+                             essential_log=essential_log)
 
     return finalize_result(
         pairs, essentials, essential_ids,

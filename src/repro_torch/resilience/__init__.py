@@ -1,5 +1,35 @@
-"""Resilience (port of ``src/repro/resilience``): so far only the wire
-error the pivot-exchange codec raises (:mod:`.faults`)."""
-from .faults import WireCorruption
+"""Resilience (port of ``src/repro/resilience``): deterministic fault
+injection and recovery primitives (:mod:`.faults`)."""
+from .faults import (
+    SITES,
+    CheckpointCorruption,
+    FaultInjector,
+    FaultPlan,
+    FaultSpec,
+    InjectedFault,
+    TransientFault,
+    WireCorruption,
+    active_injector,
+    backoff_delays,
+    corrupt_payload,
+    flip_bit,
+    inject,
+    retry_with_backoff,
+)
 
-__all__ = ["WireCorruption"]
+__all__ = [
+    "SITES",
+    "CheckpointCorruption",
+    "FaultInjector",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedFault",
+    "TransientFault",
+    "WireCorruption",
+    "active_injector",
+    "backoff_delays",
+    "corrupt_payload",
+    "flip_bit",
+    "inject",
+    "retry_with_backoff",
+]

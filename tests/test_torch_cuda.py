@@ -472,6 +472,62 @@ def test_compute_ph_batch_engine_card_matches_cpu(dev, mode):
     assert card.diagrams[1].shape[0] > 0
 
 
+@pytest.mark.parametrize("n_shards", [None, 2])
+def test_warm_resume_card_matches_cpu_and_cold(dev, n_shards):
+    """Warm tau growth and point arrival through the packed engine on the
+    card (the PH service's warm paths): diagrams and checkpoint hash equal
+    to the same updates through the kernel path's plain versions on the
+    CPU, diagrams equal to a cold ``compute_ph`` on the card, and
+    ``gf2_find_low`` launching.  (The CPU's default numpy path may record
+    other valid δ-expansions at P = 1, as the reference's does: the same
+    diagrams, another hash.)"""
+    from repro_torch.core.filtration import build_filtration
+    from repro_torch.core import resume
+    from repro_torch.core.packed_reduce import reduce_dimension_packed
+
+    def plain_kernels(adapter, cols, cleared, seed_gens, commit_log,
+                      essential_log):
+        return reduce_dimension_packed(
+            adapter, cols, mode="implicit", cleared=cleared, batch_size=32,
+            use_kernels=True, n_shards=n_shards, seed_gens=seed_gens,
+            commit_sink=commit_log, essential_log=essential_log,
+            device="cpu")
+
+    rng = np.random.default_rng(3)
+    pts = rng.normal(size=(120, 3))
+    grown = np.concatenate([pts, rng.normal(size=(16, 3))], axis=0)
+    steps = [("cold_reduce", pts, 0.7), ("warm_tau_growth", pts, 1.0),
+             ("warm_point_arrival", grown, 1.0)]
+    results = {}
+    before = gf2.gf2_find_low.launches
+    for where in ("cuda", "cpu"):
+        ckpt, out = None, []
+        for fn, p, tau in steps:
+            args = [build_filtration(points=p, tau_max=tau)]
+            kw = dict(engine="packed", batch_size=32, n_shards=n_shards,
+                      device=where) if where == "cuda" \
+                else dict(reducer=plain_kernels)
+            if ckpt is None:
+                kw["maxdim"] = 1
+            else:
+                args.append(ckpt)
+            diagrams, ckpt = getattr(resume, fn)(*args, **kw)
+            out.append((diagrams, ckpt.content_hash()))
+        results[where] = out
+        if where == "cuda":
+            assert gf2.gf2_find_low.launches > before
+    for k, (fn, p, tau) in enumerate(steps):
+        (dc, hc), (dh, hh) = results["cuda"][k], results["cpu"][k]
+        assert hc == hh, fn
+        cold = compute_ph(points=p, tau_max=tau, maxdim=1, engine="packed",
+                          device="cuda")
+        for d in (0, 1):
+            assert np.array_equal(dc[d], dh[d]), (fn, d)
+            assert np.array_equal(resume.canonical_diagram(dc[d]),
+                                  resume.canonical_diagram(
+                                      cold.diagrams[d])), (fn, d)
+
+
 @pytest.mark.parametrize("engine", ["packed", "batch"])
 @pytest.mark.parametrize("condition", [0, 1])
 def test_hic_pair_card_matches_cpu(dev, engine, condition):

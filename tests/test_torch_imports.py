@@ -54,7 +54,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.scale.sparse_input, repro_torch.dist.compression, "
             "repro_torch.resilience.faults, repro_torch.launch.mesh, "
             "repro_torch.dist.sharding, repro_torch.scale.shard, "
-            "repro_torch.scale.budget, repro_torch.serve; "
+            "repro_torch.scale.budget, repro_torch.serve, "
+            "repro_torch.core.resume, repro_torch.serve.ph, "
+            "repro_torch.resilience; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

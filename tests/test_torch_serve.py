@@ -55,14 +55,16 @@ def test_configs_equal_reference():
 
 
 SERVE_EXPORTS = ("ServeEngine", "Request", "extend_cache",
-                 "make_prefill_step", "make_decode_step", "sample_greedy")
+                 "make_prefill_step", "make_decode_step", "sample_greedy",
+                 "AdmissionDecision", "PHRequest", "PHResponse",
+                 "PHServeEngine", "fingerprint_points")
 
 
 @pytest.mark.parametrize("name", SERVE_EXPORTS)
 def test_serve_package_exports(name):
     """``repro_torch.serve`` re-exports the ported names of
-    ``repro.serve``; ``sample_temperature`` (item 10) and the PH-service
-    names (item 7) stay absent until they are ported."""
+    ``repro.serve``, the PH service's included; ``sample_temperature``
+    (item 10) stays absent until it is ported."""
     import repro.serve
     import repro_torch.serve
 
@@ -70,8 +72,7 @@ def test_serve_package_exports(name):
     got = getattr(repro_torch.serve, name)
     assert got.__module__.startswith("repro_torch.serve.")
     assert name in repro_torch.serve.__all__
-    for absent in ("sample_temperature", "PHServeEngine"):
-        assert not hasattr(repro_torch.serve, absent)
+    assert not hasattr(repro_torch.serve, "sample_temperature")
 
 
 def test_get_config_loads_the_ports_modules():
@@ -267,8 +268,15 @@ def test_launch_serve_cpu(capsys):
     done = serve.run_tokens(serve_args(requests=3, max_new=2))
     assert sorted(done) == [0, 1, 2]
     assert "served 3/3 requests" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 7"):
-        serve.main(["--workload", "ph", "--device", "cpu"])
+    # the PH workload, on a small cut of its traffic, runs to its summary
+    serve.main(["--workload", "ph", "--device", "cpu", "--requests", "4",
+                "--cloud-size", "16", "--reduce-engine", "packed"])
+    out = capsys.readouterr().out.splitlines()
+    assert out[0].startswith("served 4/4 PH requests in ")
+    assert [ln.split(" = ")[0].strip() for ln in out[1:]] == [
+        "serve_ph_n_cold", "serve_ph_n_batched", "serve_ph_n_warm_tau",
+        "serve_ph_n_warm_points", "serve_ph_n_rejected",
+        "serve_ph_store_bytes"]
 
 
 def serve_args(**kw):

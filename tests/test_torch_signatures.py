@@ -4,6 +4,7 @@ on the card and nothing added where they run on the host only, raise the
 reference's ``ValueError`` where it does, take the port's own mesh and
 nothing else for ``mesh=``, and refuse each value they cannot take yet
 with ``NotImplementedError`` naming its ROADMAP.md item."""
+import dataclasses
 import inspect
 
 import numpy as np
@@ -13,19 +14,26 @@ from repro.core import build_filtration as ref_build
 from repro.core import compute_ph as ref_compute_ph
 from repro.core.h0 import compute_h0 as ref_h0
 from repro.core.homology import make_h1_adapter as ref_h1_adapter
+from repro.core import resume as ref_resume
 from repro.core.packed_reduce import reduce_dimension_packed as ref_packed
+from repro.core.reduction import clearance_commit as ref_clearance
 from repro.core.reduction import reduce_dimension as ref_reduce
+from repro.core.reduction import seed_column as ref_seed_column
 from repro.core.serial_parallel import reduce_dimension_batched as ref_batched
 from repro.scale.sparse_input import build_filtration_coo as ref_coo
+from repro.serve import ph as ref_ph
 from repro_torch import compute_ph
 from repro_torch.core.filtration import build_filtration
 from repro_torch.core.h0 import compute_h0
 from repro_torch.core.homology import make_h1_adapter
+from repro_torch.core import resume
 from repro_torch.core.packed_reduce import reduce_dimension_packed
-from repro_torch.core.reduction import reduce_dimension
+from repro_torch.core.reduction import (clearance_commit, reduce_dimension,
+                                        seed_column)
 from repro_torch.core.serial_parallel import reduce_dimension_batched
 from repro_torch.launch.mesh import make_data_mesh
 from repro_torch.scale import build_filtration_coo
+from repro_torch.serve import ph
 
 
 def _params(fn):
@@ -39,7 +47,9 @@ def _same_default(a, b) -> bool:
 
 
 @pytest.mark.parametrize("ref,port", [(ref_compute_ph, compute_ph),
-                                      (ref_packed, reduce_dimension_packed)])
+                                      (ref_packed, reduce_dimension_packed),
+                                      (ref_resume.make_reducer,
+                                       resume.make_reducer)])
 def test_signature_matches_reference(ref, port):
     want, got = _params(ref), _params(port)
     assert [p.name for p in got] == [p.name for p in want] + ["device"]
@@ -49,16 +59,61 @@ def test_signature_matches_reference(ref, port):
     assert got[-1].default is None
 
 
-@pytest.mark.parametrize("ref,port", [(ref_reduce, reduce_dimension),
-                                      (ref_batched, reduce_dimension_batched),
-                                      (ref_coo, build_filtration_coo)])
+_RESUME = ("cold_reduce", "warm_tau_growth", "edge_order_map",
+           "warm_point_arrival", "split_batch_state", "union_filtration",
+           "batched_cold_reduce", "canonical_diagram")
+
+
+@pytest.mark.parametrize("ref,port", [
+    (ref_reduce, reduce_dimension), (ref_batched, reduce_dimension_batched),
+    (ref_coo, build_filtration_coo), (ref_seed_column, seed_column),
+    (ref_clearance, clearance_commit),
+    (ref_ph.fingerprint_points, ph.fingerprint_points),
+    (ref_ph.PHServeEngine.admission_account,
+     ph.PHServeEngine.admission_account),
+    (ref_ph.PHServeEngine.submit, ph.PHServeEngine.submit),
+    (ref_ph.PHServeEngine.step, ph.PHServeEngine.step),
+    (ref_ph.PHServeEngine.run, ph.PHServeEngine.run),
+] + [(getattr(ref_resume, n), getattr(resume, n)) for n in _RESUME],
+    ids=lambda f: f.__qualname__)
 def test_host_signature_is_the_reference(ref, port):
-    """Host-only entry points: exactly the reference's parameters."""
+    """Host-only entry points, and those that reach the card only through
+    ``**reducer_opts`` (``device`` travels there to ``make_reducer``):
+    exactly the reference's parameters."""
     want, got = _params(ref), _params(port)
     assert [p.name for p in got] == [p.name for p in want]
     for a, b in zip(want, got):
         assert a.kind == b.kind, a.name
         assert _same_default(a, b), a.name
+
+
+def test_serve_engine_signature_adds_device_before_reducer_opts():
+    """``PHServeEngine``: the reference's named parameters, then
+    ``device``, then the reducer options."""
+    want = _params(ref_ph.PHServeEngine.__init__)
+    got = _params(ph.PHServeEngine.__init__)
+    assert [p.name for p in got] == \
+        [p.name for p in want[:-1]] + ["device", want[-1].name]
+    for a, b in zip(want[:-1], got):
+        assert a.kind == b.kind and _same_default(a, b), a.name
+    assert got[-2].default is None
+    assert got[-1].kind is inspect.Parameter.VAR_KEYWORD
+
+
+@pytest.mark.parametrize("cls", ["PHRequest", "AdmissionDecision",
+                                 "PHResponse"])
+def test_serve_records_are_the_reference(cls):
+    want = dataclasses.fields(getattr(ref_ph, cls))
+    got = dataclasses.fields(getattr(ph, cls))
+    assert [(f.name, f.default) for f in got] == \
+        [(f.name, f.default) for f in want]
+
+
+@pytest.mark.parametrize("cls", ["DimState", "ReductionCheckpoint"])
+def test_resume_records_are_the_reference(cls):
+    want = dataclasses.fields(getattr(ref_resume, cls))
+    got = dataclasses.fields(getattr(resume, cls))
+    assert [f.name for f in got] == [f.name for f in want]
 
 
 def _cloud():
@@ -177,17 +232,74 @@ def _h1(build, h0, adapter):
     return adapter(f), cols, h0(f).death_edges
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(seed_gens={}), r"§1 item 7$"),
-    (dict(commit_sink=[]), r"§1 item 7$"),
-    (dict(essential_log=[]), r"§1 item 7$"),
+def _records_equal(mine: list, want: list) -> None:
+    """Two hook logs (commit records or essential records), entry by
+    entry: the same keys, scalars and arrays."""
+    assert len(mine) == len(want)
+    for m, w in zip(mine, want):
+        assert sorted(m) == sorted(w)
+        for k, v in w.items():
+            if isinstance(v, np.ndarray) or isinstance(m[k], np.ndarray):
+                assert np.array_equal(np.asarray(m[k]), np.asarray(v)), k
+            else:
+                assert m[k] == v, k
+
+
+def _hooked(fn, build, h0, adapter_of, hook, **kw):
+    """``fn`` on the H1 columns of ``_cloud`` at tau 1.5 (finite and
+    essential classes both) with one warm-restart hook: the log it fills,
+    or (for ``seed_gens``) the result of a run seeded with the
+    δ-expansions a first implicit run recorded."""
+    f = build(points=_cloud(), tau_max=1.5)
+    adapter, cleared = adapter_of(f), h0(f).death_edges
+    cols = np.arange(f.n_e - 1, -1, -1, dtype=np.int64)
+    sink = "commit_sink" if fn.__name__ == "reduce_dimension_packed" \
+        else "commit_log"
+    if hook != "seed_gens":
+        log: list = []
+        res = fn(adapter, cols, mode="implicit", cleared=cleared,
+                 **{sink if hook == "commit_log" else hook: log}, **kw)
+        return res, log
+    clog: list = []
+    elog: list = []
+    fn(adapter, cols, mode="implicit", cleared=cleared,
+       **{sink: clog, "essential_log": elog}, **kw)
+    seeds = {int(r["col_id"]): np.asarray(r["gens"], dtype=np.int64)
+             for r in clog + elog if r.get("gens") is not None}
+    return fn(adapter, cols, mode="implicit", cleared=cleared,
+              seed_gens=seeds, **kw), seeds
+
+
+def _assert_hook_matches(ref_fn, fn, hook, **kw):
+    want, want_log = _hooked(ref_fn, ref_build, ref_h0, ref_h1_adapter,
+                             hook, **kw)
+    mine, mine_log = _hooked(fn, build_filtration, compute_h0,
+                             make_h1_adapter, hook,
+                             **(dict(kw, device="cpu")
+                                if fn is reduce_dimension_packed else kw))
+    assert np.array_equal(want.diagram(), mine.diagram())
+    for f in ("pivot_lows", "pivot_cols", "essential_ids", "pair_cols"):
+        assert np.array_equal(getattr(want, f), getattr(mine, f)), f
+    if hook == "seed_gens":
+        assert sorted(mine_log) == sorted(want_log)
+        assert mine_log, "the first run recorded no expansion to seed"
+    else:
+        _records_equal(mine_log, want_log)
+        assert mine_log, f"{hook} stayed empty"
+
+
+@pytest.mark.parametrize("hook,kw", [
+    ("seed_gens", dict(use_kernels=True)),
+    ("commit_log", dict(n_shards=2)),
+    ("essential_log", dict(n_shards=2, use_kernels=True)),
 ])
-def test_reduce_dimension_packed_refusals_name_their_item(kw, item):
-    adapter, cols, cleared = _h1(build_filtration, compute_h0,
-                                 make_h1_adapter)
-    with pytest.raises(NotImplementedError, match=item):
-        reduce_dimension_packed(adapter, cols, cleared=cleared,
-                                device="cpu", **kw)
+def test_reduce_dimension_packed_refusals_name_their_item(hook, kw):
+    """The packed engine's warm-restart hooks (refused until the resume
+    layer was ported): seeded from a first run's recorded δ-expansions,
+    its commit sink (P = 2 drains copies of the wire records) and its
+    essential log equal the reference's, on the kernel path too."""
+    _assert_hook_matches(ref_packed, reduce_dimension_packed, hook,
+                         batch_size=8, **kw)
 
 
 @pytest.mark.parametrize("case", ["foreign", "mismatch", "runs"])
@@ -261,11 +373,12 @@ def test_reduce_dimension_packed_positional_reference_call(use_kernels):
     assert mine.stats["n_shards"] == 1
 
 
-@pytest.mark.parametrize("kw", [dict(seed_gens={}), dict(commit_log=[]),
-                                dict(essential_log=[])])
+@pytest.mark.parametrize("hook", ["seed_gens", "commit_log",
+                                  "essential_log"])
 @pytest.mark.parametrize("fn", [reduce_dimension, reduce_dimension_batched])
-def test_host_engine_refusals_name_their_item(fn, kw):
-    adapter, cols, cleared = _h1(build_filtration, compute_h0,
-                                 make_h1_adapter)
-    with pytest.raises(NotImplementedError, match=r"§1 item 7$"):
-        fn(adapter, cols, cleared=cleared, **kw)
+def test_host_engine_refusals_name_their_item(fn, hook):
+    """The host engines' warm-restart hooks (refused until the resume layer
+    was ported): each equals the reference's."""
+    ref_fn = ref_reduce if fn is reduce_dimension else ref_batched
+    kw = {} if fn is reduce_dimension else dict(batch_size=8)
+    _assert_hook_matches(ref_fn, fn, hook, **kw)
