@@ -77,21 +77,21 @@ paths' long profiles, a short profiled serving epoch has lost one of its
 7. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
-8. ``mesh_path`` — ``compute_ph`` over a 4-entry data mesh of the card
-   (``make_data_mesh(4, devices=["cuda:0"] * 4)``, ``exchange_every=4``):
-   the main path's cloud, tiles and 96 MiB budget at the main path's tau
-   (the per-device reading of the budget would pick a larger one), under
+8. ``mesh_path`` — ``compute_ph(maxdim=0)`` over a 4-entry data mesh of
+   the card (``make_data_mesh(4, devices=["cuda:0"] * 4)``): the main
+   path's cloud, tiles and 96 MiB budget at the main path's tau (the
+   per-device reading of the budget would pick a larger one), under
    ``torch.profiler``, the counts set to 0 just before it.  The sharded
-   harvest gives each entry one tile a round on its own CUDA stream and
-   the reduction's pivot exchange gathers over the mesh.  Its filtration's
-   ``edges`` and ``edge_len`` and its H0 and H1 diagrams must equal
-   ``main_path``'s, ``pairwise_sq_dists`` must launch once a tile (325),
-   ``gf2_find_low`` and ``gf2_scatter_xor`` must launch and an exchange
-   round must happen.  It prints the wall and phase split, the harvest's
-   tiles, rounds and per-round transfer (``gather_bytes``), the
-   supersteps, exchange rounds and bytes, tournament reductions, sweep
-   probes, rounds and reductions, the simulated 4-device walls (``sim_*``),
-   the card's busy and idle share and each kernel's launches.
+   harvest gives each entry one tile a round on its own CUDA stream.  Its
+   filtration's ``edges`` and ``edge_len`` and its H0 diagram must equal
+   ``main_path``'s and ``pairwise_sq_dists`` must launch once a tile
+   (325).  It prints the wall and phase split, the harvest's tiles, rounds
+   and per-round transfer (``gather_bytes``), the card's busy and idle
+   share and each kernel's launches.  Cut to maxdim 0 to make room for
+   phases 12 to 14: its H1 over the mesh repeated the main path's whole
+   host-bound reduction (``t_h1`` 274 s, with a split equal to the
+   loop-back's number for number) and stays held at n = 10,000 by
+   ``dist_path``'s mesh run and by ``tests/test_torch_cuda.py``.
 9. ``dist_path`` — the distributed reduction at ``cross_check``'s torus4
    cloud (n = 10,000 at its tau, P = 4, ``exchange_every=4``), twice under
    ``torch.profiler``: over the host loop-back (``n_shards=4``) and over
@@ -130,7 +130,33 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    of both waves and the clamped request, requests/s, the cache-hit
    ratio, each ``serve_ph_*`` counter, p50 and p95 latency, each
    kernel's launches and the card's idle share.
-12. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+12. ``resilience`` — ``dist_path``'s loop-back run (torus4, n = 10,000,
+   P = 4, ``exchange_every=4``) under one seeded fault plan, the counts
+   set to 0 just before it: a shard killed at the start of superstep 2
+   and one mid-superstep 4, a slow shard at superstep 3, a payload dropped
+   twice in exchange round 1, one corrupted in round 2 and one delayed in
+   round 3, and tile 3 of the harvest failing once.  Every spec must
+   fire; the filtration must equal an unfaulted harvest on the card and
+   the diagrams ``dist_path``'s loop-back diagrams; 2 shard deaths, 1 wire
+   corruption, 1 tile retry, at least 2 re-deals; find-low and
+   scatter-XOR must launch.  ``kill_shard`` over the 4-entry mesh must
+   raise ``ValueError`` at the first superstep, before any GF(2) launch.
+   It prints every ``resilience_*`` counter and ``t_h1`` beside
+   ``dist_path``'s.
+13. ``sanitize`` — ``cross_check``'s o3 cloud through ``compute_ph(...,
+   engine="packed", sanitize=True)`` on the card at P = 1 and at P = 3
+   (``dist_check``'s run): diagrams equal ``cross_check``'s card result,
+   ``sanitize_checks`` > 0; the checks by name, each wall beside the
+   unsanitized one.
+14. ``device_engine`` — the torch device engine
+   (``repro_torch.core.device_engine``): ``h0_msf_mask`` on the main
+   path's filtration on the card must mark exactly the main path's
+   union-find death edges; one ``make_distributed_round`` over the
+   4-entry mesh of the card at ``launch/dryrun.py``'s ``ph_round_64k``
+   shape (256 columns an entry, width 64, 2^20 pivots, from a seed) must
+   be bit-identical to the same call on a ``cpu x 4`` mesh.  The walls
+   and the number of Borůvka rounds.
+15. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
     at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
     tau 0.6, maxdim 2), on the card, one call after another: each condition
     through the batch engine and the packed engine on the tiled harvest, and
@@ -141,7 +167,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     features with persistence above 0.02, 0.05 and 0.08, auxin against
     control); H1 at 0.05 and 0.08 must fall under auxin, as
     ``fig21_hic.py`` gates it.
-13. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
+16. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
     (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
     its loci and a quarter of its budget, ``hic_pair(25_000, 200,
     seed=1)`` at 32 MiB, one ``tau_max`` for both conditions (the smaller
@@ -175,7 +201,7 @@ are timed beside it.
 
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
-``mesh_path`` and ``serve_ph``) and, last, ``{"ok": true, "device": ...}``.  Any failed
+``mesh_path``, ``serve_ph`` and ``resilience``) and, last, ``{"ok": true, "device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
 and without ``src/repro_torch`` beside it (the script copied alone) it
 exits 1, printing no result either way.  It imports nothing of the JAX
@@ -1203,15 +1229,25 @@ class FiltrationTap:
     ``build_filtration_sharded`` (the names ``compute_ph`` calls) for the
     length of a ``with`` block, keeping the last build's ``edges``,
     ``edge_len`` and ``TileStats``: the mesh path's filtration is held to
-    the main path's through them."""
+    the main path's through them.  It also keeps the last H0 result
+    ``compute_ph`` computed (``h0``), whose death edges ``device_engine``
+    holds the Borůvka forest to."""
 
     def __enter__(self):
+        import repro_torch.core.homology as homology
         import repro_torch.scale as scale
 
         self.real = {name: getattr(scale, name)
                      for name in ("build_filtration_tiled",
                                   "build_filtration_sharded")}
+        self.real_h0 = homology.compute_h0
         tap = self
+
+        def h0_tapped(filt):
+            tap.h0 = self.real_h0(filt)
+            return tap.h0
+
+        homology.compute_h0 = h0_tapped
 
         def wrap(real):
             def tapped(*args, **kw):
@@ -1227,15 +1263,17 @@ class FiltrationTap:
         return self
 
     def __exit__(self, *exc):
+        import repro_torch.core.homology as homology
         import repro_torch.scale as scale
 
         for name, real in self.real.items():
             setattr(scale, name, real)
+        homology.compute_h0 = self.real_h0
 
 
 def main_path(dev, n: int, tap: RoundTap, serial: SerialTap):
-    """The main path under the profiler; returns its line, its result and
-    its filtration's ``(edges, edge_len)``."""
+    """The main path under the profiler; returns its line, its result, its
+    filtration's ``(edges, edge_len)`` and its H0 death edges."""
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
 
@@ -1279,7 +1317,7 @@ def main_path(dev, n: int, tap: RoundTap, serial: SerialTap):
                wall_less_capture_s=wall - tap.capture_s - serial.capture_s,
                harvest_identical_to_plain=True)
     emit("main_path", **out)
-    return out, res, (filt.edges, filt.edge_len)
+    return out, res, (filt.edges, filt.edge_len), filt.h0.death_edges
 
 
 def cross_check(dev) -> dict:
@@ -1332,6 +1370,8 @@ DIST_SIM = ("sim_wall_s", "sim_conc_s", "sim_sweep_s", "sim_sync_s")
 DIST_COUNTS = ("n_supersteps", "n_exchange_rounds", "exchange_bytes",
                "n_tournament_reductions", "n_sweep_probes", "n_rounds",
                "n_reductions")
+# dist_check's o3 run, which sanitize repeats under the sanitizer
+DIST_CHECK_O3 = dict(n_shards=3, exchange_every=4, mode="implicit")
 # How the packed blocks held their rows: a fused block that grows where its
 # slices' own blocks would evict rebuilds a 4x larger block each time.
 BLOCK_COUNTS = ("n_consolidations", "n_expansions", "n_evictions")
@@ -1345,16 +1385,15 @@ def card_mesh(dev, p: int = DIST_SHARDS):
 
 
 def mesh_path(dev, n: int, main, harvest, tau: float) -> dict:
-    """``compute_ph`` over a 4-entry data mesh of the card
-    (``make_data_mesh(4, devices=["cuda:0"] * 4)``, ``exchange_every=4``):
-    the main path's cloud, tiles and budget at the main path's tau, under
-    the profiler, the counts set to 0 just before it.  The sharded
-    harvest gives each entry one tile a round on its own stream; the
-    reduction's pivot exchange gathers over the mesh.  Gates: the
-    filtration's ``edges`` and ``edge_len`` equal the main path's, H0 and
-    H1 equal ``main``'s, ``pairwise_sq_dists`` launches once a tile (325),
-    ``gf2_find_low`` and ``gf2_scatter_xor`` launch, an exchange round
-    happens."""
+    """``compute_ph(maxdim=0)`` over a 4-entry data mesh of the card
+    (``make_data_mesh(4, devices=["cuda:0"] * 4)``): the main path's cloud,
+    tiles and budget at the main path's tau, under the profiler, the
+    counts set to 0 just before it.  The sharded harvest gives each entry
+    one tile a round on its own stream.  Gates: the filtration's ``edges``
+    and ``edge_len`` equal the main path's, H0 equals ``main``'s and
+    ``pairwise_sq_dists`` launches once a tile (325).  H1 over the mesh
+    (a repeat of the main path's host-bound reduction, about 274 s) is
+    held at n = 10,000 by ``dist_path``'s mesh run."""
     from repro_torch import compute_ph
     from repro_torch.data.pointclouds import clifford_torus
     from repro_torch.scale.shard import partition_tiles
@@ -1364,56 +1403,47 @@ def mesh_path(dev, n: int, main, harvest, tau: float) -> dict:
     shards = partition_tiles(n, 2048, 2048, DIST_SHARDS)
     n_tiles = sum(len(t) for t in shards)
     counters = reset_counters()
-    tap, filt = RoundTap(keep=0), FiltrationTap()
+    filt = FiltrationTap()
 
     def run():
         t0 = time.perf_counter()
-        out = compute_ph(points=points, tau_max=tau, maxdim=1,
+        out = compute_ph(points=points, tau_max=tau, maxdim=0,
                          backend="tiled", engine="packed",
                          memory_budget_bytes=96 * 2**20, tile_m=2048,
                          tile_n=2048, mesh=mesh, exchange_every=DIST_EVERY)
         torch.cuda.synchronize()
         return out, time.perf_counter() - t0
 
-    with tap, filt:
+    with filt:
         (res, wall), evs = profiled(run)
     launches = {k: counters[k].launches
                 for k in PH_KERNELS + OFF_PATH_KERNELS}
     if launches["pairwise_sq_dists"] != n_tiles:
         raise AssertionError(f"mesh path: {launches['pairwise_sq_dists']} "
                              f"pairwise launches for {n_tiles} tiles")
-    for name in ("gf2_find_low", "gf2_scatter_xor"):
-        if launches[name] <= 0:
-            raise AssertionError(f"mesh path never launched {name}")
     edges, edge_len = harvest
     if not (np.array_equal(filt.edges, edges)
             and np.array_equal(filt.edge_len, edge_len)):
         raise AssertionError("mesh path: filtration differs from the main "
                              "path's")
-    for d in (0, 1):
-        if not np.array_equal(res.diagrams[d], main.diagrams[d]):
-            raise AssertionError(f"mesh path: H{d} differs from the main "
-                                 "path's")
+    if not np.array_equal(res.diagrams[0], main.diagrams[0]):
+        raise AssertionError("mesh path: H0 differs from the main path's")
     st = res.stats
-    if st["n_shards"] != DIST_SHARDS or st["h1_n_shards"] != DIST_SHARDS \
-            or st["h1_n_exchange_rounds"] <= 0:
-        raise AssertionError("mesh path: no exchange round over 4 entries")
-    out = dict(n=n, mesh=repr(mesh), exchange_every=DIST_EVERY,
-               tau_max=tau, n_e=int(st["n_e"]), wall_s=wall,
+    if st["n_shards"] != DIST_SHARDS:
+        raise AssertionError("mesh path: the harvest did not shard over 4 "
+                             "entries")
+    out = dict(n=n, mesh=repr(mesh), maxdim=0, tau_max=tau,
+               n_e=int(st["n_e"]), wall_s=wall,
                t_filtration=st["t_filtration"], t_h0=st["t_h0"],
-               t_h1=st["t_h1"], pairs=n_pairs(res), launches=launches,
+               pairs=n_pairs(res), launches=launches,
                harvest_tiles=n_tiles,
                harvest_rounds=max(len(t) for t in shards),
                gather_bytes=filt.stats.gather_bytes,
                candidate_pairs=filt.stats.candidate_pairs,
                per_device_peak_bytes=st["per_device_peak_bytes"],
                per_device_base_bytes=st["per_device_base_bytes"],
-               **{f"h1_{k}": st[f"h1_{k}"]
-                  for k in DIST_COUNTS + DIST_SIM + BLOCK_COUNTS},
-               **path_profile(evs, wall),
-               kernel_round_calls=tap.calls, kernel_round_s=tap.seconds,
-               max_hit_rows=tap.max_rows, filtration_equal_main_path=True,
-               diagrams_equal_main_path=True)
+               **path_profile(evs, wall), filtration_equal_main_path=True,
+               h0_equal_main_path=True)
     emit("mesh_path", **out)
     return out
 
@@ -1492,10 +1522,11 @@ def dist_path(dev, cards: dict) -> dict:
             != len(tile_grid(len(points), 2048, 2048)):
         raise AssertionError("dist path (mesh): not one pairwise launch a "
                              "tile")
+    diagrams = loop["_diagrams"]
     for run in (loop, mesh):
         del run["_diagrams"]
         emit("dist_path", **run, split_equal_between_routes=True)
-    return loop
+    return loop, diagrams
 
 
 def dist_check(dev, cards: dict) -> None:
@@ -1504,10 +1535,12 @@ def dist_check(dev, cards: dict) -> None:
     card at P = 3, implicit, ``exchange_every=4``, ``np.array_equal`` to
     its P = 1 card diagrams.  The torus4 cloud at P 2 and 4 is held by
     ``dist_path`` (P = 4 over both transports) and by the card tests
-    (``test_compute_ph_dist_card_matches_cpu``: P in {2, 4} x cadence)."""
+    (``test_compute_ph_dist_card_matches_cpu``: P in {2, 4} x cadence).
+    Returns each run's wall by case name."""
     from repro_torch import compute_ph
 
-    runs = {"o3": [dict(n_shards=3, exchange_every=4, mode="implicit")]}
+    runs = {"o3": [DIST_CHECK_O3]}
+    walls = {}
     for name, points, tau, maxdim in check_cases():
         one = cards[name]
         for kw in runs.get(name, ()):
@@ -1520,6 +1553,7 @@ def dist_check(dev, cards: dict) -> None:
                                       one["result"].diagrams[d]):
                     raise AssertionError(f"dist_check {name} {kw}: H{d} "
                                          "differs from P = 1 on the card")
+            walls[name] = wall
             top = f"h{maxdim}"
             emit("dist_check", case=name, n=len(points), tau_max=tau,
                  maxdim=maxdim, **kw, wall_s=wall, p1_card_s=one["card_s"],
@@ -1527,6 +1561,7 @@ def dist_check(dev, cards: dict) -> None:
                  **{f"{top}_{k}": res.stats[f"{top}_{k}"]
                     for k in DIST_COUNTS},
                  identical_to_p1=True)
+    return walls
 
 
 # ---------------------------------------------------------------------------
@@ -1697,7 +1732,269 @@ def serve_ph(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 12 and 13: the Hi-C pair (paper §6, Fig. 21)
+# phases 12 to 14: recovery, the GF(2) sanitizer and the device engine
+# ---------------------------------------------------------------------------
+
+# One seeded plan for every fault class of the distributed driver and the
+# tile harvest (tests/test_resilience.py's classes): supersteps and
+# exchange rounds are the H1 reduction's, tiles the harvest's ordinals.
+RESILIENCE_SPECS = (
+    dict(site="reduce.superstep", kind="kill_shard", at=2, shard=1,
+         params=(("when", "start"),)),
+    dict(site="reduce.superstep", kind="kill_shard", at=4, shard=2,
+         params=(("when", "mid"),)),
+    dict(site="reduce.superstep", kind="slow_shard", at=3, shard=3,
+         params=(("lag", 2.0), ("duration", 2))),
+    dict(site="exchange.wire", kind="drop", at=1, shard=0, times=2),
+    dict(site="exchange.wire", kind="corrupt", at=2, shard=0,
+         params=(("bit", 37),)),
+    dict(site="exchange.wire", kind="delay", at=3, shard=0),
+    dict(site="harvest.tile", kind="fail_tile", at=3),
+)
+
+
+def resilience(dev, dist: dict, dist_diagrams) -> dict:
+    """``dist_path``'s loop-back run (torus4, n = 10,000 at its tau, P = 4,
+    ``exchange_every=4``) again under one seeded fault plan: a shard killed
+    at the start of superstep 2 and one mid-superstep 4, a slow shard, a
+    payload dropped twice, one corrupted, one delayed, and a failed tile.
+    The counts are set to 0 just before it.  Gates: every spec fired; the
+    filtration equals an unfaulted harvest on the card; the diagrams equal
+    ``dist_path``'s loop-back diagrams; two shard deaths, one wire
+    corruption, one tile retry, at least two re-deals; find-low and
+    scatter-XOR launched.  Then ``kill_shard`` over the 4-entry mesh of
+    the card must raise ``ValueError`` at the first superstep, before any
+    reduction work (no GF(2) launch)."""
+    from repro_torch import compute_ph
+    from repro_torch.resilience.faults import FaultPlan, FaultSpec, inject
+    from repro_torch.scale.tiles import build_filtration_tiled
+
+    name, points, tau, maxdim = check_cases()[0]
+    plan = FaultPlan.of(*[FaultSpec(**s) for s in RESILIENCE_SPECS],
+                        seed=23)
+    counters = reset_counters()
+    filt = FiltrationTap()
+    with filt, inject(plan) as inj:
+        res, wall = timed(lambda: compute_ph(
+            points=points, tau_max=tau, maxdim=maxdim, backend="tiled",
+            engine="packed", n_shards=DIST_SHARDS, exchange_every=DIST_EVERY,
+            device=dev))
+    launches = {k: counters[k].launches for k in PH_KERNELS}
+    fired = {(f["site"], f["kind"], f["index"]) for f in inj.fired}
+    for spec in RESILIENCE_SPECS:
+        if not any(f[:2] == (spec["site"], spec["kind"]) for f in fired):
+            raise AssertionError(f"resilience: {spec} never fired")
+    clean = build_filtration_tiled(points=points, tau_max=tau, device=dev)
+    if not (np.array_equal(filt.edges, clean.edges)
+            and np.array_equal(filt.edge_len, clean.edge_len)):
+        raise AssertionError("resilience: the faulted harvest differs")
+    for d in range(maxdim + 1):
+        if not np.array_equal(res.diagrams[d], dist_diagrams[d]):
+            raise AssertionError(f"resilience: H{d} differs from the "
+                                 "fault-free loop-back run")
+    st = res.stats
+    counts = {k[len("h1_"):]: v for k, v in st.items()
+              if k.startswith("h1_resilience_")}
+    want = dict(resilience_n_shard_deaths=2, resilience_n_wire_corruptions=1)
+    for k, v in want.items():
+        if counts.get(k) != v:
+            raise AssertionError(f"resilience: {k} = {counts.get(k)}, "
+                                 f"not {v}")
+    if counts["resilience_n_redeals"] < 2 or filt.stats.tile_retries != 1:
+        raise AssertionError("resilience: re-deals "
+                             f"{counts['resilience_n_redeals']}, tile "
+                             f"retries {filt.stats.tile_retries}")
+    for k in ("gf2_find_low", "gf2_scatter_xor"):
+        if launches[k] <= 0:
+            raise AssertionError(f"resilience: never launched {k}")
+    # an elastic shrink over a mesh: refused at superstep 1
+    kill = FaultPlan.of(FaultSpec("reduce.superstep", "kill_shard", at=1,
+                                  shard=1))
+    mesh_counters = reset_counters()
+    with inject(kill):
+        try:
+            compute_ph(filtration=clean, maxdim=1, engine="packed",
+                       mesh=card_mesh(dev), exchange_every=DIST_EVERY)
+        except ValueError as exc:
+            refusal = str(exc)
+        else:
+            raise AssertionError("resilience: kill_shard over a mesh ran")
+    gf2_work = sum(mesh_counters[k].launches for k in PH_KERNELS)
+    if gf2_work:
+        raise AssertionError(f"resilience: {gf2_work} launches before the "
+                             "mesh refusal")
+    out = dict(case=name, n=len(points), tau_max=tau, maxdim=maxdim,
+               n_shards=DIST_SHARDS, exchange_every=DIST_EVERY,
+               n_e=int(st["n_e"]), wall_s=wall, t_h1=st["t_h1"],
+               t_h1_over_dist_path=st["t_h1"] / dist["t_h1"],
+               dist_path_t_h1=dist["t_h1"], fired=len(inj.fired),
+               **counts, tile_retries=filt.stats.tile_retries,
+               launches=launches,
+               **{f"h1_{k}": st[f"h1_{k}"]
+                  for k in DIST_COUNTS + DIST_SIM + BLOCK_COUNTS},
+               mesh_refusal=refusal, diagrams_equal_fault_free=True,
+               filtration_equal_fault_free=True)
+    emit("resilience", **out)
+    return out
+
+
+class SanitizeTap:
+    """Wraps the ``sanitizing`` scope ``compute_ph`` opens for the length
+    of a ``with`` block and keeps the last sanitizer it yielded, whose
+    ``counts`` name every check that ran."""
+
+    def __enter__(self):
+        import contextlib
+
+        import repro_torch.core.homology as homology
+
+        self.real = real = homology.sanitizing
+        tap = self
+
+        @contextlib.contextmanager
+        def tapped(enabled):
+            with real(enabled) as san:
+                tap.san = san
+                yield san
+
+        homology.sanitizing = tapped
+        return self
+
+    def __exit__(self, *exc):
+        import repro_torch.core.homology as homology
+
+        homology.sanitizing = self.real
+
+
+def sanitize(dev, o3_card: dict, o3_p3_s: float) -> dict:
+    """``cross_check``'s o3 cloud (n = 1,024, maxdim 2) through
+    ``compute_ph(engine="packed", sanitize=True)`` on the card at P = 1
+    (as ``cross_check`` ran it) and at P = 3 (as ``dist_check`` ran it).
+    Gates: diagrams equal ``cross_check``'s card result and
+    ``sanitize_checks`` > 0.  Prints the checks by name and each wall
+    beside the unsanitized one."""
+    from repro_torch import compute_ph
+
+    name, points, tau, maxdim = check_cases()[1]
+    runs = []
+    for kw, plain_s in ((dict(), o3_card["card_s"]), (DIST_CHECK_O3, o3_p3_s)):
+        counters = reset_counters()
+        with SanitizeTap() as tap:
+            res, wall = timed(lambda: compute_ph(
+                points=points, tau_max=tau, maxdim=maxdim, backend="tiled",
+                engine="packed", sanitize=True, device=dev, **kw))
+        for d in range(maxdim + 1):
+            if not np.array_equal(res.diagrams[d],
+                                  o3_card["result"].diagrams[d]):
+                raise AssertionError(f"sanitize {kw}: H{d} differs from "
+                                     "the unsanitized card run")
+        n_checks = res.stats.get("sanitize_checks", 0)
+        if n_checks <= 0 or n_checks != sum(tap.san.counts.values()):
+            raise AssertionError(f"sanitize {kw}: {n_checks} checks")
+        runs.append(dict(n_shards=kw.get("n_shards", 1),
+                         mode=kw.get("mode", "explicit"), wall_s=wall,
+                         unsanitized_s=plain_s, ratio=wall / plain_s,
+                         sanitize_checks=n_checks,
+                         checks=dict(sorted(tap.san.counts.items())),
+                         launches={k: counters[k].launches
+                                   for k in PH_KERNELS}))
+    out = dict(case=name, n=len(points), tau_max=tau, maxdim=maxdim,
+               runs=runs, diagrams_equal_unsanitized=True)
+    emit("sanitize", **out)
+    return out
+
+
+# launch/dryrun.py's ph_round_64k cell: columns per mesh entry, column
+# width in keys, pivot-table entries
+ROUND_COLS, ROUND_WIDTH, ROUND_PIVOTS = 256, 64, 2**20
+
+
+def round_inputs(entries: int, seed: int = 0):
+    """A pivot table of ``ROUND_PIVOTS`` sorted keys whose row k has low
+    ``keys[k]`` and later keys of the table after it, and ``entries x
+    ROUND_COLS`` columns of table keys, so that reductions chain through
+    the table and cancel."""
+    from repro_torch.core.device_engine import EMPTY
+
+    rng = np.random.default_rng(seed)
+    keys = np.cumsum(rng.integers(1, 1 << 12, size=ROUND_PIVOTS,
+                                  dtype=np.int64))
+    w = ROUND_WIDTH
+    # row k: itself, then table keys at increasing offsets past k
+    idx = np.arange(ROUND_PIVOTS, dtype=np.int64)[:, None] + np.concatenate(
+        [np.zeros((ROUND_PIVOTS, 1), dtype=np.int64),
+         np.cumsum(rng.integers(1, 64, size=(ROUND_PIVOTS, w - 1)), axis=1)],
+        axis=1)
+    length = rng.integers(1, w + 1, size=(ROUND_PIVOTS, 1))
+    live = (np.arange(w)[None, :] < length) & (idx < ROUND_PIVOTS)
+    table = np.where(live, keys[np.minimum(idx, ROUND_PIVOTS - 1)], EMPTY)
+    b = entries * ROUND_COLS
+    start = rng.integers(0, ROUND_PIVOTS // 2, size=(b, 1))
+    cidx = start + np.concatenate(
+        [np.zeros((b, 1), dtype=np.int64),
+         np.cumsum(rng.integers(1, 4096, size=(b, w - 1)), axis=1)], axis=1)
+    clen = rng.integers(1, w + 1, size=(b, 1))
+    clive = (np.arange(w)[None, :] < clen) & (cidx < ROUND_PIVOTS)
+    cols = np.where(clive, keys[np.minimum(cidx, ROUND_PIVOTS - 1)], EMPTY)
+    return cols, keys, table
+
+
+def device_engine(dev, main_filt, main_n: int, death_edges) -> dict:
+    """The torch device engine (``repro_torch.core.device_engine``, the
+    reference's ``core/jax_engine.py``) on the card.  ``h0_msf_mask`` on
+    the main path's filtration (n = 50,000) must mark exactly the main
+    path's union-find death edges.  One ``make_distributed_round`` over
+    the 4-entry mesh of the card at ``launch/dryrun.py``'s
+    ``ph_round_64k`` shape (256 columns an entry, width 64, 2^20 pivots,
+    from a seed) must be bit-identical to the same call on a ``cpu x 4``
+    mesh.  Prints the walls and the number of Borůvka rounds."""
+    from repro_torch.core import device_engine as de
+    from repro_torch.launch.mesh import make_data_mesh
+
+    edges = torch.as_tensor(main_filt[0], device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mask, rounds = de._boruvka(edges, main_n)
+    got = torch.nonzero(mask).flatten().cpu().numpy()
+    msf_s = time.perf_counter() - t0
+    if not np.array_equal(got, np.sort(death_edges)):
+        raise AssertionError("device_engine: the Borůvka forest differs "
+                             "from the main path's union-find")
+    entries = DIST_SHARDS
+    cols, keys, table = round_inputs(entries)
+    walls = {}
+    out = {}
+    for where, mesh in (("cuda", card_mesh(dev, entries)),
+                        ("cpu", make_data_mesh(entries,
+                                               devices=["cpu"] * entries))):
+        fn = de.make_distributed_round(mesh)
+        first = mesh.devices.flat[0]
+        args = [torch.as_tensor(a, device=first) for a in (cols, keys, table)]
+        if where == "cuda":
+            fn(*args)                          # warm-up: caches, allocator
+            torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        c, lows = fn(*args)
+        out[where] = (c.cpu().numpy(), lows.cpu().numpy())
+        walls[where] = time.perf_counter() - t0
+    for a, b in zip(out["cuda"], out["cpu"]):
+        if not np.array_equal(a, b):
+            raise AssertionError("device_engine: the distributed round "
+                                 "differs between the card and the CPU")
+    moved = int((out["cuda"][0] != cols).any(axis=1).sum())
+    res = dict(n=main_n, n_e=int(edges.shape[0]), msf_s=msf_s,
+               boruvka_rounds=rounds, msf_edges=int(mask.sum()),
+               msf_equal_union_find=True, round_entries=entries,
+               round_cols=ROUND_COLS * entries, round_width=ROUND_WIDTH,
+               round_pivots=ROUND_PIVOTS, round_card_s=walls["cuda"],
+               round_cpu_s=walls["cpu"], round_rows_changed=moved,
+               round_equal_cpu=True)
+    emit("device_engine", **res)
+    return res
+
+
+# ---------------------------------------------------------------------------
+# phases 15 and 16: the Hi-C pair (paper §6, Fig. 21)
 # ---------------------------------------------------------------------------
 
 # benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
@@ -2257,18 +2554,24 @@ def main() -> int:
     served = serve(dev)
     served_f32 = serve_f32(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
-    path, main_res, main_filt = main_path(dev, MAIN_PATH_N, tap, serial)
+    path, main_res, main_filt, main_deaths = main_path(dev, MAIN_PATH_N, tap,
+                                                       serial)
     round_step(dev, tap)
     cards = cross_check(dev)
     serial_replay(dev, serial, path["launches"]["gf2_serial_reduce"])
     del tap, serial
     meshed = mesh_path(dev, MAIN_PATH_N, main_res, main_filt,
                        path["tau_max"])
-    del main_res, main_filt
-    dist = dist_path(dev, cards)
-    dist_check(dev, cards)
+    del main_res
+    dist, dist_diagrams = dist_path(dev, cards)
+    checked = dist_check(dev, cards)
+    o3_card = cards["o3"]
     del cards
     sph = serve_ph(dev)
+    resil = resilience(dev, dist, dist_diagrams)
+    sanitize(dev, o3_card, checked["o3"])
+    device_engine(dev, main_filt, MAIN_PATH_N, main_deaths)
+    del main_filt, main_deaths
     hic_suite(dev)
     hic = hic_path(dev)
     launches = dict(path["launches"],
@@ -2310,6 +2613,7 @@ def main() -> int:
             dist_launches=dist["launches"].get(kname),
             mesh_launches=meshed["launches"].get(kname),
             serve_ph_launches=sph["launches"].get(kname),
+            resilience_launches=resil["launches"].get(kname),
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

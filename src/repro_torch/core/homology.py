@@ -14,11 +14,11 @@ trivial pairs detected on the fly throughout.
 from __future__ import annotations
 
 import dataclasses
-import os
 from typing import Dict, Optional
 
 import numpy as np
 
+from ..analyze.invariants import sanitizing
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span, stopwatch, tracing
 from . import coboundary as cb
@@ -193,14 +193,19 @@ def compute_ph(
     diagrams); requires ``engine="packed"``.  ``exchange_every`` batches
     the pivot-exchange rounds (one wire round per that-many supersteps);
     diagrams are cadence-independent.
+    sanitize: arm the GF(2) sanitizer
+    (:mod:`repro_torch.analyze.invariants`) for the H0 and reduction
+    phases of this call — cheap incremental invariant checks (pivot-low
+    uniqueness, packed-segment consistency, wire round-trips, spill
+    re-materialization equality) that raise a structured
+    ``SanitizeViolation`` instead of returning a silently wrong diagram;
+    the stats then carry ``sanitize_checks``.  ``None`` (default) defers
+    to the ambient state: ``REPRO_SANITIZE``, read when the sanitizer
+    module is imported, or an enclosing ``sanitizing`` scope; ``False``
+    forces it off.  Any engine, device or mesh.
     trace: as in the reference (a path exports a Chrome trace, a
     :class:`~repro_torch.obs.trace.Tracer` collects, ``None`` defers to
     ``REPRO_TRACE``, ``False`` forces it off).
-
-    Not in this port yet, refused with ``NotImplementedError``: the GF(2)
-    sanitizer, whether asked for by ``sanitize=True`` or, with
-    ``sanitize=None``, by the ``REPRO_SANITIZE`` environment variable as
-    the reference reads it (ROADMAP.md §1 item 7).
     """
     if mesh is not None and engine != "packed" \
             and (filtration is not None or backend != "tiled"):
@@ -210,12 +215,6 @@ def compute_ph(
     if n_shards is not None and engine != "packed":
         raise ValueError("n_shards distributes the reduction and requires "
                          "engine='packed'")
-    if sanitize is None:
-        sanitize = os.environ.get("REPRO_SANITIZE", "0") not in ("", "0")
-    if sanitize:
-        raise NotImplementedError(
-            "sanitize=True (analyze/invariants.py) is not ported yet: "
-            "ROADMAP.md §1 item 7")
     if engine not in ("single", "batch", "packed"):
         raise ValueError(f"unknown engine {engine!r}")
     if backend not in ("dense", "tiled"):
@@ -304,28 +303,36 @@ def compute_ph(
                                         cleared=cleared,
                                         store_budget_bytes=memory_budget_bytes)
 
-        with stopwatch("ph/h0") as sw:
-            h0 = compute_h0(filt)
-            diagrams[0] = h0.diagram()
-        reg.gauge("t_h0").set(sw.elapsed)
+        with sanitizing(sanitize) as san:
+            with stopwatch("ph/h0") as sw:
+                h0 = compute_h0(filt)
+                diagrams[0] = h0.diagram()
+            reg.gauge("t_h0").set(sw.elapsed)
 
-        if maxdim >= 1:
-            with stopwatch("ph/h1") as sw:
-                adapter1 = make_h1_adapter(filt, sparse=sparse)
-                cols1 = np.arange(filt.n_e - 1, -1, -1, dtype=np.int64)
-                res1 = _reduce(adapter1, cols1, mode=mode,
-                               cleared=h0.death_edges)
-                diagrams[1] = res1.diagram()
-            reg.gauge("t_h1").set(sw.elapsed)
+            if maxdim >= 1:
+                with stopwatch("ph/h1") as sw:
+                    if san is not None:
+                        san.set_context(dim=1)
+                    adapter1 = make_h1_adapter(filt, sparse=sparse)
+                    cols1 = np.arange(filt.n_e - 1, -1, -1, dtype=np.int64)
+                    res1 = _reduce(adapter1, cols1, mode=mode,
+                                   cleared=h0.death_edges)
+                    diagrams[1] = res1.diagram()
+                reg.gauge("t_h1").set(sw.elapsed)
 
-        if maxdim >= 2:
-            with stopwatch("ph/h2") as sw:
-                adapter2 = make_h2_adapter(filt, sparse=sparse)
-                cols2 = h2_columns(filt, res1.pivot_lows, sparse=sparse,
-                                   memory_budget_bytes=memory_budget_bytes)
-                res2 = _reduce(adapter2, cols2, mode=mode)
-                diagrams[2] = res2.diagram()
-            reg.gauge("t_h2").set(sw.elapsed)
+            if maxdim >= 2:
+                with stopwatch("ph/h2") as sw:
+                    if san is not None:
+                        san.set_context(dim=2)
+                    adapter2 = make_h2_adapter(filt, sparse=sparse)
+                    cols2 = h2_columns(filt, res1.pivot_lows, sparse=sparse,
+                                       memory_budget_bytes=memory_budget_bytes)
+                    res2 = _reduce(adapter2, cols2, mode=mode)
+                    diagrams[2] = res2.diagram()
+                reg.gauge("t_h2").set(sw.elapsed)
+            if san is not None:
+                reg.counter("sanitize_checks").inc(sum(san.counts.values()))
+                san.set_context(dim=None)
 
         # memory observability: the observed harvest/reduction high-water
         # marks next to the predicted (3n + 12 n_e) * 4 account

@@ -12,9 +12,11 @@ segment's window of the result, and rows and lows come back in one copy.
 The serial pre-pass keeps the reference's round trip per call.  With a
 mesh (:mod:`repro_torch.launch.mesh`) the pivot exchange gathers the
 stacked payloads over the mesh's data axis (``_make_exchange``).  The
-warm-restart hooks are the reference's; the shard supervisor, the
-sanitizer and the superstep and wire fault sites (ROADMAP.md §1 item 7)
-stay in the reference until the port takes them over.
+warm-restart hooks, the GF(2) sanitizer's checks
+(:mod:`repro_torch.analyze.invariants`), the shard supervisor
+(:class:`~repro_torch.launch.elastic.ShardSupervisor`) and the
+``reduce.superstep`` and ``exchange.wire`` fault sites
+(:mod:`repro_torch.resilience.faults`) are the reference's.
 
 The engine keeps the paper's batch structure — parallel phase against the
 committed pivots, serial phase for intra-batch collisions, clearance
@@ -79,6 +81,17 @@ round.  Phases per superstep:
   and installs into the replica.  The concurrent phase reads pivots *only*
   from the replica, so the wire codec sits on the bit-identity critical
   path by construction.
+
+**Recovery** (``docs/resilience.md``, as in the reference): every live
+shard beats once a superstep on the superstep clock.  A shard killed at
+the start of a superstep misses its beat and its batches re-deal to the
+survivors; one killed mid-superstep discards the whole superstep, which
+restarts from the last commit sweep with the survivors (nothing of it has
+committed, so the restart is exact).  A dead shard's wire backlog passes
+to an heir.  A slow shard is sidelined from dealing for a superstep.  A
+dropped or corrupt payload retries with a deterministic backoff (counted,
+not slept); one that exhausts its budget is deferred: an empty payload
+ships in its slot and its backlog waits for the next round.
 """
 from __future__ import annotations
 
@@ -87,17 +100,21 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from ..analyze.invariants import active_sanitizer
 from ..device import DeviceLike, resolve_device
 from ..kernels.gf2 import (NO_LOW, find_low_np, gf2_find_low,
                            gf2_scatter_xor, gf2_serial_reduce, scatter_bits,
                            scatter_xor_bits, set_bit_positions,
                            stack_wire_payloads, to_numpy, to_tensor,
                            unstack_wire_payloads)
+from ..launch.elastic import ShardSupervisor
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, active_tracer, critical_path
+from ..resilience.faults import (TransientFault, active_injector,
+                                 corrupt_payload, retry_with_backoff)
 from .pairing import EMPTY_KEY
 from .pivot_cache import (PackedPivotCache, decode_commit_delta,
-                          encode_commit_delta)
+                          encode_commit_delta, verify_commit_delta)
 from .reduction import (DimensionAdapter, PivotStore, ReductionResult,
                         clearance_commit, clearing_filter, finalize_result,
                         merge_cancel, seed_column)
@@ -225,6 +242,7 @@ class _PackedBatch:
         if len(self.segs) == 1:
             return
         self.n_consolidations += 1
+        san = active_sanitizer()
         if self.cache is not None:
             self.cache.bump_epoch()   # re-ranking invalidates cached positions
         ridx_all, keys_all = [], []
@@ -232,6 +250,11 @@ class _PackedBatch:
             w = _words(len(seg), self.use_kernels)
             ridx, pos, _ = set_bit_positions(self.block[:, off:off + w])
             keep = pos < len(seg)
+            if san is not None:
+                # the keep filter below silently drops any bit past the
+                # segment universe — under the sanitizer that is a lost
+                # GF(2) coordinate, not slack
+                san.check_segment_bits(pos, len(seg))
             ridx_all.append(ridx[keep])
             keys_all.append(seg[pos[keep]])
         ridx = np.concatenate(ridx_all)
@@ -247,6 +270,9 @@ class _PackedBatch:
         pos = np.searchsorted(universe, keys)
         order = np.lexsort((pos, ridx))
         scatter_bits(self.block, ridx[order], pos[order])
+        if san is not None:
+            san.check_consolidation(ridx, keys, universe,
+                                    self.block[:, :self.r_words])
 
     def _abs_positions(self, keys: np.ndarray
                        ) -> Tuple[np.ndarray, np.ndarray]:
@@ -820,7 +846,17 @@ def reduce_dimension_packed(
     The hand-rolled accounting is kept only as ``sim_wall_bookkeeping_s``,
     so the two can be cross-checked; for P == 1 both reproduce the measured
     wall.
+
+    At P > 1 an armed fault injector (:func:`repro_torch.resilience.faults.
+    inject`) kills or slows shards at ``reduce.superstep`` and drops,
+    corrupts or delays payloads at ``exchange.wire``; the diagrams stay
+    those of the fault-free run (module docstring, "Recovery"), and the
+    seven ``resilience_*`` counters, the ``resilience/recover`` spans and
+    the ``resilience_recover_s`` / ``resilience_backoff_s`` histograms
+    record what happened.  ``kill_shard`` and ``slow_shard`` with a
+    ``mesh`` raise the reference's ``ValueError``.
     """
+    san = active_sanitizer()
     P = _resolve_reduce_shards(mesh, n_shards)
     if exchange_every < 1:
         raise ValueError("exchange_every must be >= 1")
@@ -857,10 +893,28 @@ def reduce_dimension_packed(
         # the provenance that drives the sweep's critical-path accounting
         shard_logs: List[list] = [[] for _ in range(P)]
         pending: Dict[int, Tuple[int, int]] = {}
+        # -- resilience: heartbeat supervision on the deterministic
+        # superstep clock.  Every live shard beats once per superstep; a
+        # shard that misses a beat past the timeout is dead and its
+        # remaining batch queue re-deals to the survivors from the last
+        # exact commit sweep.  Stragglers are sidelined from dealing for a
+        # cooldown but stay live.  An armed FaultInjector is what
+        # kills/slows shards and drops/corrupts wire payloads, on a seeded
+        # schedule; with none armed this is all no-op bookkeeping.
+        sup = ShardSupervisor(n_shards=P, timeout=0.75, factor=3.0,
+                              sideline=1)
+        inj = active_injector()
+        killed: set = set()
+        slow_lag: Dict[int, Tuple[float, int]] = {}  # shard -> (lag, until)
+        n_shard_deaths = 0
+        n_redeals = 0
+        n_sidelines = 0
+        n_exchange_retries = 0
+        n_exchange_deferrals = 0
+        n_wire_corruptions = 0
+        n_faults_seen = 0
     else:
         lookup_store = store
-    # n_shards < 1 deals to one shard, as in the reference
-    active = list(range(max(P, 1)))
     pairs: List[tuple] = []
     essentials: List[float] = []
     essential_ids: List[int] = []
@@ -888,10 +942,70 @@ def reduce_dimension_packed(
 
     pos = 0
     while pos < len(queue):
-        # ---- superstep: the next up-to-P batches, dealt round-robin over
-        # the shards; slice k is shard active[k]'s local batch ----
+        # ---- superstep: the next up-to-|active| batches, dealt
+        # round-robin over the supervisor's active shards (all P when
+        # nothing failed); slice k is shard active[k]'s local batch ----
         n_supersteps += 1
         step = n_supersteps
+        mid_kills: List[int] = []
+        if P > 1:
+            if inj is not None:
+                for s in list(sup.live):
+                    for f in inj.fire("reduce.superstep", index=step,
+                                      shard=s):
+                        if f.kind in ("kill_shard", "slow_shard") \
+                                and mesh is not None:
+                            raise ValueError(
+                                f"{f.kind} injection requires the "
+                                "host-partitioned driver (mesh=None): a "
+                                "mesh cannot shrink mid-collective")
+                        n_faults_seen += 1
+                        if f.kind == "kill_shard":
+                            if f.param("when", "start") == "mid":
+                                # participates in the concurrent phase,
+                                # dies before its commit sweep
+                                mid_kills.append(s)
+                            else:
+                                killed.add(s)
+                        elif f.kind == "slow_shard":
+                            # beat lag clamped below the death timeout:
+                            # "slow" degrades, it does not kill
+                            slow_lag[s] = (
+                                min(float(f.param("lag", 0.6)), 0.6),
+                                step + int(f.param("duration", 1)))
+            beats: Dict[int, float] = {}
+            for s in sup.live:
+                if s in killed:
+                    continue                  # a dead shard stops beating
+                lag = slow_lag.get(s)
+                beats[s] = (float(step) - lag[0]
+                            if lag is not None and step <= lag[1]
+                            else float(step))
+            plan = sup.observe(float(step), beats)
+            if not sup.live:
+                raise RuntimeError(
+                    "every reduction shard died; cannot recover")
+            if plan.dead:
+                # re-deal the dead shards' remaining queue to survivors
+                # (dealing below only feeds active shards) and hand their
+                # un-replicated wire backlog to an heir so the replica
+                # eventually hears about those commits
+                with tl.span("resilience/recover", step=step,
+                             kind="kill_start",
+                             shards=tuple(plan.dead)) as rsp:
+                    n_shard_deaths += len(plan.dead)
+                    n_redeals += 1
+                    heir = sup.live[0]
+                    for d in plan.dead:
+                        if shard_logs[d]:
+                            shard_logs[heir].extend(shard_logs[d])
+                            shard_logs[d] = []
+                reg.histogram("resilience_recover_s").observe(rsp.dur)
+            if plan.stragglers:
+                n_sidelines += len(plan.stragglers)
+            active = plan.active
+        else:
+            active = [0]
         slice_sizes = []
         start = pos
         for _ in range(len(active)):
@@ -906,6 +1020,9 @@ def reduce_dimension_packed(
         n_slices = len(slice_sizes)
         B = len(ids_arr)
         ids_int = [int(i) for i in ids_arr]
+        if san is not None:
+            san.set_context(superstep=n_supersteps,
+                            batch=f"{start}:{pos}")
         gens: List[Dict[int, int]] = [dict() for _ in range(B)]
         # per-shard busy accounting, span-encoded (obs.trace.critical_path):
         # fused block ops split by row share (the ``weights`` attr),
@@ -1003,6 +1120,38 @@ def reduce_dimension_packed(
                 addend_lows = probe_lows
             t_fused += sp.dur
 
+        if P > 1 and mid_kills:
+            # the shard died after its concurrent phase but before its
+            # commit sweep: nothing of this superstep has committed, so the
+            # last commit sweep is still the exact recovery line — discard
+            # the superstep (its block, device copies and cache epoch go
+            # with it; the next block bumps the epoch and sizes its
+            # eviction threshold to its own slices) and restart it from
+            # ``start`` with the survivors
+            with tl.span("resilience/recover", step=step, kind="kill_mid",
+                         shards=tuple(mid_kills)) as rsp:
+                for s in mid_kills:
+                    killed.add(s)
+                    sup.kill(s)
+                n_shard_deaths += len(mid_kills)
+                n_redeals += 1
+                if sup.live:
+                    heir = sup.live[0]
+                    for s in mid_kills:
+                        if shard_logs[s]:
+                            shard_logs[heir].extend(shard_logs[s])
+                            shard_logs[s] = []
+            if not sup.live:
+                raise RuntimeError(
+                    "every reduction shard died; cannot recover")
+            # time-to-recover = the discarded concurrent work + the
+            # bookkeeping above (the re-dealt batches rerun next loop)
+            reg.histogram("resilience_recover_s").observe(
+                t_fused + float(t_slice[:max(n_slices, 1)].sum())
+                + t_seq + rsp.dur)
+            pos = start
+            continue
+
         # ---- exact commit sweep, slice by slice in global batch order:
         # re-probe the *authoritative* store until stable, then
         # clearance-commit — the realized schedule is a left-to-right
@@ -1019,6 +1168,8 @@ def reduce_dimension_packed(
         deps: List[set] = [set() for _ in range(max(n_slices, 1))]
         for k in range(n_slices):
             with tl.span("reduce/sweep", lane=k, step=step) as sw_sp:
+                if san is not None:
+                    san.set_context(slice=k)
                 s0, s1 = int(bounds[k]), int(bounds[k + 1])
                 rows = np.arange(s0, s1)
                 sids = ids_arr[s0:s1]
@@ -1137,10 +1288,61 @@ def reduce_dimension_packed(
             n_exchange_rounds += 1
             t_enc = np.zeros(P)
             payloads = []
+            shipped_lows: List[List[int]] = []
             for k in range(P):
                 with tl.span("reduce/encode", lane=k, step=step) as sp:
                     payloads.append(encode_commit_delta(shard_logs[k]))
+                shipped_lows.append([r["low"] for r in shard_logs[k]])
                 t_enc[k] = sp.dur
+            # wire-level faults: each payload's delivery gets a bounded
+            # retry with deterministic jittered backoff (the schedule is
+            # accounted, not slept); a payload that exhausts its budget is
+            # *deferred* — an empty payload ships in its slot and its
+            # backlog + pending lows survive to the next round, exact by
+            # the same staleness argument as the exchange cadence itself
+            delivered = [True] * P
+            if inj is not None:
+                empty_payload = encode_commit_delta([])
+
+                def note_retry(a, e, delay):
+                    nonlocal n_exchange_retries
+                    n_exchange_retries += 1
+                    reg.histogram("resilience_backoff_s").observe(delay)
+
+                for k in range(P):
+                    def attempt(a, k=k, buf0=payloads[k]):
+                        nonlocal n_faults_seen, n_wire_corruptions
+                        buf = buf0
+                        for f in inj.fire("exchange.wire",
+                                          index=n_exchange_rounds,
+                                          shard=k):
+                            n_faults_seen += 1
+                            if f.kind == "drop":
+                                raise TransientFault(
+                                    f"exchange payload {k} dropped")
+                            if f.kind == "corrupt":
+                                buf = corrupt_payload(
+                                    buf, int(f.param("bit", 17)))
+                            elif f.kind == "delay":
+                                reg.histogram(
+                                    "resilience_backoff_s").observe(
+                                    float(f.param("delay_s", 1e-3)))
+                        if not verify_commit_delta(buf):
+                            n_wire_corruptions += 1
+                            raise TransientFault(
+                                f"exchange payload {k} corrupt on the "
+                                "wire (checksum)")
+                        return buf
+
+                    try:
+                        payloads[k] = retry_with_backoff(
+                            attempt, attempts=3, base_s=1e-4,
+                            seed=(n_exchange_rounds << 8) | k,
+                            sleep=None, on_retry=note_retry)
+                    except TransientFault:
+                        n_exchange_deferrals += 1
+                        payloads[k] = empty_payload
+                        delivered[k] = False
             wire = sum(p.nbytes for p in payloads)
             exchange_bytes += wire
             with tl.span("reduce/exchange", step=step,
@@ -1152,10 +1354,13 @@ def reduce_dimension_packed(
                                         rec["gens"])
             sim_wall_book += float(t_enc.max()) + sp.dur
             for k in range(P):
-                for r in shard_logs[k]:
-                    pending.pop(r["low"], None)
-                shard_logs[k] = []
+                if delivered[k]:
+                    for low in shipped_lows[k]:
+                        pending.pop(low, None)
+                    shard_logs[k] = []
 
+    if san is not None:
+        san.set_context(superstep=None, batch=None, slice=None)
     # the reported sim walls are DERIVED from the span timeline — the
     # bookkeeping above survives only as its cross-check
     cp = critical_path(tl.spans)
@@ -1179,6 +1384,15 @@ def reduce_dimension_packed(
     reg.counter("n_tournament_reductions").inc(n_tournament_reductions)
     reg.counter("n_sweep_probes").inc(n_sweep_probes)
     reg.counter("exchange_bytes").inc(exchange_bytes)
+    if P > 1:
+        reg.counter("resilience_n_faults").inc(n_faults_seen)
+        reg.counter("resilience_n_shard_deaths").inc(n_shard_deaths)
+        reg.counter("resilience_n_redeals").inc(n_redeals)
+        reg.counter("resilience_n_straggler_sidelines").inc(n_sidelines)
+        reg.counter("resilience_n_exchange_retries").inc(n_exchange_retries)
+        reg.counter("resilience_n_exchange_deferrals").inc(
+            n_exchange_deferrals)
+        reg.counter("resilience_n_wire_corruptions").inc(n_wire_corruptions)
     for key, val in cp.items():
         reg.gauge(key).set(val)
     reg.gauge("sim_wall_bookkeeping_s").set(sim_wall_book)

@@ -2,9 +2,10 @@
 
 Port of ``src/repro/core/pivot_cache.py``: the :class:`PackedPivotCache`
 and the commit-delta wire codec, whose payloads are word for word the
-reference's (either package decodes the other's).  The reference's
-sanitizer round-trip check in ``encode_commit_delta`` comes with the
-sanitizer (ROADMAP.md §1 item 7).
+reference's (either package decodes the other's).  Under the GF(2)
+sanitizer (:mod:`repro_torch.analyze.invariants`) ``put_column`` checks
+that a memoized column is canonical and ``encode_commit_delta`` checks
+the wire round trip, as in the reference.
 
 The packed engine (:mod:`repro_torch.core.packed_reduce`) re-derives the
 same per-pivot work once per *consuming batch*: every batch that probes a
@@ -36,6 +37,7 @@ from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
+from ..analyze.invariants import active_sanitizer
 from ..dist.compression import pack_column_payload, unpack_column_payload
 from ..obs.metrics import MetricsRegistry
 from ..resilience.faults import WireCorruption
@@ -106,6 +108,11 @@ class PackedPivotCache:
         if low in self._columns:
             return
         keys = np.ascontiguousarray(keys, dtype=np.int64)
+        san = active_sanitizer()
+        if san is not None:
+            # memoized R columns must be canonical (strictly increasing):
+            # the cache serves every later consumer of this low verbatim
+            san.check_canonical_column(keys)
         self._columns[low] = keys
         self._col_bytes += keys.nbytes
         if self.budget_bytes is not None:
@@ -190,7 +197,13 @@ def encode_commit_delta(records: Sequence[dict]) -> np.ndarray:
     crc = np.uint32(zlib.crc32(head.tobytes() + tail.tobytes())
                     & 0xFFFFFFFF)
     header = np.array([_DELTA_MAGIC, n, body.size, crc], dtype=np.uint32)
-    return np.concatenate([header, tail])
+    payload = np.concatenate([header, tail])
+    san = active_sanitizer()
+    if san is not None:
+        # the replica installs exactly what decodes: check the round-trip
+        # before the payload crosses the wire
+        san.check_wire_roundtrip(records, payload, decode_commit_delta)
+    return payload
 
 
 def verify_commit_delta(payload: np.ndarray) -> bool:

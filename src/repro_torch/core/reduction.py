@@ -5,8 +5,11 @@ Port of ``src/repro/core/reduction.py`` (host numpy, unchanged semantics).
 which the distributed packed reduction uses for its wire backlogs and pivot
 replicas.  The engines take the reference's warm-restart hooks
 (``seed_gens``, ``commit_log``, ``essential_log``; :func:`seed_column`),
-which :mod:`repro_torch.core.resume` drives.  The sanitizer hooks stay in
-the reference (ROADMAP.md §1 item 7).
+which :mod:`repro_torch.core.resume` drives.  The GF(2) sanitizer's hooks
+(:mod:`repro_torch.analyze.invariants`) sit at the reference's sites: a
+spill's rematerialization, a fresh pivot and a canonical column at
+``commit``, a fresh pivot at ``install``, and the pair order before
+clearance.
 
 Implements the paper's reduction family on packed paired-index keys:
 
@@ -37,6 +40,7 @@ from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
+from ..analyze.invariants import active_sanitizer
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import span
 from .pairing import EMPTY_KEY
@@ -206,6 +210,17 @@ class PivotStore:
         """Convert a stored explicit column to implicit (V^⊥) in place."""
         assert self.col_modes[idx] == "explicit" \
             and self.gens_lists[idx] is not None
+        san = active_sanitizer()
+        if san is not None and callable(getattr(self.adapter, "cobdy", None)):
+            # a demotion is one-way: verify the δ-expansion reproduces the
+            # explicit R keys *before* they are dropped (needs a real
+            # adapter — synthetic stores with stub adapters skip this)
+            gens = np.concatenate([
+                self.gens_lists[idx],
+                np.array([self.col_ids[idx]], dtype=np.int64)])
+            rematerialized = parity_reduce(self.adapter.cobdy(gens).ravel())
+            san.check_rematerialization(self.columns[idx], rematerialized,
+                                        self.col_ids[idx])
         self.bytes_stored -= self.columns[idx].nbytes
         self.columns[idx] = self.gens_lists[idx]
         self.col_modes[idx] = "implicit"
@@ -249,6 +264,11 @@ class PivotStore:
                trivial: bool) -> None:
         if trivial:
             return  # never stored (paper §4.3.5)
+        san = active_sanitizer()
+        if san is not None:
+            san.check_fresh_pivot(self.low_to_idx, low)
+            if r.size:
+                san.check_canonical_column(r)
         mode = self.mode
         if mode == "explicit" and self.store_budget_bytes is not None:
             incoming = r.nbytes + (gens.nbytes if self.track_gens else 0)
@@ -290,6 +310,9 @@ class PivotStore:
         the authoritative store committed (a later demotion on the
         authority is representational only and is not replicated)."""
         assert mode in ("explicit", "implicit")
+        san = active_sanitizer()
+        if san is not None:
+            san.check_fresh_pivot(self.low_to_idx, low)
         self.low_to_idx[low] = len(self.columns)
         self.col_ids.append(col_id)
         self.col_modes.append(mode)
@@ -485,6 +508,9 @@ def clearance_commit(store: PivotStore, adapter: DimensionAdapter,
     ne_owners = adapter.owner_of_low(ne_lows)
     births = adapter.birth_value(ne_ids)
     deaths = adapter.death_value(ne_lows)
+    san = active_sanitizer()
+    if san is not None:
+        san.check_pair_orders(births, deaths)
     trivial = (np.asarray(mcs) == ne_lows) & (np.asarray(ne_owners) == ne_ids)
     if store.mode == "implicit":
         store_rows = np.zeros(0, dtype=np.int64)

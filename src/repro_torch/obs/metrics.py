@@ -4,8 +4,9 @@ Port of ``src/repro/obs/metrics.py`` (same schema, same semantics): the
 port's ``stats`` producers (``core/reduction.py``, ``core/packed_reduce.py``,
 ``core/pivot_cache.py``, ``core/homology.py``) build their numbers through
 a :class:`MetricsRegistry`, so ``compute_ph(...).stats`` carries exactly
-the reference's keys.  The schema keeps the entries of reference modules
-not ported yet (serving, resilience) so both packages share one key space.
+the reference's keys.  The schema is the reference's whole (serving,
+resilience and the sanitizer's ``sanitize_checks`` included), so both
+packages share one key space.
 
 ``registry.as_stats()`` flattens to the same ``Dict[str, float]`` shape the
 pipeline has always returned (histograms expand to ``name_count`` /

@@ -31,12 +31,11 @@ site                 instrumented where / supported kinds
                      ``overload``
 ===================  =========================================================
 
-The port instruments ``resume.load`` and ``serve.step``.  The first three
-sites belong to the distributed driver's recovery, the tile retries and
-the exchange transport, which are not ported yet (ROADMAP.md §1 item 7):
-:func:`inject` refuses a plan with a spec at any of them, so a chaos plan
-never runs fault-free unnoticed.  :class:`FaultPlan` and
-:class:`FaultInjector` themselves take every site, as in the reference.
+The port instruments all five sites where the reference does: the tile
+loop of :func:`repro_torch.scale.tiles.iter_tile_edges`, the distributed
+packed reduction's superstep loop and exchange rounds
+(:mod:`repro_torch.core.packed_reduce`), ``core/resume.py``'s load and
+``serve/ph.py``'s step loop.
 
 Every random choice (which bit to flip, jitter in a backoff schedule)
 derives from ``np.random.default_rng(seed)``, so an identical plan replays
@@ -86,11 +85,6 @@ _KINDS: Dict[str, Tuple[str, ...]] = {
     "resume.load": ("bitflip", "truncate"),
     "serve.step": ("fail_reduce", "overload"),
 }
-
-# sites whose recovery paths the port does not have yet: inject() refuses
-# a plan that names one
-_UNINSTRUMENTED: Tuple[str, ...] = ("harvest.tile", "reduce.superstep",
-                                    "exchange.wire")
 
 
 class InjectedFault(RuntimeError):
@@ -269,19 +263,11 @@ def inject(plan: Optional[FaultPlan]) -> Iterator[Optional[FaultInjector]]:
             engine.step()
 
     ``inject(None)`` is a no-op (yields ``None``) so callers can thread an
-    optional plan without branching.  A plan with a spec at a site the
-    port does not instrument yet raises ``NotImplementedError`` before
-    anything is armed."""
+    optional plan without branching."""
     global _ACTIVE
     if plan is None:
         yield None
         return
-    missing = sorted({s.site for s in plan.specs} & set(_UNINSTRUMENTED))
-    if missing:
-        raise NotImplementedError(
-            f"fault site(s) {', '.join(missing)} are not instrumented in "
-            "the port yet (the distributed driver's recovery, the tile "
-            "retries and the exchange transport): ROADMAP.md §1 item 7")
     previous = _ACTIVE
     _ACTIVE = FaultInjector(plan)
     try:

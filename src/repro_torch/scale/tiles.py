@@ -22,8 +22,11 @@ Two backends:
 ``backend="auto"`` takes ``"kernel"`` on a CUDA device and ``"numpy"`` on
 the CPU.  The sharded harvest over a mesh (:mod:`repro_torch.scale.shard`)
 replays each shard's tile list through the same per-tile dispatch
-(``iter_tile_edges(tiles=)``).  The reference's fault-injection retries
-(``tile_retries``) come with the service layer (ROADMAP.md §1 item 7).
+(``iter_tile_edges(tiles=)``).  A tile lost to a transient fault (the
+``harvest.tile`` site of :mod:`repro_torch.resilience.faults`) is
+harvested again, as in the reference: a tile is a pure function of its
+origin, so the retry gives identical bits, counted in
+``TileStats.tile_retries``.
 """
 from __future__ import annotations
 
@@ -37,6 +40,8 @@ from ..core.filtration import (block_sq_dists, filtration_from_edges,
                                pair_sq_dists)
 from ..device import DeviceLike, resolve_device
 from ..obs.trace import span
+from ..resilience.faults import (TransientFault, active_injector,
+                                 retry_with_backoff)
 
 DEFAULT_TILE = 2048
 
@@ -73,6 +78,7 @@ class TileStats:
     mesh_axis: str = ""           # mesh axis name for device-sharded builds
     gather_bytes: int = 0         # sharded: per-round transfer to the host
     shard_peak_harvest_bytes: int = 0   # largest per-shard fragment set
+    tile_retries: int = 0         # injected/transient tile failures retried
 
     def peak_extra_bytes(self) -> int:
         """Peak transient memory of the build: one tile + the merge worst case
@@ -309,29 +315,52 @@ def iter_tile_edges(
 
     if tiles is None:
         tiles = tile_grid(n, tile_m, tile_n)
-    for si, sj in tiles:
+    inj = active_injector()
+    for tile_ord, (si, sj) in enumerate(tiles):
         ei, ej = min(si + tile_m, n), min(sj + tile_n, n)
         if stats is not None:
             stats.tiles_visited += 1
+
         # the chunk is computed under its span and only then yielded, so
         # consumer work between tiles is never attributed to the harvest
-        if dists is not None:
-            with span("harvest/tile", tile=f"{si},{sj}", backend="dists"):
-                lens_tile = np.asarray(dists[si:ei, sj:ej], dtype=np.float64)
-                chunk = _harvest_masked_tile(lens_tile, si, sj, tau_max,
-                                             _upper_mask(si, ei, sj, ej),
-                                             stats)
-        elif backend == "kernel":
-            with span("harvest/tile", tile=f"{si},{sj}", backend="kernel"):
-                d2_32 = sq_dists(pts32[si:ei], pts32[sj:ej])
-                ri, rj = _candidates_on_device(d2_32, si, ei, sj, ej, thr32,
-                                               stats)
-                chunk = _refine_candidates(ri, rj, points, sq, si, sj,
-                                           tau_max, stats)
-        else:
+        def compute_tile(attempt: int, tile_ord=tile_ord,
+                         si=si, sj=sj, ei=ei, ej=ej):
+            # a lost tile computation (preempted device, evicted host) is
+            # transient: the tile is a pure function of its origin, so the
+            # retry re-harvests identical bits
+            if inj is not None and inj.fire("harvest.tile", index=tile_ord,
+                                            kinds=("fail_tile",)):
+                raise TransientFault(
+                    f"injected tile failure at ({si},{sj})")
+            if dists is not None:
+                with span("harvest/tile", tile=f"{si},{sj}",
+                          backend="dists"):
+                    lens_tile = np.asarray(dists[si:ei, sj:ej],
+                                           dtype=np.float64)
+                    return _harvest_masked_tile(lens_tile, si, sj, tau_max,
+                                                _upper_mask(si, ei, sj, ej),
+                                                stats)
+            if backend == "kernel":
+                with span("harvest/tile", tile=f"{si},{sj}",
+                          backend="kernel"):
+                    d2_32 = sq_dists(pts32[si:ei], pts32[sj:ej])
+                    ri, rj = _candidates_on_device(d2_32, si, ei, sj, ej,
+                                                   thr32, stats)
+                    return _refine_candidates(ri, rj, points, sq, si, sj,
+                                              tau_max, stats)
             with span("harvest/tile", tile=f"{si},{sj}", backend="numpy"):
-                chunk = _harvest_points_tile(points, sq, si, ei, sj, ej,
-                                             tau_max, stats)
+                return _harvest_points_tile(points, sq, si, ei, sj, ej,
+                                            tau_max, stats)
+
+        if inj is None:
+            chunk = compute_tile(0)
+        else:
+            def note_retry(a, err, delay_s):
+                if stats is not None:
+                    stats.tile_retries += 1
+            chunk = retry_with_backoff(compute_tile, attempts=3,
+                                       base_s=1e-4, seed=tile_ord,
+                                       sleep=None, on_retry=note_retry)
         yield chunk
 
 

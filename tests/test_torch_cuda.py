@@ -364,6 +364,59 @@ def test_compute_ph_dist_card_matches_cpu(dev, n_shards, exchange_every):
     assert card.stats["h1_use_kernels"] == 1.0
 
 
+_CARD_FAULTS = {
+    "kill_start": dict(site="reduce.superstep", kind="kill_shard", at=2,
+                       shard=1, params=(("when", "start"),)),
+    "kill_mid": dict(site="reduce.superstep", kind="kill_shard", at=3,
+                     shard=2, params=(("when", "mid"),)),
+    "wire": dict(site="exchange.wire", kind="corrupt", at=1, shard=0,
+                 params=(("bit", 37),)),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_CARD_FAULTS))
+def test_compute_ph_faulted_dist_card_matches_cpu(dev, case):
+    """A faulted ``n_shards=4`` run on the card (the fused blocks through
+    the kernels, fewer slices after a kill): diagrams and recovery
+    counters equal the same plan's CPU run, diagrams the fault-free
+    card run's."""
+    from repro_torch.resilience.faults import FaultPlan, FaultSpec, inject
+
+    pts = np.random.default_rng(4).normal(size=(60, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=2, engine="packed",
+              backend="tiled", tile_m=32, tile_n=32, batch_size=8,
+              n_shards=4, exchange_every=1)
+    runs = {}
+    for where in ("cuda", "cpu"):
+        plan = FaultPlan.of(FaultSpec(**_CARD_FAULTS[case]), seed=5)
+        with inject(plan) as inj:
+            runs[where] = compute_ph(device=where, **kw)
+            assert inj.fired
+    clean = compute_ph(device="cuda", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(runs["cuda"].diagrams[d],
+                              runs["cpu"].diagrams[d]), d
+        assert np.array_equal(runs["cuda"].diagrams[d], clean.diagrams[d]), d
+    for k, v in runs["cpu"].stats.items():
+        if "resilience_n_" in k:
+            assert runs["cuda"].stats[k] == v, k
+
+
+@pytest.mark.parametrize("n_shards", [None, 3])
+def test_compute_ph_sanitize_card_matches_cpu(dev, n_shards):
+    """``compute_ph(sanitize=True)`` on the card: the checks run on the
+    kernel path's blocks and the diagrams equal the CPU run's."""
+    pts = np.random.default_rng(1).normal(size=(16, 3))
+    kw = dict(points=pts, maxdim=2, engine="packed", batch_size=8,
+              n_shards=n_shards, sanitize=True)
+    card = compute_ph(device="cuda", **kw)
+    host = compute_ph(device="cpu", **kw)
+    for d in (0, 1, 2):
+        assert np.array_equal(card.diagrams[d], host.diagrams[d]), d
+    assert card.stats["sanitize_checks"] > 0
+    assert card.stats["h1_use_kernels"] == 1.0
+
+
 def test_compute_ph_dist_one_slice_superstep_launches_serial_kernel(dev):
     """At P = 2 the H1 queue's last superstep holds one slice of 17 rows
     with colliding lows, so its serial pass runs unrestricted and the

@@ -2,10 +2,9 @@
 the CPU against the JAX package's ``repro.resilience.faults``.
 
 Exact throughout: plans from a seed, injector histories, backoff
-schedules and corrupted bytes equal the reference's.  The arming rule is
-the port's own: ``inject`` refuses a plan with a spec at a site the port
-does not instrument yet (``harvest.tile``, ``reduce.superstep``,
-``exchange.wire``), naming ROADMAP.md §1 item 7.
+schedules and corrupted bytes equal the reference's.  ``inject`` arms a
+plan at every one of the reference's five sites; the recovery each site
+drives is held to the reference's in ``tests/test_torch_resilience.py``.
 """
 import inspect
 
@@ -178,14 +177,29 @@ def test_corruption_helpers_match_reference():
                                        ("reduce.superstep", "kill_shard"),
                                        ("exchange.wire", "drop")])
 def test_inject_refuses_uninstrumented_site(site, kind):
-    """A plan naming a site the port does not instrument yet would run
-    fault-free: arming it raises and arms nothing."""
-    plan = faults.FaultPlan.of(faults.FaultSpec("serve.step", "overload"),
-                               faults.FaultSpec(site, kind, at=1))
-    with pytest.raises(NotImplementedError, match=r"§1 item 7$"):
-        with faults.inject(plan):
-            pass
+    """The three sites ``inject`` refused until their recovery paths were
+    ported arm and fire: a distributed ``compute_ph`` (P = 2, the tiled
+    harvest at 16 x 16 tiles) under a one-spec plan fires the reference's
+    history and gives the reference's diagrams."""
+    from repro.core import compute_ph as ref_compute_ph
+    from repro_torch import compute_ph
+
+    pts = np.random.default_rng(9).normal(size=(40, 3))
+    kw = dict(points=pts, tau_max=1.2, maxdim=1, engine="packed",
+              backend="tiled", tile_m=16, tile_n=16, n_shards=2,
+              batch_size=8, exchange_every=1)
+    with ref.inject(ref.FaultPlan.of(ref.FaultSpec(site, kind, at=1),
+                                     seed=2)) as ref_inj:
+        want = ref_compute_ph(**kw)
+    with faults.inject(faults.FaultPlan.of(faults.FaultSpec(site, kind,
+                                                            at=1),
+                                           seed=2)) as inj:
+        assert faults.active_injector() is inj
+        got = compute_ph(device="cpu", **kw)
     assert faults.active_injector() is None
+    assert inj.fired and inj.fired == ref_inj.fired
+    for d in (0, 1):
+        assert np.array_equal(got.diagrams[d], want.diagrams[d]), d
 
 
 def test_inject_arms_and_restores():

@@ -56,7 +56,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.dist.sharding, repro_torch.scale.shard, "
             "repro_torch.scale.budget, repro_torch.serve, "
             "repro_torch.core.resume, repro_torch.serve.ph, "
-            "repro_torch.resilience; "
+            "repro_torch.resilience, repro_torch.analyze, "
+            "repro_torch.analyze.invariants, repro_torch.launch.elastic, "
+            "repro_torch.core.device_engine; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -145,9 +145,14 @@ def test_default_device_needs_a_card():
 
 
 def test_unported_options_refused():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        compute_ph(points=cloud(0, n=8), maxdim=1, device="cpu",
-                   sanitize=True)
+    """``sanitize=True``, refused until the sanitizer was ported, runs:
+    the reference's diagrams and check count."""
+    mine = compute_ph(points=cloud(0, n=8), maxdim=1, device="cpu",
+                      sanitize=True)
+    ref = ref_compute_ph(points=cloud(0, n=8), maxdim=1, sanitize=True)
+    for d in (0, 1):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+    assert mine.stats["sanitize_checks"] == ref.stats["sanitize_checks"] > 0
 
 
 @pytest.mark.parametrize("kw", [dict(backend="tiled"),

@@ -3,9 +3,14 @@ reference's order, with only a trailing ``device`` added where they run
 on the card and nothing added where they run on the host only, raise the
 reference's ``ValueError`` where it does, take the port's own mesh and
 nothing else for ``mesh=``, and refuse each value they cannot take yet
-with ``NotImplementedError`` naming its ROADMAP.md item."""
+with ``NotImplementedError`` naming its ROADMAP.md item.  The GF(2)
+sanitizer (``sanitize=True``, ``REPRO_SANITIZE``), refused until it was
+ported, runs and matches the reference."""
 import dataclasses
 import inspect
+import os
+import subprocess
+import sys
 
 import numpy as np
 import pytest
@@ -124,29 +129,60 @@ def _cpu_mesh(p):
     return make_data_mesh(p, devices=["cpu"] * p)
 
 
-@pytest.mark.parametrize("kw,item", [
-    (dict(sanitize=True), r"§1 item 7$"),
-    (dict(sanitize=True, engine="packed", mesh=_cpu_mesh(2)), r"§1 item 7$"),
+@pytest.mark.parametrize("kw,ref_kw", [
+    (dict(sanitize=True), dict(sanitize=True)),
+    (dict(sanitize=True, engine="packed", mesh=_cpu_mesh(2)),
+     dict(sanitize=True, engine="packed", n_shards=2)),
 ])
-def test_compute_ph_refusals_name_their_item(kw, item):
-    with pytest.raises(NotImplementedError, match=item):
-        compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+def test_compute_ph_refusals_name_their_item(kw, ref_kw):
+    """What was refused with §1 item 7 runs: the sanitizer on the single
+    engine and over a cpu x 2 mesh, with the reference's diagrams and
+    check count (the mesh against the reference's ``n_shards=2``)."""
+    mine = compute_ph(points=_cloud(), maxdim=1, device="cpu", **kw)
+    ref = ref_compute_ph(points=_cloud(), maxdim=1, **ref_kw)
+    for d in (0, 1):
+        assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+    assert mine.stats["sanitize_checks"] == ref.stats["sanitize_checks"] > 0
+
+
+_ENV_RUN = r"""
+import numpy as np
+from repro.core import compute_ph as ref_compute_ph
+from repro_torch import compute_ph
+from repro_torch.analyze import active_sanitizer
+assert active_sanitizer() is not None
+pts = np.random.default_rng(5).normal(size=(14, 3))
+ref = ref_compute_ph(points=pts, maxdim=1)
+mine = compute_ph(points=pts, maxdim=1, device="cpu")
+for d in (0, 1):
+    assert np.array_equal(ref.diagrams[d], mine.diagrams[d]), d
+assert mine.stats["sanitize_checks"] == ref.stats["sanitize_checks"] > 0
+print("ok")
+"""
 
 
 @pytest.mark.parametrize("value", ["1", "yes"])
-def test_repro_sanitize_env_is_refused(monkeypatch, value):
-    """``sanitize=None`` reads ``REPRO_SANITIZE`` as the reference does; the
-    variable arming the sanitizer is refused as ``sanitize=True`` is."""
-    monkeypatch.setenv("REPRO_SANITIZE", value)
-    with pytest.raises(NotImplementedError, match=r"§1 item 7$"):
-        compute_ph(points=_cloud(), maxdim=1, device="cpu")
+def test_repro_sanitize_env_is_refused(value):
+    """``REPRO_SANITIZE`` set when the sanitizer module is imported (a
+    fresh process) arms it in both packages, so ``compute_ph(sanitize=
+    None)`` runs the checks: the reference's diagrams and check count."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    env = dict(os.environ, PYTHONPATH=os.path.join(root, "src"),
+               REPRO_SANITIZE=value, JAX_PLATFORMS="cpu")
+    run = subprocess.run([sys.executable, "-c", _ENV_RUN],
+                         capture_output=True, text=True, env=env,
+                         timeout=300)
+    assert run.returncode == 0, run.stderr[-2000:]
+    assert run.stdout.strip() == "ok"
 
 
 @pytest.mark.parametrize("value,sanitize", [("1", False), ("0", None),
                                             ("", None)])
 def test_repro_sanitize_env_off_runs(monkeypatch, value, sanitize):
     """``sanitize=False`` with the variable set, or the variable at "0" or
-    empty, runs normally: the reference's diagrams."""
+    empty, runs normally: the reference's diagrams.  The variable is read
+    at import, so setting it in a running process changes nothing, in
+    either package."""
     monkeypatch.setenv("REPRO_SANITIZE", value)
     kw = dict(points=_cloud(), maxdim=1, engine="packed")
     mine = compute_ph(device="cpu", sanitize=sanitize, **kw)
