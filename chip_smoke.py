@@ -186,6 +186,18 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     kernel and the plain version (``hic_serial_replay``).  The control's
     card harvest, as COO triplets, must build a filtration equal field by
     field to ``build_filtration_tiled`` on the card.
+17. ``analyze`` — the static correctness gates of ``python -m
+    repro_torch.analyze`` on the card: the port's lint over the checkout
+    (no unjustified finding; the counts by rule), then
+    ``collectives.check_repo(device=...)``, every registered mesh round
+    function over the 4-entry mesh of the card, with no violation and
+    each schedule equal to the registry's and to the ``cpu x 4`` run's.
+    With the counts set to 0 just before it, the candidate round
+    (``scale.shard._candidate_round_fn``) must launch
+    ``pairwise_sq_dists`` once an entry (4) and give the ``cpu x 4`` run's
+    candidate lists; the exchange round must gather the uneven wire
+    buffer bit for bit (``Mesh``'s ``all_gather``), and the exchange over
+    the card mesh must return the loop-back's payloads.
 
 Phase 3 holds the flash kernel against its plain version (``rtol = atol =
 2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
@@ -2188,6 +2200,112 @@ def hic_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
+# phase 17: the static correctness gates (repro_torch.analyze)
+# ---------------------------------------------------------------------------
+
+CANDIDATE_ROUND = "scale.shard._candidate_round_fn"
+EXCHANGE_ROUND = "core.packed_reduce._exchange_round_fn"
+
+
+def analyze(dev) -> dict:
+    """``python -m repro_torch.analyze``'s two gates on the card.  The
+    port's lint over the checkout: no unjustified finding, the counts by
+    rule printed.  ``check_repo(device=dev)``: every registered mesh
+    program on ``card_mesh(dev)`` with no violation, each schedule equal to
+    the registry's and to the ``cpu x 4`` run's.  The candidate round, with
+    the counts set to 0 just before it, launches ``pairwise_sq_dists``
+    once an entry (4) and its candidate lists equal the ``cpu x 4`` run's;
+    the exchange round gathers the uneven wire buffer bit for bit, and
+    ``_make_exchange`` over the card mesh returns the loop-back's
+    payloads."""
+    from repro_torch.analyze import collectives
+    from repro_torch.analyze.lint import _iter_python_files, lint_paths
+    from repro_torch.core.packed_reduce import _make_exchange
+    from repro_torch.kernels.gf2 import unstack_wire_payloads
+
+    t0 = time.perf_counter()
+    files = _iter_python_files(HERE)
+    findings = lint_paths(HERE, files=files)
+    by_rule: dict = {}
+    for f in findings:
+        entry = by_rule.setdefault(f.rule, {"allowed": 0, "unjustified": 0})
+        entry["allowed" if f.allowed else "unjustified"] += 1
+    bad = [f.format() for f in findings if not f.allowed]
+    if bad:
+        raise AssertionError("analyze: unjustified lint findings:\n"
+                             + "\n".join(bad))
+    lint_s = time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    schedules, violations = collectives.check_repo(device=dev)
+    check_s = time.perf_counter() - t0
+    cpu_schedules, cpu_violations = collectives.check_repo(device="cpu")
+    if violations or cpu_violations:
+        raise AssertionError("analyze: collective violations: " + "; ".join(
+            map(str, violations + cpu_violations)))
+    signatures = {s.where: s.signature() for s in schedules}
+    registry = {p.name: p.expect
+                for p in collectives.repo_programs(device=dev)}
+    if not (signatures == registry ==
+            {s.where: s.signature() for s in cpu_schedules}):
+        raise AssertionError(f"analyze: the card's schedules {signatures} "
+                             f"differ from the registry's {registry} or the "
+                             "cpu x 4 run's")
+
+    card = {p.name: p for p in collectives.repo_programs(device=dev)}
+    cpu = {p.name: p for p in collectives.repo_programs(device="cpu")}
+    fn, args, _, mesh = card[CANDIDATE_ROUND].build()
+    if [str(d) for d in mesh.devices.flat] != \
+            [str(d) for d in card_mesh(dev).devices.flat]:
+        raise AssertionError(f"analyze: the registry's mesh is {mesh}")
+    counters = reset_counters()
+    found = fn(*args)
+    torch.cuda.synchronize()
+    launches = counters["pairwise_sq_dists"].launches
+    cpu_fn, cpu_args, _, _ = cpu[CANDIDATE_ROUND].build()
+    want = cpu_fn(*cpu_args)
+    if launches != len(want) or len(want) != DIST_SHARDS:
+        raise AssertionError(f"analyze: the candidate round launched "
+                             f"pairwise_sq_dists {launches} times, not once "
+                             f"for each of {len(want)} entries")
+    if sorted(found) != sorted(want) or not all(
+            np.array_equal(a, b) for k in want
+            for a, b in zip(found[k], want[k])):
+        raise AssertionError("analyze: the candidate round's lists differ "
+                             "from the cpu x 4 run's")
+
+    fn, _, alt_args, mesh = card[EXCHANGE_ROUND].build()
+    buf = alt_args[0]
+    gathered = fn(buf)
+    if gathered.device != mesh.devices.flat[0] or not np.array_equal(
+            gathered.cpu().numpy().view(np.uint32), buf):
+        raise AssertionError("analyze: the exchange round's gathered buffer "
+                             "differs from the stacked wire")
+    sizes = (0, 1, 7, 1000)
+    payloads = [np.arange(n, dtype=np.uint32) % 97 for n in sizes]
+    lens = np.array(sizes, dtype=np.int64)
+    over_mesh = _make_exchange(mesh)(payloads)
+    loop_back = _make_exchange(None)(payloads)
+    if not all(np.array_equal(a, b) and np.array_equal(a, c) for a, b, c in
+               zip(over_mesh, loop_back, unstack_wire_payloads(buf, lens))):
+        raise AssertionError("analyze: the exchange over the card mesh "
+                             "differs from the loop-back")
+    out = dict(lint_files=len(files),
+               lint_by_rule=by_rule, lint_unjustified=0, lint_s=lint_s,
+               programs={k: [[name, list(axes)] for name, axes in v]
+                         for k, v in signatures.items()},
+               violations=0, check_repo_s=check_s,
+               candidate_launches=launches,
+               candidate_pairs={str(k): int(len(v[0]))
+                                for k, v in sorted(found.items())},
+               candidate_equal_cpu=True, exchange_shape=list(buf.shape),
+               exchange_payload_words=list(sizes),
+               exchange_equal_loopback=True)
+    emit("analyze", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # phases 4 and 5: token serving at full width
 # ---------------------------------------------------------------------------
 
@@ -2574,6 +2692,7 @@ def main() -> int:
     del main_filt, main_deaths
     hic_suite(dev)
     hic = hic_path(dev)
+    analyze(dev)
     launches = dict(path["launches"],
                     flash_attention_bf16=served["flash_launches"],
                     flash_attention_f32=served_f32["flash_launches"])

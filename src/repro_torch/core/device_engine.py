@@ -39,6 +39,7 @@ import numpy as np
 import torch
 
 from ..device import DeviceLike, resolve_device
+from ..launch.mesh import all_gather, ppermute
 
 __all__ = ["EMPTY", "merge_cancel_padded", "truncate_width",
            "parallel_reduce", "tournament_merge_local",
@@ -190,8 +191,19 @@ def make_distributed_round(mesh, n_parallel_iters: int = 8,
       parallel phase (no transfers)
       -> tournament serial phase over ``data`` (``n_serial_rounds``, default
          log2 of its size: entry ``i`` receives a copy of entry ``i ^ step``'s
-         columns, and the later-ranked entry absorbs the collisions)
-      -> the lows of every entry concatenated onto the mesh's first entry.
+         columns, a :func:`~repro_torch.launch.mesh.ppermute`, and the
+         later-ranked entry absorbs the collisions)
+      -> the lows of every entry gathered onto the mesh's first entry
+         (:func:`~repro_torch.launch.mesh.all_gather` over ``data``, then
+         over ``pod``), as the reference's ``all_gather``s are.
+
+    The pods run one after the other, so the schedule that
+    ``repro_torch.analyze.collectives`` records over a ``(pod, data)``
+    mesh is the serial loop's: ``(ppermute[data] x rounds,
+    all_gather[data])`` once a pod, then ``all_gather[pod]``.  It is not
+    the per-entry schedule of the reference's ``shard_map`` program
+    (``ppermute[data] x rounds, all_gather[data], all_gather[pod]``); on a
+    ``(data,)`` mesh the two agree.
 
     Returns ``round_fn(cols, pivot_keys, pivot_cols) -> (cols, lows)``,
     both on the mesh's first entry, the rows of ``cols`` back in their
@@ -220,7 +232,7 @@ def make_distributed_round(mesh, n_parallel_iters: int = 8,
         rows = cols.shape[0] // n_entries
         keys_np = _as_tensor(pivot_keys, first)
         table_np = _as_tensor(pivot_cols, first)
-        out_cols, out_lows = [], []
+        out_cols, pod_lows = [], []
         for p, row in enumerate(grid):
             keys = [keys_np.to(dev) for dev in row]
             table = [table_np.to(dev) for dev in row]
@@ -231,10 +243,10 @@ def make_distributed_round(mesh, n_parallel_iters: int = 8,
                 local.append(parallel_reduce(c, keys[d], table[d],
                                              n_iters=n_parallel_iters)[0])
             for step in steps:
-                # ppermute: every entry reads its partner's columns as they
-                # stood before this round
-                other = [local[d ^ step].to(dev)
-                         for d, dev in enumerate(row)]
+                # every entry reads its partner's columns as they stood
+                # before this round
+                other = ppermute(mesh, "data", local,
+                                 [(i, i ^ step) for i in range(data)])
                 nxt = []
                 for d in range(data):
                     c = local[d]
@@ -244,8 +256,11 @@ def make_distributed_round(mesh, n_parallel_iters: int = 8,
                                                n_iters=2)[0])
                 local = nxt
             out_cols.extend(c.to(first) for c in local)
-            out_lows.extend(c[:, 0].to(first) for c in local)
-        return torch.cat(out_cols), torch.cat(out_lows)
+            pod_lows.append(all_gather(mesh, "data",
+                                       [c[:, 0] for c in local]).reshape(-1))
+        lows = pod_lows[0] if "pod" not in mesh.axis_names else \
+            all_gather(mesh, "pod", pod_lows).reshape(-1)
+        return torch.cat(out_cols), lows
 
     return round_fn
 

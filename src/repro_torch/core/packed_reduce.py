@@ -108,6 +108,7 @@ from ..kernels.gf2 import (NO_LOW, find_low_np, gf2_find_low,
                            stack_wire_payloads, to_numpy, to_tensor,
                            unstack_wire_payloads)
 from ..launch.elastic import ShardSupervisor
+from ..launch.mesh import all_gather
 from ..obs.metrics import MetricsRegistry
 from ..obs.trace import Tracer, active_tracer, critical_path
 from ..resilience.faults import (TransientFault, active_injector,
@@ -345,12 +346,12 @@ class _PackedBatch:
             sub = self.block[rows, off:off + w]
             if self.use_kernels:
                 # rows padded to a multiple of 32, as the reference buckets
-                # them; the lows gate the host serial pass, so they come
-                # straight back (one round trip per segment)
+                # them
                 pad = (-len(rows)) % 32
                 if pad:
                     sub = np.vstack(
                         [sub, np.zeros((pad, w), dtype=np.uint32)])
+                # analyze: allow[host-sync] the lows gate the host serial pass; one bucketed round trip per segment is the schedule while the block lives on the host
                 lb = gf2_find_low(to_tensor(sub, self.device)).cpu().numpy()
                 lb = lb[:len(rows)]
             else:
@@ -750,6 +751,22 @@ def _resolve_reduce_shards(mesh, n_shards: Optional[int]) -> int:
     return 1 if n_shards is None else int(n_shards)
 
 
+def _exchange_round_fn(mesh, axis_name: str, buf: np.ndarray
+                       ) -> torch.Tensor:
+    """One pivot-exchange round over the mesh: the stacked ``(P, L)``
+    uint32 wire buffer in, row ``k`` put on entry ``k`` of ``axis_name``,
+    every row gathered (:func:`~repro_torch.launch.mesh.all_gather`) onto
+    the first entry, as an ``int32`` view of the same bits
+    (``torch.uint32`` takes few operations).  Module level and closed over
+    nothing, so ``repro_torch.analyze.collectives`` can run it and pin its
+    schedule without building the distributed reduction (the reference's
+    ``_exchange_round_fn``)."""
+    devices = mesh.axis_devices(axis_name)
+    rows = [torch.from_numpy(buf[k].view(np.int32)).to(dev)
+            for k, dev in enumerate(devices)]
+    return all_gather(mesh, axis_name, rows)
+
+
 def _make_exchange(mesh):
     """Pivot-exchange round: per-shard wire payloads -> all shards' payloads.
 
@@ -757,24 +774,22 @@ def _make_exchange(mesh):
     bucketed to a power of two, ``stack_wire_payloads``): row ``k`` goes to
     entry ``k`` of the mesh's data axis, and every entry gathers the whole
     buffer from the rows (the reference's ``all_gather`` under
-    ``shard_map``).  The host reads the gathered buffer back once, as the
-    reference's ``np.asarray`` of the replicated result does, so only the
-    first entry's copy is made: the replicas on the other entries wait for
-    a transport between cards (ROADMAP.md §1 item 5).  The buffer
-    travels as an ``int32`` view of the same bits (``torch.uint32`` takes
-    few operations).  Without a mesh the exchange is the host loop-back —
-    identical payload path (encode -> exchange -> decode), no devices."""
+    ``shard_map``; :func:`_exchange_round_fn`).  The host reads the
+    gathered buffer back once, as the reference's ``np.asarray`` of the
+    replicated result does, so only the first entry's copy is made: the
+    replicas on the other entries wait for a transport between cards
+    (ROADMAP.md §1 item 5).  Without a mesh the exchange is the host
+    loop-back — identical payload path (encode -> exchange -> decode), no
+    devices."""
     if mesh is None:
         return lambda payloads: payloads
     from ..dist.sharding import data_axis
 
-    devices = mesh.axis_devices(data_axis(mesh, "reduce"))
+    axis = data_axis(mesh, "reduce")
 
     def exchange(payloads: List[np.ndarray]) -> List[np.ndarray]:
         buf, lens = stack_wire_payloads(payloads)
-        rows = [torch.from_numpy(buf[k].view(np.int32)).to(dev)
-                for k, dev in enumerate(devices)]
-        gathered = torch.stack([row.to(devices[0]) for row in rows])
+        gathered = _exchange_round_fn(mesh, axis, buf)
         return unstack_wire_payloads(
             gathered.cpu().numpy().view(np.uint32), lens)
 

@@ -10,6 +10,12 @@ builds a 4-entry data mesh as ``["cuda:0"] * 4``, and the CPU tests build
 (created at first use), so the entries of one round run at once on one
 card: the kernels launch on the current stream.
 
+The collectives the port's mesh programs run are the two functions
+below, :func:`all_gather` and :func:`ppermute` (``jax.lax``'s over a
+``shard_map`` axis): each calls the hook that :func:`recording` arms
+first, which is how ``repro_torch.analyze.collectives`` records a
+program's ordered schedule.
+
 ``make_production_mesh`` (the reference's TPU pod shapes) has no
 counterpart on one card and refuses; a ``torch.distributed`` transport
 across cards waits for a machine with more than one.
@@ -17,15 +23,34 @@ across cards waits for a machine with more than one.
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, List, Optional, Sequence, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 DeviceSpec = Union[str, torch.device]
 
-__all__ = ["Mesh", "make_data_mesh", "make_mesh", "make_production_mesh",
-           "mesh_device"]
+__all__ = ["Mesh", "all_gather", "make_data_mesh", "make_mesh",
+           "make_production_mesh", "mesh_device", "ppermute", "recording"]
+
+CollectiveHook = Callable[[str, "Mesh", str, list], None]
+
+# The hook :func:`recording` arms; only it sets this.
+_hook: Optional[CollectiveHook] = None
+
+
+@contextlib.contextmanager
+def recording(hook: CollectiveHook):
+    """Context: each collective below calls ``hook(name, mesh, axis,
+    rows)`` before it moves anything (``rows`` holds one tensor an entry
+    of ``axis``).  The hook that was armed before is restored on exit,
+    also when the body raises."""
+    global _hook
+    previous, _hook = _hook, hook
+    try:
+        yield
+    finally:
+        _hook = previous
 
 
 def _normalize(device: DeviceSpec) -> torch.device:
@@ -164,3 +189,43 @@ def mesh_device(mesh: Mesh, device=None) -> torch.device:
                          f"type {first.type!r}; pass device=None or a "
                          f"{first.type} device")
     return _normalize(device)
+
+
+def all_gather(mesh: Mesh, axis: str, rows: Sequence[torch.Tensor]
+               ) -> torch.Tensor:
+    """``jax.lax.all_gather`` over ``axis`` as its first entry holds it:
+    ``rows`` has one tensor an entry of the axis (row ``k`` where entry
+    ``k`` put it), stacked in entry order onto row 0's device, a ``(size,
+    ...)`` tensor.  Only that entry's copy is made: the replicas on the
+    other entries wait for a transport between cards."""
+    rows = list(rows)
+    if _hook is not None:
+        _hook("all_gather", mesh, axis, rows)
+    if len(rows) != mesh.shape[axis]:
+        raise ValueError(f"all_gather over {axis!r} takes one row an entry "
+                         f"({mesh.shape[axis]}), got {len(rows)}")
+    return torch.stack([row.to(rows[0].device) for row in rows])
+
+
+def ppermute(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
+             perm: Sequence[Tuple[int, int]]) -> List[torch.Tensor]:
+    """``jax.lax.ppermute`` over ``axis`` under a permutation of its
+    entries: ``xs`` has one tensor an entry, and for each ``(src, dst)`` of
+    ``perm`` entry ``dst`` receives a copy of entry ``src``'s tensor on its
+    own device (``xs[dst]``'s)."""
+    xs = list(xs)
+    if _hook is not None:
+        _hook("ppermute", mesh, axis, xs)
+    size = mesh.shape[axis]
+    if len(xs) != size:
+        raise ValueError(f"ppermute over {axis!r} takes one tensor an entry "
+                         f"({size}), got {len(xs)}")
+    entries = list(range(size))
+    if sorted(s for s, _ in perm) != entries or \
+            sorted(d for _, d in perm) != entries:
+        raise ValueError(f"ppermute perm {list(perm)} is not a permutation "
+                         f"of {size} entries")
+    out = list(xs)
+    for src, dst in perm:
+        out[dst] = xs[src].to(xs[dst].device)
+    return out

@@ -127,13 +127,63 @@ def _note_shard_peak(stats, shard_bytes) -> None:
                                              max(shard_bytes, default=0))
 
 
-def _harvest_shards_device(points, sq, shards, tau_max, tile_m, tile_n,
-                           mesh, axis, stats, chunks):
-    """Device rounds: one f32 candidate tile per mesh entry a round, on the
-    entry's device and stream; the index lists come back, the exact f64
-    refine and the COO extraction run on the host."""
+def _candidate_round_fn(mesh, axis: str, xs, live, thr32: np.float32,
+                        stats: Optional[TileStats] = None):
+    """One points-harvest round over ``axis``: each live ``(k, si, ei, sj,
+    ej)`` tile's f32 candidates on entry ``k``'s device and stream
+    (``xs[k]``, the cloud in f32 there), thresholded there; returns ``{k:
+    (ri, rj)}``, the tile-local candidate index lists on the host.  Every
+    entry's kernel is queued before any list is read back, so the round's
+    tiles overlap on the card.  No collectives by design: each entry's
+    tile is independent.  Module level, closed over nothing, so
+    ``repro_torch.analyze.collectives`` can run it and pin that schedule
+    (the reference's ``_candidate_round_fn``)."""
     from ..kernels.pairwise_dist import pairwise_sq_dists
 
+    d2 = {}
+    for k, si, ei, sj, ej in live:
+        with mesh.on(axis, k):
+            d2[k] = pairwise_sq_dists(xs[k][si:ei], xs[k][sj:ej])
+    found = {}
+    for k, si, ei, sj, ej in live:
+        with mesh.on(axis, k):
+            found[k] = _candidates_on_device(d2.pop(k), si, ei, sj, ej,
+                                             thr32, stats)
+    return found
+
+
+def _dists_round_fn(mesh, axis: str, dists: np.ndarray, live,
+                    thr32: float):
+    """One dists-harvest round over ``axis``: each live tile of the
+    precomputed matrix cast to f32 (numpy's cast, as the reference's round
+    buffer makes it), put on entry ``k``'s device and thresholded there
+    (the reference's ``t <= thr32``); returns ``({k: mask}, moved)``, the
+    1-byte candidate masks on the host and the bytes the round moved (the
+    f32 tiles up, the masks back).  No collectives, and module level, for
+    the reason :func:`_candidate_round_fn` gives."""
+    devices = mesh.axis_devices(axis)
+    masks = {}
+    moved = 0
+    for k, si, ei, sj, ej in live:
+        with mesh.on(axis, k):
+            t = torch.from_numpy(np.ascontiguousarray(
+                dists[si:ei, sj:ej], dtype=np.float32)).to(devices[k])
+            masks[k] = t <= thr32
+            moved += t.numel() * 4
+    for k, *_ in live:
+        with mesh.on(axis, k):
+            # analyze: allow[host-sync] the per-round candidate-mask gather is the schedule; the f64 re-measure reads the masks on the host
+            masks[k] = masks[k].cpu().numpy()
+            moved += masks[k].nbytes
+    return masks, moved
+
+
+def _harvest_shards_device(points, sq, shards, tau_max, tile_m, tile_n,
+                           mesh, axis, stats, chunks):
+    """Device rounds (:func:`_candidate_round_fn`): one f32 candidate tile
+    per mesh entry a round, on the entry's device and stream; the index
+    lists come back, the exact f64 refine and the COO extraction run on
+    the host."""
     n = points.shape[0]
     devices = mesh.axis_devices(axis)
     thr32 = _f32_threshold(points, sq, tau_max)
@@ -142,22 +192,12 @@ def _harvest_shards_device(points, sq, shards, tau_max, tile_m, tile_n,
         if dev not in pts32:
             pts32[dev] = torch.as_tensor(points, dtype=torch.float32,
                                          device=dev)
+    xs = [pts32[dev] for dev in devices]
     shard_bytes = [0] * len(shards)
     for r in range(max(len(s) for s in shards)):
         live = _live_tiles(shards, r, n, tile_m, tile_n)
-        found = {}
         with span("harvest/round", round=r, n_live=len(live)):
-            # every entry's kernel is queued before any index list is read
-            # back, so the round's tiles overlap on the card
-            d2 = {}
-            for k, si, ei, sj, ej in live:
-                with mesh.on(axis, k):
-                    x = pts32[devices[k]]
-                    d2[k] = pairwise_sq_dists(x[si:ei], x[sj:ej])
-            for k, si, ei, sj, ej in live:
-                with mesh.on(axis, k):
-                    found[k] = _candidates_on_device(d2.pop(k), si, ei, sj,
-                                                     ej, thr32, stats)
+            found = _candidate_round_fn(mesh, axis, xs, live, thr32, stats)
         if stats is not None:
             stats.gather_bytes = max(stats.gather_bytes, sum(
                 ri.nbytes + rj.nbytes for ri, rj in found.values()))
@@ -174,31 +214,17 @@ def _harvest_shards_device(points, sq, shards, tau_max, tile_m, tile_n,
 
 def _harvest_shards_device_dists(dists, shards, tau_max, tile_m, tile_n,
                                  mesh, axis, stats, chunks):
-    """Dists rounds: each mesh entry thresholds its own f32 tile of the
-    matrix on its device (the reference's ``t <= thr32``); the 1-byte
-    candidate mask comes back and the host re-measures the candidates
-    straight from the exact f64 matrix."""
+    """Dists rounds (:func:`_dists_round_fn`): each mesh entry thresholds
+    its own f32 tile of the matrix on its device; the 1-byte candidate
+    mask comes back and the host re-measures the candidates straight from
+    the exact f64 matrix."""
     n = dists.shape[0]
-    devices = mesh.axis_devices(axis)
     thr32 = float(_f32_dists_threshold(tau_max))
     shard_bytes = [0] * len(shards)
     for r in range(max(len(s) for s in shards)):
         live = _live_tiles(shards, r, n, tile_m, tile_n)
-        masks = {}
-        moved = 0
         with span("harvest/round", round=r, n_live=len(live)):
-            for k, si, ei, sj, ej in live:
-                with mesh.on(axis, k):
-                    # the f32 cast is numpy's, as the reference's round
-                    # buffer makes it
-                    t = torch.from_numpy(np.ascontiguousarray(
-                        dists[si:ei, sj:ej], dtype=np.float32)).to(devices[k])
-                    masks[k] = t <= thr32
-                    moved += t.numel() * 4
-            for k, *_ in live:
-                with mesh.on(axis, k):
-                    masks[k] = masks[k].cpu().numpy()
-                    moved += masks[k].nbytes
+            masks, moved = _dists_round_fn(mesh, axis, dists, live, thr32)
         if stats is not None:
             stats.gather_bytes = max(stats.gather_bytes, moved)
         for k, si, ei, sj, ej in live:

@@ -733,3 +733,34 @@ def test_reduced_prefill_card_matches_cpu(dev, arch):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+def _same_result(a, b) -> bool:
+    """Equal nested results: dicts, tuples, tensors (any device), arrays."""
+    if isinstance(a, dict):
+        return sorted(a) == sorted(b) and all(_same_result(a[k], b[k])
+                                              for k in a)
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(map(_same_result, a, b))
+    if isinstance(a, torch.Tensor):
+        a, b = a.cpu().numpy(), b.cpu().numpy()
+    return np.array_equal(a, b) and np.asarray(a).dtype == np.asarray(b).dtype
+
+
+def test_check_repo_card_matches_cpu(dev):
+    """Every registered mesh program on a 4-entry mesh of the card: no
+    violation, the registry's schedules, the CPU run's results."""
+    from repro_torch.analyze import collectives
+
+    schedules, violations = collectives.check_repo(device="cuda")
+    assert not violations, "\n".join(map(str, violations))
+    cpu_schedules, _ = collectives.check_repo(device="cpu")
+    assert [s.signature() for s in schedules] == \
+        [s.signature() for s in cpu_schedules] == \
+        [p.expect for p in collectives.repo_programs(device="cuda")]
+    card = {p.name: p for p in collectives.repo_programs(device="cuda")}
+    for program in collectives.repo_programs(device="cpu"):
+        card_fn, card_args, _, mesh = card[program.name].build()
+        assert mesh.devices.flat[0].type == "cuda"
+        fn, args, _, _ = program.build()
+        assert _same_result(card_fn(*card_args), fn(*args)), program.name

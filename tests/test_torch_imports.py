@@ -58,7 +58,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.core.resume, repro_torch.serve.ph, "
             "repro_torch.resilience, repro_torch.analyze, "
             "repro_torch.analyze.invariants, repro_torch.launch.elastic, "
-            "repro_torch.core.device_engine; "
+            "repro_torch.core.device_engine, repro_torch.analyze.lint, "
+            "repro_torch.analyze.collectives, "
+            "repro_torch.analyze.__main__; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -26,8 +26,13 @@ from repro.core.reduction import reduce_dimension as ref_reduce
 from repro.core.reduction import seed_column as ref_seed_column
 from repro.core.serial_parallel import reduce_dimension_batched as ref_batched
 from repro.scale.sparse_input import build_filtration_coo as ref_coo
+from repro.analyze import __main__ as ref_analyze_main
+from repro.analyze import collectives as ref_collectives
+from repro.analyze import lint as ref_lint
 from repro.serve import ph as ref_ph
 from repro_torch import compute_ph
+from repro_torch.analyze import __main__ as analyze_main
+from repro_torch.analyze import collectives, lint
 from repro_torch.core.filtration import build_filtration
 from repro_torch.core.h0 import compute_h0
 from repro_torch.core.homology import make_h1_adapter
@@ -54,7 +59,11 @@ def _same_default(a, b) -> bool:
 @pytest.mark.parametrize("ref,port", [(ref_compute_ph, compute_ph),
                                       (ref_packed, reduce_dimension_packed),
                                       (ref_resume.make_reducer,
-                                       resume.make_reducer)])
+                                       resume.make_reducer),
+                                      (ref_collectives.check_repo,
+                                       collectives.check_repo),
+                                      (ref_collectives.repo_programs,
+                                       collectives.repo_programs)])
 def test_signature_matches_reference(ref, port):
     want, got = _params(ref), _params(port)
     assert [p.name for p in got] == [p.name for p in want] + ["device"]
@@ -79,7 +88,13 @@ _RESUME = ("cold_reduce", "warm_tau_growth", "edge_order_map",
     (ref_ph.PHServeEngine.submit, ph.PHServeEngine.submit),
     (ref_ph.PHServeEngine.step, ph.PHServeEngine.step),
     (ref_ph.PHServeEngine.run, ph.PHServeEngine.run),
-] + [(getattr(ref_resume, n), getattr(resume, n)) for n in _RESUME],
+] + [(getattr(ref_resume, n), getattr(resume, n)) for n in _RESUME]
+  + [(getattr(ref_lint, n), getattr(lint, n))
+     for n in ("lint_source", "lint_file", "lint_paths")]
+  + [(getattr(ref_collectives, n), getattr(collectives, n))
+     for n in ("check_exchange_consistency", "schedule_signature",
+               "verify_axes", "collective_schedule_from_hlo")]
+  + [(ref_analyze_main.main, analyze_main.main)],
     ids=lambda f: f.__qualname__)
 def test_host_signature_is_the_reference(ref, port):
     """Host-only entry points, and those that reach the card only through
