@@ -51,7 +51,31 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    float32 SIMT kernel.  Then that epoch's prefill through the flash kernel
    and through ``_sdpa_masked``, timed; the logits must agree within
    ``1e-3 * max(1, max |logits|)``.
-6. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
+6. ``train``    — training on the card through ``repro_torch.launch.train``
+   (the counts set to 0 just before ``run``): full-width qwen3-0.6b
+   (seeded random weights, float32 parameters, bf16 compute), 10 steps
+   of 8 x 1,024 tokens in 4 microbatches (at 2 the peak passed 60 GB),
+   every step logged; each step's
+   loss, gradient norm and lr, the median step seconds after step 0,
+   tokens/s and the peak device memory; ``tda_monitor`` at step 0, whose
+   forward runs under ``torch.no_grad()`` through the bf16 flash kernel
+   (one launch a layer, 28).  One more step under ``torch.profiler`` (CUDA
+   activity only): the card's busy share, device seconds by kind of
+   operation and its five longest device operations
+   (``train_profiled_step``).  The full-width state (float32 parameters,
+   m and v) through the checkpointer: ``save_async``, one step while its
+   thread writes, ``save``, a verified ``restore``, every leaf equal bit
+   for bit, the seconds and bytes of each part (``train_checkpoint``).
+   One step of the same model in float32 compute (TF32 off) on 1 x 65
+   tokens on the card and on the CPU from the card's weights: loss and
+   gradient norm within 1e-4 relative, the updated weights as
+   ``TRAIN_*_TOL`` states (``train_card_vs_cpu``).  Then
+   ``examples/train_lm.py``'s run (reduced qwen3, 300 steps of 16 x 64,
+   checkpoints every 100): its gate ``final < first - 0.5``, and
+   ``run(restore=True)`` to 310 steps resuming at step 300
+   (``train_learning``).  The phase frees its memory before the PH
+   phases.
+7. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
    ``engine="packed"``); the launch count of every kernel of the path
    during that call must be > 0 (``gf2_parallel_xor``'s is reported: 0),
@@ -74,10 +98,10 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    state with equal results: at 128 x 128 and 128 x 2048 words (8 repeats)
    and on the 200 captured rounds.  The new form's summed time must not
    exceed the old's in any of the three.
-7. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
+8. ``cross_check`` — torus4 (n = 10,000, maxdim 1) and o3 (n = 1,024,
    maxdim 2) on the card with the kernels and on the CPU: identical
    filtration arrays and diagrams.
-8. ``mesh_path`` — ``compute_ph(maxdim=0)`` over a 4-entry data mesh of
+9. ``mesh_path`` — ``compute_ph(maxdim=0)`` over a 4-entry data mesh of
    the card (``make_data_mesh(4, devices=["cuda:0"] * 4)``): the main
    path's cloud, tiles and 96 MiB budget at the main path's tau (the
    per-device reading of the budget would pick a larger one), under
@@ -88,11 +112,11 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    (325).  It prints the wall and phase split, the harvest's tiles, rounds
    and per-round transfer (``gather_bytes``), the card's busy and idle
    share and each kernel's launches.  Cut to maxdim 0 to make room for
-   phases 12 to 14: its H1 over the mesh repeated the main path's whole
+   phases 13 to 15: its H1 over the mesh repeated the main path's whole
    host-bound reduction (``t_h1`` 274 s, with a split equal to the
    loop-back's number for number) and stays held at n = 10,000 by
    ``dist_path``'s mesh run and by ``tests/test_torch_cuda.py``.
-9. ``dist_path`` — the distributed reduction at ``cross_check``'s torus4
+10. ``dist_path`` — the distributed reduction at ``cross_check``'s torus4
    cloud (n = 10,000 at its tau, P = 4, ``exchange_every=4``), twice under
    ``torch.profiler``: over the host loop-back (``n_shards=4``) and over
    the 4-entry mesh.  Diagrams and every split counter must be equal
@@ -103,13 +127,13 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    One line each: wall and phase split, the split counters, ``sim_*``,
    idle share, launches and the most hit rows one round handed the
    kernels.
-10. ``dist_check`` — ``cross_check``'s o3 cloud (maxdim 2) through the
+11. ``dist_check`` — ``cross_check``'s o3 cloud (maxdim 2) through the
    distributed reduction on the card at P = 3, implicit,
    ``exchange_every=4``, equal to its P = 1 card diagrams.  (Its torus4
    runs at P 2 and 4 left to make room for ``serve_ph``: ``dist_path``
    runs that cloud at P = 4 over both transports, and the card test
    ``test_compute_ph_dist_card_matches_cpu`` holds P in {2, 4} x cadence.)
-11. ``serve_ph`` — the PH service, ``repro_torch.serve.PHServeEngine``
+12. ``serve_ph`` — the PH service, ``repro_torch.serve.PHServeEngine``
    (packed engine, a 4 MiB admission account, 256 MiB of tenant cache, 8
    clouds a batch) on the card, in the shape of the reference launcher's
    ``run_ph`` traffic, under ``torch.profiler`` with the counts set to 0
@@ -130,7 +154,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    of both waves and the clamped request, requests/s, the cache-hit
    ratio, each ``serve_ph_*`` counter, p50 and p95 latency, each
    kernel's launches and the card's idle share.
-12. ``resilience`` — ``dist_path``'s loop-back run (torus4, n = 10,000,
+13. ``resilience`` — ``dist_path``'s loop-back run (torus4, n = 10,000,
    P = 4, ``exchange_every=4``) under one seeded fault plan, the counts
    set to 0 just before it: a shard killed at the start of superstep 2
    and one mid-superstep 4, a slow shard at superstep 3, a payload dropped
@@ -143,12 +167,12 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    raise ``ValueError`` at the first superstep, before any GF(2) launch.
    It prints every ``resilience_*`` counter and ``t_h1`` beside
    ``dist_path``'s.
-13. ``sanitize`` — ``cross_check``'s o3 cloud through ``compute_ph(...,
+14. ``sanitize`` — ``cross_check``'s o3 cloud through ``compute_ph(...,
    engine="packed", sanitize=True)`` on the card at P = 1 and at P = 3
    (``dist_check``'s run): diagrams equal ``cross_check``'s card result,
    ``sanitize_checks`` > 0; the checks by name, each wall beside the
    unsanitized one.
-14. ``device_engine`` — the torch device engine
+15. ``device_engine`` — the torch device engine
    (``repro_torch.core.device_engine``): ``h0_msf_mask`` on the main
    path's filtration on the card must mark exactly the main path's
    union-find death edges; one ``make_distributed_round`` over the
@@ -156,7 +180,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    shape (256 columns an entry, width 64, 2^20 pivots, from a seed) must
    be bit-identical to the same call on a ``cpu x 4`` mesh.  The walls
    and the number of Borůvka rounds.
-15. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
+16. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
     at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
     tau 0.6, maxdim 2), on the card, one call after another: each condition
     through the batch engine and the packed engine on the tiled harvest, and
@@ -167,7 +191,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     features with persistence above 0.02, 0.05 and 0.08, auxin against
     control); H1 at 0.05 and 0.08 must fall under auxin, as
     ``fig21_hic.py`` gates it.
-16. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
+17. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
     (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
     its loci and a quarter of its budget, ``hic_pair(25_000, 200,
     seed=1)`` at 32 MiB, one ``tau_max`` for both conditions (the smaller
@@ -186,7 +210,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     kernel and the plain version (``hic_serial_replay``).  The control's
     card harvest, as COO triplets, must build a filtration equal field by
     field to ``build_filtration_tiled`` on the card.
-17. ``analyze`` — the static correctness gates of ``python -m
+18. ``analyze`` — the static correctness gates of ``python -m
     repro_torch.analyze`` on the card: the port's lint over the checkout
     (no unjustified finding; the counts by rule), then
     ``collectives.check_repo(device=...)``, every registered mesh round
@@ -213,7 +237,7 @@ are timed beside it.
 
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
-``mesh_path``, ``serve_ph`` and ``resilience``) and, last, ``{"ok": true, "device": ...}``.  Any failed
+``mesh_path``, ``serve_ph``, ``resilience`` and the training run) and, last, ``{"ok": true, "device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
 and without ``src/repro_torch`` beside it (the script copied alone) it
 exits 1, printing no result either way.  It imports nothing of the JAX
@@ -221,8 +245,11 @@ package.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import io
 import json
+import math
 import os
 import subprocess
 import sys
@@ -331,13 +358,16 @@ def clocks_under(fn, seconds: float = 2.0) -> dict:
                 power_w_median=float(np.median(watts)) if watts else None)
 
 
-def profiled(fn):
-    """Run ``fn`` under ``torch.profiler`` (host and CUDA activity); return
-    its result and the device-side events (kernels, copies, memsets)."""
+def profiled(fn, host: bool = True):
+    """Run ``fn`` under ``torch.profiler`` (host and CUDA activity, or the
+    CUDA activity alone without ``host``); return its result and the
+    device-side events (kernels, copies, memsets)."""
     from torch.profiler import ProfilerActivity, profile
 
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA]
+    if host:
+        activities.append(ProfilerActivity.CPU)
+    with profile(activities=activities) as prof:
         out = fn()
         torch.cuda.synchronize()
     return out, device_events(prof.events())
@@ -742,9 +772,12 @@ FLASH_SM90 = "flash_attention_kernel_sm90"   # the bf16 kernel's symbol
 FLASH_F32 = "flash_attention_f32_kernel"     # the f32 kernel's symbol
 FLASH_SYMBOL = {torch.bfloat16: FLASH_SM90, torch.float32: FLASH_F32}
 # Correctness-only bfloat16 cases: (BH, S, d, causal, window).
+# (64, 1024, 128) is tda_monitor's forward in the training phase: 4 x 1,024
+# tokens, 16 heads.
 FLASH_BF16_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
                     (8, 1000, 128, True, 1), (16, 1000, 64, True, -1),
-                    (16, 1000, 40, True, 256), (1, 2048, 128, True, -1))
+                    (16, 1000, 40, True, 256), (1, 2048, 128, True, -1),
+                    (64, 1024, 128, True, -1))
 # Correctness-only float32 cases, at the SIMT kernel's tile edges (128
 # queries, 64 keys; 64 and 32 at d = 256): S not a multiple of 128, S below
 # 64, windows below a tile, BH = 1, and every template width.
@@ -890,7 +923,7 @@ def prefill_copies(dev, rng) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 6 and 7: the port's main path, and card vs CPU
+# phases 7 and 8: the port's main path, and card vs CPU
 # ---------------------------------------------------------------------------
 
 PH_KERNELS = ("pairwise_sq_dists", "gf2_find_low", "gf2_scatter_xor",
@@ -1373,7 +1406,7 @@ def check_cases():
 
 
 # ---------------------------------------------------------------------------
-# phases 8 to 10: compute_ph over a 4-entry mesh of the card, and the
+# phases 9 to 11: compute_ph over a 4-entry mesh of the card, and the
 # distributed packed reduction (n_shards on one card)
 # ---------------------------------------------------------------------------
 
@@ -1577,7 +1610,7 @@ def dist_check(dev, cards: dict) -> None:
 
 
 # ---------------------------------------------------------------------------
-# phase 11: the PH service (PHServeEngine over warm resume)
+# phase 12: the PH service (PHServeEngine over warm resume)
 # ---------------------------------------------------------------------------
 
 # The reference launcher's run_ph traffic at a size a service holds on the
@@ -1744,7 +1777,7 @@ def serve_ph(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 12 to 14: recovery, the GF(2) sanitizer and the device engine
+# phases 13 to 15: recovery, the GF(2) sanitizer and the device engine
 # ---------------------------------------------------------------------------
 
 # One seeded plan for every fault class of the distributed driver and the
@@ -2006,7 +2039,7 @@ def device_engine(dev, main_filt, main_n: int, death_edges) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phases 15 and 16: the Hi-C pair (paper §6, Fig. 21)
+# phases 16 and 17: the Hi-C pair (paper §6, Fig. 21)
 # ---------------------------------------------------------------------------
 
 # benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
@@ -2200,7 +2233,7 @@ def hic_path(dev) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the static correctness gates (repro_torch.analyze)
+# phase 18: the static correctness gates (repro_torch.analyze)
 # ---------------------------------------------------------------------------
 
 CANDIDATE_ROUND = "scale.shard._candidate_round_fn"
@@ -2610,6 +2643,376 @@ def serve_f32(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 6: training on one card
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "qwen3-0.6b"
+# 4 microbatches, not 2: at 2 the step peaked at 64.04 GB of device memory
+# (float32 attention scores and logits saved for the backward pass), over
+# the 60 GB the run allows itself beside the serving phases' caches.
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_SEQ, TRAIN_MICRO = 10, 8, 1024, 4
+TRAIN_LR, TRAIN_WARMUP = 3e-4, 2
+TRAIN_MAX_PEAK = 60e9
+# Card against CPU (float32 compute, TF32 off): the loss and the gradient
+# norm within a relative 1e-4.  After one AdamW step from zero moments each
+# weight moves by lr * (m̂ / (sqrt(v̂) + eps) + wd * p) with |m̂ / (sqrt(v̂) +
+# eps)| <= 1, so a gradient whose sign differs between the devices (one
+# near zero) moves a weight 2 lr apart; every other weight agrees to float32
+# rounding.  Held: the largest difference at most 2 lr, the 99.9th
+# percentile within TRAIN_P999_TOL, the median within TRAIN_MEDIAN_TOL.
+TRAIN_REL_TOL = 1e-4
+TRAIN_P999_TOL = 1e-6
+TRAIN_MEDIAN_TOL = 1e-7
+# examples/train_lm.py's learning run and its gate
+LEARN_STEPS, LEARN_BATCH, LEARN_SEQ, LEARN_RESUME_TO = 300, 16, 64, 310
+
+
+def op_group(name: str) -> str:
+    """A device operation's kind, from its kernel name: the float32 matrix
+    products (``f32f32`` / ``sgemm`` kernels: TF32 is off) and the others
+    (the bf16 ones; cuBLAS names its Hopper kernels ``nvjet``), dtype casts
+    and copies, the optimizer's multi-tensor kernels, softmax and
+    log-sum-exp, and other elementwise work or reductions."""
+    low = name.lower()
+    if any(w in low for w in ("gemm", "xmma", "cutlass", "cublas", "nvjet")):
+        return "matmul_f32" if ("f32f32" in low or "sgemm" in low) \
+            else "matmul_other"
+    if "multi_tensor" in low or "foreach" in low:
+        return "optimizer"
+    if "copy" in low or "memcpy" in low or "memset" in low:
+        return "copy_cast"
+    if "softmax" in low or "logsumexp" in low:
+        return "softmax"
+    return "elementwise_reduce"
+
+
+def train_job(cfg, dev, **kw):
+    from repro_torch.launch.train import TrainJob
+
+    base = dict(cfg=cfg, steps=TRAIN_STEPS, global_batch=TRAIN_BATCH,
+                seq_len=TRAIN_SEQ, n_micro=TRAIN_MICRO, lr=TRAIN_LR,
+                warmup=TRAIN_WARMUP, log_every=1, device=dev)
+    return TrainJob(**dict(base, **kw))
+
+
+def train_full_width(dev, counters) -> tuple:
+    """``launch.train.run`` at the published width and depth, every step
+    logged (its metrics read on the host, so each ``train/step`` span holds
+    the step's device work), ``tda_monitor`` at step 0; the counts set to 0
+    just before it.  Then ``tda_monitor`` held on the card
+    (:func:`monitor_routes`) and one more step under ``torch.profiler``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import ShardedTokenStream
+    from repro_torch.launch.train import run
+    from repro_torch.obs.trace import Tracer, tracing
+    from repro_torch.train import AdamW, make_train_step, warmup_cosine
+
+    cfg = get_config(TRAIN_ARCH)
+    job = train_job(cfg, dev, tda_every=TRAIN_STEPS)
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Tracer()
+    with tracing(tr), contextlib.redirect_stdout(io.StringIO()):
+        out = run(job)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    step_s = [sp.dur for sp in tr.spans if sp.name == "train/step"]
+    median_s = float(np.median(step_s[1:]))
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    res = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        padded_vocab=cfg.padded_vocab, compute_dtype=cfg.compute_dtype,
+        steps=TRAIN_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        n_micro=TRAIN_MICRO, n_params=sum(
+            p.numel() for p in out["state"].params.parameters()),
+        loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist],
+        lr=[h["lr"] for h in hist], step_s=step_s,
+        median_step_s=median_s, tokens_per_s=tokens / median_s,
+        wall_s=out["wall_s"], peak_device_bytes=peak, launches=launches,
+        tda={k: v for k, v in hist[0].items() if k.startswith("tda_")})
+    emit("train", **{k: v for k, v in res.items() if k != "profiled_step"})
+    if not (len(hist) == TRAIN_STEPS and len(step_s) == TRAIN_STEPS
+            and all(np.isfinite(res["loss"] + res["grad_norm"]))):
+        raise AssertionError(f"full-width training: {len(hist)} steps "
+                             f"logged, losses {res['loss']}, grad norms "
+                             f"{res['grad_norm']}")
+    if launches["flash_attention"] != cfg.n_layers or len(res["tda"]) != 3:
+        raise AssertionError(
+            f"tda_monitor: {launches['flash_attention']} flash launches for "
+            f"one forward of {cfg.n_layers} layers, values {res['tda']}")
+    if peak > TRAIN_MAX_PEAK:
+        raise AssertionError(f"full-width training peaked at {peak} bytes "
+                             f"> {TRAIN_MAX_PEAK:.0f}")
+    stream = ShardedTokenStream(vocab=cfg.vocab_size,
+                                global_batch=TRAIN_BATCH, seq=TRAIN_SEQ + 1)
+    res["monitor"] = monitor_routes(out["state"].params, cfg,
+                                    stream.batch_at(0), counters)
+
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(TRAIN_STEPS).items()}
+    state = out["state"]
+
+    def one_step():
+        nonlocal state
+        t0 = time.perf_counter()
+        state, metrics = step_fn(state, batch)
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, float(metrics["loss"])
+
+    (prof_s, prof_loss), evs = profiled(one_step, host=False)
+    kernels = by_kernel(evs)
+    top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
+    busy = busy_us(evs) / 1e6
+    groups = {}
+    for k, (n, us) in kernels.items():
+        g = op_group(k)
+        groups[g] = groups.get(g, 0.0) + us / 1e6
+    res["profiled_step"] = dict(
+        wall_s=prof_s, loss=prof_loss, device_busy_s=busy,
+        device_busy_share=busy / prof_s,
+        # the profiler slows the host's dispatch; against the unprofiled
+        # median step the same device work is this share of the step
+        device_busy_share_of_median_step=busy / median_s,
+        device_ops=len(evs), device_s_by_group=groups,
+        top_ops=[dict(name=k[:100], launches=n, device_s=us / 1e6)
+                 for k, (n, us) in top])
+    emit("train_profiled_step", **res["profiled_step"])
+    if not evs:
+        raise AssertionError("the profiled train step recorded no device "
+                             "work")
+    return res, cfg, state, step_fn, stream
+
+
+def monitor_routes(model, cfg, batch_np, counters) -> dict:
+    """``tda_monitor`` held on the card, on the trained model and the
+    stream's step-0 batch: its forward (the monitor's sub-batch, 4 x 1,024
+    tokens) through the flash kernel, as the monitor runs it, against
+    ``_sdpa_masked`` (explicit positions) on the same tokens, the logits
+    within ``SERVE_CONTRACT * max(1, max |logits|)``; then the monitor's
+    three values against its PH part run on the CPU from the flash route's
+    logits, which must agree exactly (the port's diagrams are the same on
+    either device)."""
+    from repro_torch.launch.train import _tda_summary, tda_monitor
+    from repro_torch.models.transformer import forward
+
+    dev = model.device
+    toks = torch.from_numpy(batch_np["tokens"][:4, :-1]).to(dev)
+    b, s = toks.shape
+    seam = {"tokens": toks, "positions": torch.arange(
+        s, device=dev).expand(b, s)}
+    flash = counters["flash_attention"]
+    with torch.no_grad():
+        before = flash.launches
+        flash_logits = forward(model, {"tokens": toks})[0]
+        mid = flash.launches
+        sdpa_logits = forward(model, seam)[0]
+        route_launches = (mid - before, flash.launches - mid)
+        diff = float((flash_logits - sdpa_logits).abs().max())
+        scale = max(1.0, float(sdpa_logits.abs().max()))
+        x = flash_logits[..., :64].to(torch.float64).cpu().numpy()
+    del flash_logits, sdpa_logits
+    start = flash.launches
+    card = tda_monitor(model, cfg, batch_np)
+    monitor_launches = flash.launches - start
+    host = _tda_summary(x, "cpu")
+    out = dict(tokens=[b, s], logits_max_abs_diff=diff, logits_max_abs=scale,
+               atol=SERVE_CONTRACT * scale, card=card, cpu_from_flash=host,
+               route_flash_launches=list(route_launches),
+               monitor_flash_launches=monitor_launches)
+    emit("train_monitor", **out)
+    if route_launches != (cfg.n_layers, 0) \
+            or monitor_launches != cfg.n_layers:
+        raise AssertionError(
+            f"tda_monitor's forward: {route_launches} flash launches "
+            f"through the prefill route and _sdpa_masked, "
+            f"{monitor_launches} in the monitor; {cfg.n_layers} layers")
+    if not diff <= out["atol"]:
+        raise AssertionError(f"tda_monitor's logits: the flash route and "
+                             f"_sdpa_masked differ by {diff} > {out['atol']}")
+    if card != host:
+        raise AssertionError(f"tda_monitor on the card {card} != its PH "
+                             f"part on the CPU {host}")
+    return out
+
+
+def train_checkpoint(dev, state, step_fn, stream) -> dict:
+    """The full-width state (float32 params, m and v) through the
+    checkpointer: ``save_async`` of the state, one train step while its
+    thread writes, ``save`` of the new state, then ``restore`` with
+    ``verify``; every leaf must equal the live state bit for bit."""
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train.train_step import train_state_to_arrays
+
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(TRAIN_STEPS + 1).items()}
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = Checkpointer(tmp, keep=2)
+        t0 = time.perf_counter()
+        ckpt.save_async(1, train_state_to_arrays(state), metadata={"step": 1})
+        t1 = time.perf_counter()
+        state, _ = step_fn(state, batch)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        ckpt.wait()
+        t3 = time.perf_counter()
+        live = train_state_to_arrays(state)
+        t4 = time.perf_counter()
+        ckpt.save(2, live, metadata={"step": 2})
+        t5 = time.perf_counter()
+        restored, meta = ckpt.restore(live, verify=True)
+        t6 = time.perf_counter()
+        from repro_torch.dist.sharding import tree_flatten_with_path
+
+        got = tree_flatten_with_path(restored)[0]
+        want = tree_flatten_with_path(live)[0]
+        unequal = [tuple(str(k) for k in kp) for (kp, a), (_, b)
+                   in zip(want, got) if a.dtype != b.dtype
+                   or not np.array_equal(a, b)]
+        n_bytes = sum(a.nbytes for _, a in want)
+        disk = sum(os.path.getsize(os.path.join(tmp, d, f))
+                   for d in os.listdir(tmp)
+                   for f in os.listdir(os.path.join(tmp, d)))
+        steps = ckpt.all_steps()
+    out = dict(leaves=len(want), state_bytes=n_bytes, disk_bytes=disk,
+               async_host_copy_s=t1 - t0, step_while_writing_s=t2 - t1,
+               async_wait_after_step_s=t3 - t2, host_copy_s=t4 - t3,
+               save_s=t5 - t4, restore_verify_s=t6 - t5,
+               total_s=t6 - t0, steps=steps, meta=meta)
+    emit("train_checkpoint", **out)
+    if unequal or len(got) != len(want) or meta != {"step": 2} \
+            or steps != [1, 2]:
+        raise AssertionError(f"checkpoint round trip: leaves {unequal[:5]} "
+                             f"differ, {len(got)} of {len(want)} restored, "
+                             f"metadata {meta}, steps {steps}")
+    return out
+
+
+def train_card_vs_cpu(dev, cfg) -> dict:
+    """One train step of the full-width model in float32 compute (TF32
+    off) on a batch of 1 x 65 tokens, on the card and on the CPU from the
+    card's weights (``params_to_arrays``)."""
+    from repro_torch.models.transformer import (params_from_arrays,
+                                                params_to_arrays)
+    from repro_torch.train import (AdamW, TrainState, init_train_state,
+                                   make_train_step, warmup_cosine)
+
+    cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    step_fn = make_train_step(cfg32, opt)
+    card = init_train_state(cfg32, opt, seed=0, device=dev)
+    host_model = params_from_arrays(cfg32, params_to_arrays(card.params),
+                                    "cpu").requires_grad_(True)
+    host = TrainState(params=host_model,
+                      opt=opt.init(dict(host_model.named_parameters())))
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(1, 65)).astype(np.int32)
+    t0 = time.perf_counter()
+    card, card_m = step_fn(card, {"tokens": torch.from_numpy(toks).to(dev)})
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    host, host_m = step_fn(host, {"tokens": torch.from_numpy(toks)})
+    t2 = time.perf_counter()
+    lr = float(host_m["lr"])
+    d = torch.cat([(a.detach() - b.detach().to(dev)).abs().flatten()
+                   for a, b in zip(card.params.parameters(),
+                                   host.params.parameters())])
+    n = d.numel()
+    worst = int(torch.argmax(d))
+    out = dict(
+        tokens=list(toks.shape), card_step_s=t1 - t0, cpu_step_s=t2 - t1,
+        loss=(float(card_m["loss"]), float(host_m["loss"])),
+        grad_norm=(float(card_m["grad_norm"]), float(host_m["grad_norm"])),
+        lr=lr, weights=n,
+        weight_diff_median=float(torch.kthvalue(d, (n + 1) // 2).values),
+        weight_diff_p999=float(torch.kthvalue(d, math.ceil(0.999 * n))
+                               .values),
+        weight_diff_max=float(d[worst]),
+        weights_over_1e_6=int((d > 1e-6).sum()))
+    rel = [abs(a - b) / abs(b) for a, b in (out["loss"], out["grad_norm"])]
+    out["rel_loss"], out["rel_grad_norm"] = rel
+    emit("train_card_vs_cpu", **out)
+    if not (max(rel) <= TRAIN_REL_TOL
+            and out["weight_diff_max"] <= 2 * lr * (1 + 1e-3)
+            and out["weight_diff_p999"] <= TRAIN_P999_TOL
+            and out["weight_diff_median"] <= TRAIN_MEDIAN_TOL):
+        raise AssertionError(f"card against CPU: {out}")
+    return out
+
+
+def train_learning(dev) -> dict:
+    """``examples/train_lm.py``'s run on the card (reduced qwen3: 4 layers,
+    d_model 256, 8 heads, d_ff 1,024, vocab 512; 300 steps of 16 x 64,
+    n_micro 2, lr 1e-3, warmup 30), checkpointing every 100 steps; its gate
+    ``final < first - 0.5``; then ``run(restore=True)`` to 310 steps must
+    resume at step 300."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import TrainJob, run
+
+    cfg = get_config(TRAIN_ARCH).reduced(n_layers=4, d_model=256, n_heads=8,
+                                         d_ff=1024, vocab=512)
+    with tempfile.TemporaryDirectory() as tmp:
+        job = TrainJob(cfg=cfg, steps=LEARN_STEPS, global_batch=LEARN_BATCH,
+                       seq_len=LEARN_SEQ, n_micro=2, lr=1e-3, warmup=30,
+                       ckpt_dir=tmp, ckpt_every=100, log_every=20,
+                       device=dev)
+        with contextlib.redirect_stdout(io.StringIO()):
+            out = run(job)
+            resumed = run(dataclasses.replace(job, steps=LEARN_RESUME_TO),
+                          restore=True)
+        steps = sorted(os.listdir(tmp))
+    first, final = out["history"][0]["loss"], out["final_loss"]
+    res = dict(arch=cfg.name, n_params=sum(
+        p.numel() for p in out["state"].params.parameters()),
+        first_loss=first, final_loss=final, wall_s=out["wall_s"],
+        steps_per_s=LEARN_STEPS / out["wall_s"],
+        resumed_steps=[h["step"] for h in resumed["history"]],
+        resumed_final_loss=resumed["final_loss"], checkpoints=steps)
+    emit("train_learning", **res)
+    if not final < first - 0.5:
+        raise AssertionError(f"loss did not drop: {first} -> {final}")
+    if res["resumed_steps"][0] != LEARN_STEPS:
+        raise AssertionError(f"restore=True resumed at "
+                             f"{res['resumed_steps'][0]}, not {LEARN_STEPS}")
+    return res
+
+
+def train(dev) -> dict:
+    """Phase 6: training on the card (``repro_torch.launch.train``)."""
+    counters = kernel_counters()
+    t0 = time.perf_counter()
+    full, cfg, state, step_fn, stream = train_full_width(dev, counters)
+    t1 = time.perf_counter()
+    ckpt = train_checkpoint(dev, state, step_fn, stream)
+    t2 = time.perf_counter()
+    del state, step_fn
+    torch.cuda.empty_cache()
+    versus = train_card_vs_cpu(dev, cfg)
+    t3 = time.perf_counter()
+    torch.cuda.empty_cache()
+    learn = train_learning(dev)
+    t4 = time.perf_counter()
+    out = dict(full_width=full, checkpoint=ckpt, card_vs_cpu=versus,
+               learning=learn,
+               part_s=dict(full_width=t1 - t0, checkpoint=t2 - t1,
+                           card_vs_cpu=t3 - t2, learning=t4 - t3))
+    emit("train_done", part_s=out["part_s"], phase_s=t4 - t0)
+    torch.cuda.empty_cache()
+    return out
+
+
 def f32_sass_check(_build, ptxas) -> dict:
     """The float32 flash library holds IEEE FFMA products only: its SASS
     (``cuobjdump -sass``) has no matrix-multiply opcode (HMMA, HGMMA, IMMA,
@@ -2671,6 +3074,7 @@ def main() -> int:
     summary = check_kernels(dev)
     served = serve(dev)
     served_f32 = serve_f32(dev)
+    trained = train(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
     path, main_res, main_filt, main_deaths = main_path(dev, MAIN_PATH_N, tap,
                                                        serial)
@@ -2696,6 +3100,12 @@ def main() -> int:
     launches = dict(path["launches"],
                     flash_attention_bf16=served["flash_launches"],
                     flash_attention_f32=served_f32["flash_launches"])
+    # the training run computes in bf16: its flash launches (tda_monitor's
+    # forward) are the bf16 kernel's
+    train_launches = dict(trained["full_width"]["launches"])
+    train_launches.update(
+        flash_attention_bf16=train_launches.pop("flash_attention"),
+        flash_attention_f32=0)
 
     replaces = {
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
@@ -2733,6 +3143,7 @@ def main() -> int:
             mesh_launches=meshed["launches"].get(kname),
             serve_ph_launches=sph["launches"].get(kname),
             resilience_launches=resil["launches"].get(kname),
+            train_launches=train_launches[kname],
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

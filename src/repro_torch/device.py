@@ -7,8 +7,9 @@ do), and then the kernel wrappers take their plain PyTorch versions.
 """
 from __future__ import annotations
 
-from typing import Optional, Union
+from typing import Any, Optional, Union
 
+import numpy as np
 import torch
 
 DeviceLike = Optional[Union[str, torch.device]]
@@ -30,3 +31,12 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         raise RuntimeError(f"device {dev} requested but no CUDA device is "
                            "available")
     return dev
+
+
+def to_host(x: Any) -> np.ndarray:
+    """``x`` as a numpy array on the host: a tensor is copied, even one on
+    the CPU (the trainer updates its tensors in place while a checkpoint's
+    thread writes the copy); anything else goes through ``np.asarray``."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().to("cpu", copy=True).numpy()
+    return np.asarray(x)

@@ -17,7 +17,9 @@ card.  Its masks are then exactly the kernel's: causal, a window of -1 or
 copied to (B·H, S, D): on the card these copies are the next cost beside
 the kernel (PERF.md).  Every other case (explicit positions, decode
 against the cache, and ``window == 0``, which means "self only" here but
-"global" in the kernel) takes :func:`_sdpa_masked`.  In arithmetic the
+"global" in the kernel) takes :func:`_sdpa_masked`.  The route is forward
+only: where autograd records and q, k or v requires grad it raises, and
+the training forward passes explicit positions.  In arithmetic the
 routes differ in summation order and in one rounding on the CPU: the
 bfloat16 kernel on the card rounds the probabilities to bfloat16 before
 the P.V product, as :func:`_sdpa` rounds them to ``v.dtype``, while the
@@ -135,7 +137,20 @@ def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int, causal: bool) -> torch.Tensor:
     """Self-attention over positions ``arange(S)`` through the flash kernel:
-    KV expanded to H heads, (B, S, H, D) -> (B·H, S, D) and back."""
+    KV expanded to H heads, (B, S, H, D) -> (B·H, S, D) and back.
+
+    Forward only, on every device: the kernel's output on the card has no
+    ``grad_fn`` (``wq``, ``wk`` and ``wv`` would get no gradient through
+    attention), while its plain version on the CPU would differentiate, so
+    the two devices would train differently.  Under autograd it raises; a
+    training forward passes explicit positions, which take
+    :func:`_sdpa_masked`."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad
+                                    or v.requires_grad):
+        raise RuntimeError(
+            "the flash-kernel route is forward only: q, k or v requires "
+            "grad; pass explicit positions (the training forward does) to "
+            "take _sdpa_masked, or run under torch.no_grad()")
     b, s, h, hd = q.shape
     kvh = k.shape[2]
     if kvh != h:

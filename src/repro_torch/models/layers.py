@@ -90,7 +90,9 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
 # ---------------------------------------------------------------------------
 
 def _param(t: torch.Tensor) -> nn.Parameter:
-    # Serving only: the training path is not ported (ROADMAP.md §1, item 10).
+    # Frozen: serving and the PH monitor only read the weights, and a frozen
+    # weight keeps autograd from recording every forward.  The trainer turns
+    # gradients on for its own model (``requires_grad_(True)``).
     return nn.Parameter(t, requires_grad=False)
 
 

@@ -1,0 +1,110 @@
+"""Native AdamW + warmup-cosine schedule + global-norm clipping.
+
+Port of ``src/repro/train/optimizer.py``.  The optimizer state is a tree of
+float32 tensors that mirrors the parameter tree (the trainer's is a dict
+keyed by the model's parameter names), and the update is functional, as
+the reference's: ``update`` returns new parameters and a new state and
+leaves its arguments as they were.  The arithmetic is the reference's,
+step for step in float32, over ``torch._foreach_*`` lists: clipping,
+bias correction, decoupled weight decay, and the schedule evaluated on the
+0-d int32 step.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, NamedTuple
+
+import torch
+
+from repro_torch.dist.sharding import tree_flatten_with_path, tree_unflatten
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor
+    m: Any
+    v: Any
+
+
+def _leaves(tree):
+    return [leaf for _, leaf in tree_flatten_with_path(tree)[0]]
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamW:
+    lr: Callable[[torch.Tensor], torch.Tensor]
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+
+    def init(self, params) -> AdamWState:
+        flat, treedef = tree_flatten_with_path(params)
+        leaves = [p for _, p in flat]
+        dev = leaves[0].device if leaves else None
+
+        def zeros():
+            return tree_unflatten(treedef, [
+                torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                for p in leaves])
+
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=dev),
+                          m=zeros(), v=zeros())
+
+    @torch.no_grad()
+    def update(self, grads, state: AdamWState, params):
+        flat, treedef = tree_flatten_with_path(params)
+        p = [leaf for _, leaf in flat]
+        g = [t.float() for t in _leaves(grads)]
+        m, v = _leaves(state.m), _leaves(state.v)
+        gnorm = global_norm(g)
+        if self.clip_norm > 0:
+            scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
+            g = torch._foreach_mul(g, scale)
+        step = state.step + 1
+        sf = step.float()
+        b1c = 1.0 - torch.pow(self.b1, sf)
+        b2c = 1.0 - torch.pow(self.b2, sf)
+        lr = self.lr(step)
+
+        p32 = [t.float() for t in p]
+        m = torch._foreach_mul(m, self.b1)
+        torch._foreach_add_(m, torch._foreach_mul(g, 1 - self.b1))
+        gg = torch._foreach_mul(g, 1 - self.b2)
+        torch._foreach_mul_(gg, g)
+        v = torch._foreach_mul(v, self.b2)
+        torch._foreach_add_(v, gg)
+        del gg, g
+        den = torch._foreach_div(v, b2c)
+        torch._foreach_sqrt_(den)
+        torch._foreach_add_(den, self.eps)
+        delta = torch._foreach_div(m, b1c)
+        torch._foreach_div_(delta, den)
+        del den
+        torch._foreach_add_(delta, torch._foreach_mul(p32, self.weight_decay))
+        torch._foreach_mul_(delta, lr)
+        new_p = [(a - d).to(t.dtype) for a, d, t in zip(p32, delta, p)]
+        return (tree_unflatten(treedef, new_p),
+                AdamWState(step=step, m=tree_unflatten(treedef, m),
+                           v=tree_unflatten(treedef, v)),
+                gnorm)
+
+
+def global_norm(tree) -> torch.Tensor:
+    total = 0
+    for leaf in _leaves(tree):
+        total = total + torch.sum(torch.square(leaf.float()))
+    return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def warmup_cosine(peak_lr: float, warmup: int, total: int,
+                  floor: float = 0.1):
+    def lr(step: torch.Tensor) -> torch.Tensor:
+        step = step.float()
+        warm = peak_lr * step / max(warmup, 1)
+        frac = torch.clamp((step - warmup) / max(total - warmup, 1), 0.0, 1.0)
+        cos = peak_lr * (floor + (1 - floor) * 0.5
+                         * (1 + torch.cos(math.pi * frac)))
+        return torch.where(step < warmup, warm, cos)
+    return lr

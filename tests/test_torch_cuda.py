@@ -6,7 +6,9 @@ Run on a card with ``python -m pytest -q -m cuda tests/test_torch_cuda.py``.
 Tolerances: pairwise ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``
 (float32 sums in another order); GF(2) exact; flash attention ``2e-4`` in
 float32 and ``1e-2`` in bfloat16, and a reduced prefill on the card
-against the CPU ``2e-4`` (float32 compute, TF32 off).  In bfloat16 the
+against the CPU ``2e-4`` (float32 compute, TF32 off); one reduced train
+step on the card against the CPU: loss and gradient norm within 1e-5, the
+weights by the median and 99.9th percentile of their difference.  In bfloat16 the
 kernel rounds the probabilities to bfloat16 for P.V where the plain
 version keeps them in float32, and both round the output once:
 ``tests/test_torch_flash_numerics.py`` shows on the CPU that this stays
@@ -14,6 +16,8 @@ inside ``1e-2``, which stays below a typical ``|o|`` (unit-normal inputs
 give outputs of standard deviation about ``sqrt(e / S)``), as the ``3e-2``
 of ``tests/test_kernels.py`` does not at long S.
 """
+import os
+
 import numpy as np
 import pytest
 import torch
@@ -733,6 +737,137 @@ def test_reduced_prefill_card_matches_cpu(dev, arch):
     torch.cuda.synchronize()
     assert flash_attention.launches == before + cfg.n_layers
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
+def test_reduced_train_step_card_matches_cpu(dev, arch):
+    """One train step of a reduced model (float32 compute, TF32 off) on
+    the card and on the CPU from the same weights: loss and gradient norm
+    within 1e-5, the weights by the median (<= 1e-7) and 99.9th percentile
+    (<= 1e-6) of their difference and at most 2 lr apart (a near-zero
+    gradient whose sign differs)."""
+    from repro_torch.models.transformer import (params_from_arrays,
+                                                params_to_arrays)
+    from repro_torch.train import (AdamW, TrainState, make_train_step,
+                                   warmup_cosine)
+
+    cfg = get_config(arch, reduced=True)
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 10))
+    step = make_train_step(cfg, opt, n_micro=2)
+    arrays = params_to_arrays(init_params(cfg, seed=0, device="cpu"))
+    states = []
+    for d in ("cpu", dev):
+        model = params_from_arrays(cfg, arrays, d).requires_grad_(True)
+        states.append(TrainState(
+            params=model, opt=opt.init(dict(model.named_parameters()))))
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (4, 33)), dtype=torch.int32)
+    (host, hm), (card, cm) = [step(st, {"tokens": toks.to(d)}) for st, d
+                              in zip(states, ("cpu", dev))]
+    for k in ("loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(cm[k]), float(hm[k]), rtol=1e-5,
+                                   err_msg=k)
+    d = torch.cat([(a.detach().cpu() - b.detach()).abs().flatten()
+                   for a, b in zip(card.params.parameters(),
+                                   host.params.parameters())])
+    assert float(d.median()) <= 1e-7
+    assert float(torch.quantile(d, 0.999)) <= 1e-6
+    assert float(d.max()) <= 2 * float(hm["lr"]) * (1 + 1e-3)
+
+
+def test_train_checkpoint_card_to_cpu(dev, tmp_path):
+    """A train state written from the card restores on the CPU bit for
+    bit, and back into a trainable state there."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.train import AdamW, init_train_state, warmup_cosine
+    from repro_torch.train.train_step import (train_state_from_arrays,
+                                              train_state_to_arrays)
+
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 10))
+    card = init_train_state(cfg, opt, seed=2, device=dev)
+    ckpt = Checkpointer(str(tmp_path))
+    ckpt.save_async(5, train_state_to_arrays(card), metadata={"step": 5})
+    ckpt.wait()
+    template = train_state_to_arrays(init_train_state(cfg, opt, seed=9,
+                                                      device="cpu"))
+    tree, meta = ckpt.restore(template)
+    host = train_state_from_arrays(cfg, tree, "cpu")
+    assert meta == {"step": 5} and int(host.opt.step) == 0
+    for (n, a), b in zip(card.params.named_parameters(),
+                         host.params.parameters()):
+        assert b.device.type == "cpu" and b.requires_grad, n
+        assert torch.equal(a.detach().cpu(), b.detach()), n
+
+
+def test_traced_steps_wait_for_the_card(dev, monkeypatch):
+    """With tracing on, a step whose metrics are not read waits for the
+    card inside its span (logged steps wait reading their metrics); with
+    tracing off, no step waits."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as tlaunch
+    from repro_torch.obs.trace import Tracer, tracing
+
+    calls = []
+    real = torch.cuda.synchronize
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+
+    monkeypatch.setattr(torch.cuda, "synchronize", counted)
+    job = tlaunch.TrainJob(cfg=get_config("qwen3-0.6b", reduced=True),
+                           steps=5, global_batch=2, seq_len=16,
+                           log_every=10, device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        tlaunch.run(job)
+        assert calls == []
+        tr = Tracer()
+        with tracing(tr):
+            tlaunch.run(job)
+    assert len(calls) == 3                  # steps 1-3; 0 and 4 are logged
+    assert [sp.attrs["step"] for sp in tr.spans
+            if sp.name == "train/step"] == list(range(5))
+
+
+def test_run_resumes_in_place_on_the_card(dev, tmp_path):
+    """``run(restore=True)`` on the card loads the checkpoint into the
+    live state and continues as the uninterrupted run does."""
+    import contextlib
+    import io
+
+    from repro_torch.launch import train as tlaunch
+
+    job = tlaunch.TrainJob(cfg=get_config("qwen3-0.6b", reduced=True),
+                           steps=6, global_batch=4, seq_len=16, n_micro=2,
+                           lr=1e-3, warmup=2, ckpt_every=3, log_every=1,
+                           ckpt_dir=str(tmp_path), device=dev)
+    with contextlib.redirect_stdout(io.StringIO()):
+        whole = tlaunch.run(job)
+        os.rename(tmp_path / "step_0000000005",
+                  tmp_path / "step_0000000005.tmp")
+        resumed = tlaunch.run(job, restore=True)
+    assert [h["step"] for h in resumed["history"]] == [4, 5]
+    assert resumed["history"] == whole["history"][4:]
+    for a, b in zip(whole["state"].params.parameters(),
+                    resumed["state"].params.parameters()):
+        assert a.device.type == "cuda" and torch.equal(a, b)
+
+
+def test_flash_route_raises_under_autograd_on_the_card(dev):
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = init_params(cfg, seed=0, device=dev).requires_grad_(True)
+    toks = torch.zeros((2, 16), dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    with pytest.raises(RuntimeError, match="forward only"):
+        forward(model, {"tokens": toks})
+    assert flash_attention.launches == before
+    with torch.no_grad():
+        forward(model, {"tokens": toks})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + cfg.n_layers
 
 
 def _same_result(a, b) -> bool:

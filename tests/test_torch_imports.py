@@ -60,7 +60,11 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.analyze.invariants, repro_torch.launch.elastic, "
             "repro_torch.core.device_engine, repro_torch.analyze.lint, "
             "repro_torch.analyze.collectives, "
-            "repro_torch.analyze.__main__; "
+            "repro_torch.analyze.__main__, repro_torch.data.tokens, "
+            "repro_torch.data, repro_torch.train, "
+            "repro_torch.train.optimizer, repro_torch.train.train_step, "
+            "repro_torch.checkpoint, repro_torch.checkpoint.checkpointer, "
+            "repro_torch.launch.train; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

@@ -433,3 +433,115 @@ def test_host_engine_refusals_name_their_item(fn, hook):
     ref_fn = ref_reduce if fn is reduce_dimension else ref_batched
     kw = {} if fn is reduce_dimension else dict(batch_size=8)
     _assert_hook_matches(ref_fn, fn, hook, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the trainer (ROADMAP.md §1 item 10a)
+# ---------------------------------------------------------------------------
+
+from repro import checkpoint as ref_checkpoint  # noqa: E402
+from repro import train as ref_train  # noqa: E402
+from repro.launch import train as ref_launch_train  # noqa: E402
+from repro_torch import checkpoint as port_checkpoint  # noqa: E402
+from repro_torch import train as port_train  # noqa: E402
+from repro_torch.launch import train as port_launch_train  # noqa: E402
+
+_CKPT_METHODS = ("__init__", "save", "save_async", "wait", "restore",
+                 "restore_latest_valid", "all_steps", "latest_step")
+
+
+@pytest.mark.parametrize("ref,port", [
+    (ref_launch_train.run, port_launch_train.run),
+    (ref_launch_train.tda_monitor, port_launch_train.tda_monitor),
+    (ref_train.make_train_step, port_train.make_train_step),
+    (ref_train.make_loss_fn, port_train.make_loss_fn),
+    (ref_train.lm_loss, port_train.lm_loss),
+    (ref_train.global_norm, port_train.global_norm),
+    (ref_train.warmup_cosine, port_train.warmup_cosine),
+    (ref_train.AdamW.init, port_train.AdamW.init),
+    (ref_train.AdamW.update, port_train.AdamW.update),
+] + [(getattr(ref_checkpoint.Checkpointer, n),
+      getattr(port_checkpoint.Checkpointer, n)) for n in _CKPT_METHODS],
+    ids=lambda f: f.__qualname__)
+def test_trainer_signature_is_the_reference(ref, port):
+    """The trainer's functions and the checkpointer's methods: exactly the
+    reference's parameters (the device comes with the job or the
+    template)."""
+    want, got = _params(ref), _params(port)
+    assert [p.name for p in got] == [p.name for p in want]
+    for a, b in zip(want, got):
+        assert a.kind == b.kind, a.name
+        assert _same_default(a, b), a.name
+
+
+@pytest.mark.parametrize("ref,port,extra", [
+    (ref_launch_train.TrainJob, port_launch_train.TrainJob, ["device"]),
+    (ref_train.AdamW, port_train.AdamW, []),
+    (ref_train.TrainState, port_train.TrainState, []),
+    (ref_train.AdamWState, port_train.AdamWState, []),
+], ids=lambda x: getattr(x, "__qualname__", str(x)))
+def test_trainer_records_are_the_reference(ref, port, extra):
+    """``TrainJob``'s fields are the reference's, then ``device`` (the card
+    unless it says otherwise); ``AdamW``, ``TrainState`` and
+    ``AdamWState`` exactly the reference's."""
+    if dataclasses.is_dataclass(ref):
+        want = [(f.name, f.default) for f in dataclasses.fields(ref)]
+        got = [(f.name, f.default) for f in dataclasses.fields(port)]
+        assert got == want + [(n, None) for n in extra]
+    else:
+        assert port._fields == ref._fields
+
+
+def test_init_train_state_takes_seed_and_device():
+    """Where the reference takes a jax key, the port takes ``seed`` and
+    ``device`` (an explicit generator on the target device)."""
+    assert [p.name for p in _params(ref_train.init_train_state)] == \
+        ["cfg", "opt", "key"]
+    got = _params(port_train.init_train_state)
+    assert [p.name for p in got] == ["cfg", "opt", "seed", "device"]
+    assert got[-1].default is None
+
+
+def test_trainer_packages_export_the_reference_names():
+    assert port_train.__all__ == ref_train.__all__
+    assert port_checkpoint.__all__ == ref_checkpoint.__all__
+    for name in port_train.__all__:
+        assert getattr(port_train, name).__module__.startswith(
+            "repro_torch.train.")
+
+
+def _trainer_refusal(case, tmp_path):
+    from repro_torch.configs import get_config
+
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    opt = port_train.AdamW(lr=port_train.warmup_cosine(1e-3, 2, 10))
+    if case == "mesh_shape":
+        port_launch_train.run(port_launch_train.TrainJob(
+            cfg=cfg, mesh_shape=(2, 2), device="cpu"))
+    elif case == "micro_batch_axes":
+        port_train.make_train_step(cfg, opt, micro_batch_axes=("data",))
+    elif case in ("restore", "restore_latest_valid"):
+        ckpt = port_checkpoint.Checkpointer(str(tmp_path))
+        tree = {"w": np.zeros(3, dtype=np.float32)}
+        ckpt.save(0, tree)
+        getattr(ckpt, case)(tree, shardings={"w": None})
+    else:
+        import torch
+
+        state = port_train.init_train_state(cfg, opt, seed=0, device="cpu")
+        toks = torch.zeros((2, 9), dtype=torch.int32)
+        extra = (torch.zeros((3, 2, 9), dtype=torch.int32)
+                 if case == "positions3" else torch.zeros((2, 9, 64)))
+        port_train.make_train_step(cfg, opt)(state, {"tokens": toks,
+                                                     case: extra})
+
+
+@pytest.mark.parametrize("case", ["mesh_shape", "micro_batch_axes",
+                                  "restore", "restore_latest_valid",
+                                  "positions3", "embeds"])
+def test_trainer_refusals_name_item_10(case, tmp_path):
+    """The sharded trainer (a mesh, pinned microbatch axes, restoring onto
+    shardings) and the batches of the model families that wait raise
+    ``NotImplementedError`` naming ROADMAP.md §1 item 10."""
+    with pytest.raises(NotImplementedError, match=r"item 10\b"):
+        _trainer_refusal(case, tmp_path)
