@@ -75,6 +75,36 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    ``run(restore=True)`` to 310 steps resuming at step 300
    (``train_learning``).  The phase frees its memory before the PH
    phases.
+6b. ``lm_archs`` — the four architectures of the MoE/MLA slice at their
+   published widths and depths through ``ServeEngine`` (seeded random
+   weights, bf16 compute), one after another, each freed before the
+   next and the counts set to 0 just before its ``run``: granite-moe-
+   1b-a400m (float32 parameters) and, with ``param_dtype="bfloat16"``,
+   deepseek-v2-lite-16b and glm4-9b, each 16 requests of 1,024-2,048
+   prompt tokens through 8 slots (two epochs, the second warm), and
+   granite-34b, 4 requests of 256-512 through 2 slots (its 67.9 GB of
+   weights leave about 15 GiB), 16 new tokens each.  Each prints its
+   parameter and cache bytes (MLA's latent cache, ``(r + d_rope)`` a
+   layer, slot and position), peak bytes, prefill s, decode ms and
+   tokens/s; its flash launches must equal ``n_layers`` a prefill
+   (deepseek's at d = 192, the values zero-padded) and the engine's cache
+   the formula's bytes.  One more epoch, a prefill and one decode step,
+   runs under ``torch.profiler`` (every flash launch the tensor-core
+   kernel; busy shares, the longest kernels).  Each model's first epoch
+   prefill also runs through ``_sdpa_masked``, its logits within
+   ``SERVE_CONTRACT`` of the flash route's; on granite-moe
+   ``sample_temperature`` draws twice from one seed (equal) and at ``T =
+   1e-7`` (equal to greedy).
+6c. ``train_moe`` — ``repro_torch.launch.train`` on full-width
+   granite-moe-1b-a400m (float32 parameters, bf16 compute), 4 steps of
+   8 x 1,024 tokens in 4 microbatches, ``tda_monitor`` at step 0, the
+   counts set to 0 just before ``run``: step s, tokens/s, peak bytes,
+   losses and gradient norms finite, the MoE aux loss > 0 every step,
+   one flash launch a layer (the monitor), the peak under 60 GB; one
+   more step under ``torch.profiler`` (``train_moe_profiled_step``).
+   Then one step of its reduced copy (float32, 4 x 65 tokens, 2 microbatches)
+   on the card and on the CPU under ``train_card_vs_cpu``'s gates
+   (``train_moe_card_vs_cpu``).
 7. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
    ``engine="packed"``); the launch count of every kernel of the path
@@ -237,7 +267,9 @@ are timed beside it.
 
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
-``mesh_path``, ``serve_ph``, ``resilience`` and the training run) and, last, ``{"ok": true, "device": ...}``.  Any failed
+``mesh_path``, ``serve_ph``, ``resilience``, the training run, each
+``lm_archs`` architecture and ``train_moe``) and, last, ``{"ok": true,
+"device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
 and without ``src/repro_torch`` beside it (the script copied alone) it
 exits 1, printing no result either way.  It imports nothing of the JAX
@@ -247,6 +279,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import io
 import json
 import math
@@ -773,11 +806,16 @@ FLASH_F32 = "flash_attention_f32_kernel"     # the f32 kernel's symbol
 FLASH_SYMBOL = {torch.bfloat16: FLASH_SM90, torch.float32: FLASH_F32}
 # Correctness-only bfloat16 cases: (BH, S, d, causal, window).
 # (64, 1024, 128) is tda_monitor's forward in the training phase: 4 x 1,024
-# tokens, 16 heads.
+# tokens, 16 heads; (16, 2048, 192) MLA's prefill width (nope 128 + rope 64,
+# the values zero-padded to it), run at the kernel's D = 256; then the
+# lm_archs prefills: granite-moe-1b-a400m (8 x 16 heads, d = 64), glm4-9b
+# (8 x 32, d = 128) and granite-34b (2 x 48 heads of 512 tokens).
 FLASH_BF16_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
                     (8, 1000, 128, True, 1), (16, 1000, 64, True, -1),
                     (16, 1000, 40, True, 256), (1, 2048, 128, True, -1),
-                    (64, 1024, 128, True, -1))
+                    (64, 1024, 128, True, -1), (16, 2048, 192, True, -1),
+                    (128, 2048, 64, True, -1), (256, 2048, 128, True, -1),
+                    (96, 512, 128, True, -1))
 # Correctness-only float32 cases, at the SIMT kernel's tile edges (128
 # queries, 64 keys; 64 and 32 at d = 256): S not a multiple of 128, S below
 # 64, windows below a tile, BH = 1, and every template width.
@@ -2356,14 +2394,16 @@ SERVE_SPANS = ("serve/prefill", "serve/decode")
 SERVE_CONTRACT = 3e-2
 
 
-def serve_requests(cfg, n: int, seed: int = 0):
+def serve_requests(cfg, n: int, seed: int = 0, lo: int = SERVE_MIN_PROMPT,
+                   hi: int = SERVE_PROMPT, max_new: int = SERVE_NEW):
+    """``n`` requests of ``lo`` to ``hi`` prompt tokens, ``max_new`` new
+    tokens each."""
     from repro_torch.serve.engine import Request
 
     rng = np.random.default_rng(seed)
     return [Request(uid=uid, prompt=rng.integers(
-        0, cfg.vocab_size,
-        size=int(rng.integers(SERVE_MIN_PROMPT, SERVE_PROMPT + 1)),
-        dtype=np.int32), max_new=SERVE_NEW) for uid in range(n)]
+        0, cfg.vocab_size, size=int(rng.integers(lo, hi + 1)),
+        dtype=np.int32), max_new=max_new) for uid in range(n)]
 
 
 def busy_within(intervals, lo: float, hi: float) -> float:
@@ -2487,13 +2527,11 @@ def serve(dev) -> dict:
     prefill_s = [sp.dur for sp in tr.spans if sp.name == "serve/prefill"]
     decode_s = [sp.dur for sp in tr.spans if sp.name == "serve/decode"]
     n_tokens = sum(len(t) for t in done.values())
-    kv_bytes = (2 * cfg.n_layers * SERVE_SLOTS * SERVE_S_MAX
-                * cfg.n_kv_heads * cfg.head_dim_ * cfg.cdtype.itemsize)
     out = dict(
         arch=cfg.name, n_params=count_params(model),
         param_bytes=sum(p.numel() * p.element_size()
                         for p in model.parameters()),
-        kv_cache_bytes=kv_bytes,
+        kv_cache_bytes=cache_bytes(cfg, SERVE_SLOTS, SERVE_S_MAX),
         peak_device_bytes=torch.cuda.max_memory_allocated(),
         requests=16, slots=SERVE_SLOTS, prompt_len=SERVE_PROMPT,
         s_max=SERVE_S_MAX, max_new=SERVE_NEW, wall_s=wall,
@@ -2534,21 +2572,26 @@ def serve(dev) -> dict:
 
 
 def prefill_routes(model, prefill, requests, dev, counters,
-                   contract: float) -> dict:
-    """One epoch's prefill (the first ``SERVE_SLOTS`` requests, left-padded
-    to ``SERVE_PROMPT``) through the flash kernel as served and through
+                   contract: float, slots: int = SERVE_SLOTS,
+                   prompt: int = SERVE_PROMPT) -> dict:
+    """One epoch's prefill (the first ``slots`` requests, left-padded to
+    ``prompt``) through the flash kernel as served and through
     ``_sdpa_masked``, each timed after a warm-up; the logits' largest
-    difference against ``contract * max(1, max |logits|)`` and the greedy
-    first tokens of both."""
+    difference against ``contract * max(1, max |logits|)``, the positions
+    whose logits differ by more, the quantiles of a position's largest
+    difference, and the greedy first tokens of both.  On
+    a model with MoE blocks, one more untimed prefill a route records each
+    block's router top-k a token (:func:`moe_routes`): the tokens whose
+    expert set differs between the routes, layer by layer."""
     from repro_torch.serve.steps import sample_greedy
 
-    toks = np.zeros((SERVE_SLOTS, SERVE_PROMPT), dtype=np.int32)
-    for i, req in enumerate(requests[:SERVE_SLOTS]):
-        toks[i, -len(req.prompt):] = req.prompt[-SERVE_PROMPT:]
+    toks = np.zeros((slots, prompt), dtype=np.int32)
+    for i, req in enumerate(requests[:slots]):
+        toks[i, -len(req.prompt):] = req.prompt[-prompt:]
     batch = {"tokens": torch.from_numpy(toks).to(dev)}
     # Explicit positions, though they are arange, take _sdpa_masked.
     seam = dict(batch, positions=torch.arange(
-        SERVE_PROMPT, device=dev).expand(SERVE_SLOTS, SERVE_PROMPT))
+        prompt, device=dev).expand(slots, prompt))
 
     def timed_prefill(b):
         prefill(model, b)                         # warm-up
@@ -2566,18 +2609,54 @@ def prefill_routes(model, prefill, requests, dev, counters,
         if mid == before or counters["flash_attention"].launches != mid:
             raise AssertionError("the seam's prefill routes are not the "
                                  "flash kernel and _sdpa_masked")
-        diff = float((flash_logits - sdpa_logits).abs().max())
+        row_diff = (flash_logits - sdpa_logits).abs().amax(-1)
+        diff = float(row_diff.max())
         scale = max(1.0, float(sdpa_logits.abs().max()))
+        rows_over = int((row_diff > contract * scale).sum())
+        row_q = torch.quantile(row_diff.float().flatten(), torch.tensor(
+            [0.5, 0.99, 0.999], device=dev)).tolist()
+        del row_diff
         flash_tok = sample_greedy(flash_logits)[:, 0]
         sdpa_tok = sample_greedy(sdpa_logits)[:, 0]
         agree = float((flash_tok == sdpa_tok).float().mean())
     del flash_logits, sdpa_logits
     torch.cuda.empty_cache()
-    return dict(prefill_s_flash=flash_s, prefill_s_sdpa=sdpa_s,
-                logits_max_abs_diff=diff, logits_max_abs=scale,
-                atol=contract * scale, first_token_agreement=agree,
-                first_tokens_flash=flash_tok.tolist(),
-                first_tokens_sdpa=sdpa_tok.tolist())
+    out = dict(prefill_s_flash=flash_s, prefill_s_sdpa=sdpa_s,
+               logits_max_abs_diff=diff, logits_max_abs=scale,
+               atol=contract * scale, positions_over_atol=rows_over,
+               position_diff_q50_q99_q999=row_q,
+               positions=int(toks.size), first_token_agreement=agree,
+               first_tokens_flash=flash_tok.tolist(),
+               first_tokens_sdpa=sdpa_tok.tolist())
+    if any(getattr(b, "moe", False) for b in model.blocks):
+        flash_top = moe_routes(model, prefill, batch)
+        sdpa_top = moe_routes(model, prefill, seam)
+        out["moe_tokens_rerouted"] = [
+            int((a != b).any(-1).sum()) for a, b in zip(flash_top, sdpa_top)]
+    return out
+
+
+def moe_routes(model, prefill, batch) -> list:
+    """Each MoE block's router top-k experts a token (sorted), from forward
+    pre-hooks on one prefill of ``batch``, as ``moe_apply`` computes them."""
+    tops = []
+
+    def tap(mod, args):
+        m = mod.cfg.moe
+        h = args[0]
+        xf = h.reshape(-1, h.shape[-1]).to(mod.cfg.cdtype)
+        probs = torch.softmax(xf.float() @ mod.p["router"].float(), dim=-1)
+        tops.append(torch.topk(probs, m.top_k, dim=-1)[1].sort(-1)[0])
+
+    hooks = [b.ffn.register_forward_pre_hook(tap) for b in model.blocks
+             if b.moe]
+    try:
+        with torch.inference_mode():
+            prefill(model, batch)
+    finally:
+        for hk in hooks:
+            hk.remove()
+    return tops
 
 
 def check_seam(seam: dict) -> None:
@@ -2758,7 +2837,17 @@ def train_full_width(dev, counters) -> tuple:
     step_fn = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
     batch = {k: torch.from_numpy(v).to(dev)
              for k, v in stream.batch_at(TRAIN_STEPS).items()}
-    state = out["state"]
+    res["profiled_step"], state = profiled_step(step_fn, out["state"],
+                                                batch, median_s)
+    emit("train_profiled_step", **res["profiled_step"])
+    return res, cfg, state, step_fn, stream
+
+
+def profiled_step(step_fn, state, batch, median_s: float) -> tuple:
+    """One train step under ``torch.profiler`` (CUDA activity only): the
+    card's busy share, device seconds by kind of operation
+    (:func:`op_group`) and the five longest device operations.  Returns
+    (the step's profile, the new state)."""
 
     def one_step():
         nonlocal state
@@ -2768,6 +2857,9 @@ def train_full_width(dev, counters) -> tuple:
         return time.perf_counter() - t0, float(metrics["loss"])
 
     (prof_s, prof_loss), evs = profiled(one_step, host=False)
+    if not evs:
+        raise AssertionError("the profiled train step recorded no device "
+                             "work")
     kernels = by_kernel(evs)
     top = sorted(kernels.items(), key=lambda kv: -kv[1][1])[:5]
     busy = busy_us(evs) / 1e6
@@ -2775,7 +2867,7 @@ def train_full_width(dev, counters) -> tuple:
     for k, (n, us) in kernels.items():
         g = op_group(k)
         groups[g] = groups.get(g, 0.0) + us / 1e6
-    res["profiled_step"] = dict(
+    return dict(
         wall_s=prof_s, loss=prof_loss, device_busy_s=busy,
         device_busy_share=busy / prof_s,
         # the profiler slows the host's dispatch; against the unprofiled
@@ -2783,12 +2875,7 @@ def train_full_width(dev, counters) -> tuple:
         device_busy_share_of_median_step=busy / median_s,
         device_ops=len(evs), device_s_by_group=groups,
         top_ops=[dict(name=k[:100], launches=n, device_s=us / 1e6)
-                 for k, (n, us) in top])
-    emit("train_profiled_step", **res["profiled_step"])
-    if not evs:
-        raise AssertionError("the profiled train step recorded no device "
-                             "work")
-    return res, cfg, state, step_fn, stream
+                 for k, (n, us) in top]), state
 
 
 def monitor_routes(model, cfg, batch_np, counters) -> dict:
@@ -2897,10 +2984,12 @@ def train_checkpoint(dev, state, step_fn, stream) -> dict:
     return out
 
 
-def train_card_vs_cpu(dev, cfg) -> dict:
-    """One train step of the full-width model in float32 compute (TF32
-    off) on a batch of 1 x 65 tokens, on the card and on the CPU from the
-    card's weights (``params_to_arrays``)."""
+def train_card_vs_cpu(dev, cfg, tokens=(1, 65), n_micro: int = 1,
+                      line: str = "train_card_vs_cpu") -> dict:
+    """One train step of ``cfg`` in float32 compute (TF32 off) on a batch
+    of ``tokens`` (1 x 65 for the full-width model), in ``n_micro``
+    microbatches, on the card and on the CPU from the card's weights
+    (``params_to_arrays``); printed as ``line``."""
     from repro_torch.models.transformer import (params_from_arrays,
                                                 params_to_arrays)
     from repro_torch.train import (AdamW, TrainState, init_train_state,
@@ -2909,14 +2998,14 @@ def train_card_vs_cpu(dev, cfg) -> dict:
     cfg32 = dataclasses.replace(cfg, compute_dtype="float32")
     torch.backends.cuda.matmul.allow_tf32 = False
     opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
-    step_fn = make_train_step(cfg32, opt)
+    step_fn = make_train_step(cfg32, opt, n_micro=n_micro)
     card = init_train_state(cfg32, opt, seed=0, device=dev)
     host_model = params_from_arrays(cfg32, params_to_arrays(card.params),
                                     "cpu").requires_grad_(True)
     host = TrainState(params=host_model,
                       opt=opt.init(dict(host_model.named_parameters())))
     toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(1, 65)).astype(np.int32)
+        0, cfg.vocab_size, size=tokens).astype(np.int32)
     t0 = time.perf_counter()
     card, card_m = step_fn(card, {"tokens": torch.from_numpy(toks).to(dev)})
     torch.cuda.synchronize()
@@ -2941,7 +3030,8 @@ def train_card_vs_cpu(dev, cfg) -> dict:
         weights_over_1e_6=int((d > 1e-6).sum()))
     rel = [abs(a - b) / abs(b) for a, b in (out["loss"], out["grad_norm"])]
     out["rel_loss"], out["rel_grad_norm"] = rel
-    emit("train_card_vs_cpu", **out)
+    out["aux_loss"] = (float(card_m["aux_loss"]), float(host_m["aux_loss"]))
+    emit(line, **out)
     if not (max(rel) <= TRAIN_REL_TOL
             and out["weight_diff_max"] <= 2 * lr * (1 + 1e-3)
             and out["weight_diff_p999"] <= TRAIN_P999_TOL
@@ -3013,6 +3103,297 @@ def train(dev) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 6b and 6c: the MoE, MLA and larger dense architectures
+# ---------------------------------------------------------------------------
+
+# (arch, param_dtype, slots, prompt_len): two epochs of requests, the
+# second warm.  deepseek-v2-lite-16b, glm4-9b and granite-34b keep their
+# parameters in bfloat16 (the reference ModelConfig's own param_dtype
+# setting): in float32 they take 62.8, 37.6 and 135.8 GB.  granite-34b's
+# 67.9 GB leave about 15 GiB of the card, so it serves 2 slots of 512
+# prompt tokens.
+LM_ARCHS = (("granite-moe-1b-a400m", "float32", 8, 2048),
+            ("deepseek-v2-lite-16b", "bfloat16", 8, 2048),
+            ("glm4-9b", "bfloat16", 8, 2048),
+            ("granite-34b", "bfloat16", 2, 512))
+LM_EPOCHS = 2
+# The profiled epoch: a prefill and one decode step.  The profiler's host
+# side costs 2.5-5.5 s a decode step at these depths (a full epoch of 15
+# took 40-86 s an architecture).
+LM_PROFILED_NEW = 2
+LM_NEW = 16
+LM_MAX_PEAK = 76 * 2**30      # past this granite-34b's depth would be cut
+LM_MAX_ALLOCATED = 2 * 2**30  # what earlier phases may leave on the card
+LM_SAMPLE_ARCH = "granite-moe-1b-a400m"
+# Training (phase 6c): full-width granite-moe-1b-a400m, 8 x 1,024 tokens a
+# step (TRAIN_BATCH x TRAIN_SEQ) in 4 microbatches, tda_monitor at step 0.
+TRAIN_MOE_ARCH = "granite-moe-1b-a400m"
+TRAIN_MOE_STEPS, TRAIN_MOE_MICRO = 4, 4
+
+
+def cache_bytes(cfg, slots: int, s_max: int) -> int:
+    """The decode cache: MLA's latent and rotary key, ``(r + d_rope) ·
+    layers · slots · S_max`` elements, or K and V, ``2 · layers · slots ·
+    S_max · KV · head_dim``; in the compute dtype."""
+    if cfg.mla is not None:
+        per = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
+    else:
+        per = 2 * cfg.n_kv_heads * cfg.head_dim_
+    return per * cfg.n_layers * slots * s_max * cfg.cdtype.itemsize
+
+
+def sample_on_card(model, cfg, dev) -> dict:
+    """``sample_temperature`` on the card, on the model's logits for 8 x 64
+    tokens: twice from one seed (equal), and at ``T = 1e-7`` (equal to
+    ``sample_greedy``)."""
+    from repro_torch.models.transformer import forward
+    from repro_torch.serve.steps import sample_greedy, sample_temperature
+
+    toks = torch.as_tensor(np.random.default_rng(5).integers(
+        0, cfg.vocab_size, (8, 64)), dtype=torch.int32, device=dev)
+    with torch.inference_mode():
+        logits = forward(model, {"tokens": toks})[0]
+        draws = [sample_temperature(logits, torch.Generator(
+            device=dev).manual_seed(7), 1.0) for _ in range(2)]
+        other = sample_temperature(logits, torch.Generator(
+            device=dev).manual_seed(8), 1.0)
+        greedy = sample_greedy(logits)
+        cold = sample_temperature(logits, torch.Generator(
+            device=dev).manual_seed(7), 1e-7)
+    out = dict(arch=cfg.name, rows=8, same_seed_equal=bool(
+        torch.equal(draws[0], draws[1])),
+        other_seed_equal=bool(torch.equal(draws[0], other)),
+        t1_equal_greedy=int((draws[0] == greedy).sum()),
+        cold_equal_greedy=bool(torch.equal(cold, greedy)),
+        dtype=str(draws[0].dtype), shape=list(draws[0].shape))
+    if not (out["same_seed_equal"] and out["cold_equal_greedy"]
+            and out["shape"] == [8, 1] and draws[0].dtype == torch.int32):
+        raise AssertionError(f"sample_temperature on the card: {out}")
+    return out
+
+
+def flash_launch_bound(cfg, window: dict, slots: int, prompt: int) -> dict:
+    """The profiled prefill's mean flash launch against the least time of
+    the function it computes: q and k at the query-key width, v and the
+    output at the value width (MLA: 192 and 128; the kernel's zero-padded
+    value columns are not work), read and written once in bf16, and
+    ``2 (d_qk + d_v)`` operations an attended pair at the bf16 peak."""
+    m = cfg.mla
+    d_qk = m.nope_head_dim + m.rope_head_dim if m else cfg.head_dim_
+    d_v = m.v_head_dim if m else cfg.head_dim_
+    bh = slots * cfg.n_heads
+    pairs = np.mean([attended_pairs(prompt, True, cfg.window_for_layer(i)
+                                    or -1) for i in range(cfg.n_layers)])
+    ms = window["flash_device_s"] * 1e3 / window["flash_profiled_launches"]
+    b_ms, b_by = bound(2 * bh * prompt * (2 * d_qk + 2 * d_v),
+                       2 * bh * pairs * (d_qk + d_v), BF16_TC_FLOPS_PER_S)
+    return dict(shape=[bh, prompt, d_qk, d_v], ms=ms, bound_ms=b_ms,
+                bound_by=b_by, bound_share=b_ms / ms)
+
+
+def lm_arch(dev, arch: str, param_dtype: str, slots: int,
+            prompt: int) -> dict:
+    """One architecture at its published width through ``ServeEngine`` on
+    the card, the counts set to 0 just before ``run``: ``LM_EPOCHS``
+    epochs of ``slots`` requests, every request served with ``LM_NEW``
+    tokens, one flash launch a layer a prefill (the bf16 kernel's
+    ``launches``).  Then one more epoch, a prefill and one decode step,
+    under ``torch.profiler`` (:func:`profiled_serving`): every flash
+    launch the tensor-core kernel, the card's busy share in prefill and
+    decode, the longest kernels.  Last, the first epoch's prefill through
+    the flash kernel and through ``_sdpa_masked`` (:func:`prefill_routes`),
+    the logits held to ``SERVE_CONTRACT``."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import count_params, init_params
+    from repro_torch.obs.trace import Tracer, tracing
+    from repro_torch.serve.engine import ServeEngine
+    from repro_torch.serve.steps import make_prefill_step
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype)
+    # earlier phases' models can outlive their phase in reference cycles
+    # until the collector runs (qwen3's training model, 2.68 GB, has)
+    gc.collect()
+    torch.cuda.empty_cache()
+    allocated = torch.cuda.memory_allocated()
+    if allocated > LM_MAX_ALLOCATED:
+        raise AssertionError(f"{arch}: {allocated} bytes still allocated "
+                             f"by earlier phases")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    s_max = prompt + LM_NEW
+    engine = ServeEngine(cfg, params=model, max_batch=slots,
+                         prompt_len=prompt, s_max=s_max, device=dev)
+    n_req = LM_EPOCHS * slots
+    requests = serve_requests(cfg, n_req, seed=3, lo=prompt // 2,
+                              hi=prompt, max_new=LM_NEW)
+    for req in requests:
+        engine.submit(req)
+    counters = reset_counters()
+    tr = Tracer()
+    t0 = time.perf_counter()
+    with tracing(tr):
+        done = engine.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {k: fn.launches for k, fn in counters.items()}
+    n_prefills = int(engine.stats()["serve_n_prefills"])
+    prefill_s = [sp.dur for sp in tr.spans if sp.name == "serve/prefill"]
+    decode_s = [sp.dur for sp in tr.spans if sp.name == "serve/decode"]
+    n_tokens = sum(len(t) for t in done.values())
+    held = sum(t.numel() * t.element_size()
+               for layer in engine._cache["layers"] for t in layer)
+    out = dict(
+        arch=cfg.name, param_dtype=cfg.param_dtype,
+        compute_dtype=cfg.compute_dtype, n_layers=cfg.n_layers,
+        d_model=cfg.d_model, n_params=count_params(model),
+        param_bytes=sum(p.numel() * p.element_size()
+                        for p in model.parameters()),
+        cache_bytes=cache_bytes(cfg, slots, s_max), cache_bytes_held=held,
+        allocated_before=allocated, init_s=init_s, requests=n_req,
+        slots=slots, prompt_len=prompt, s_max=s_max, max_new=LM_NEW,
+        prompt_tokens=sum(min(len(r.prompt), prompt) for r in requests),
+        wall_s=wall, prefills=n_prefills, prefill_s=prefill_s,
+        decode_ms_mean=float(np.mean(decode_s)) * 1e3,
+        decode_ms_median=float(np.median(decode_s)) * 1e3,
+        n_decode_steps=len(decode_s), generated_tokens=n_tokens,
+        tokens_per_s=n_tokens / wall, launches=launches)
+    if sorted(done) != list(range(n_req)) or any(
+            len(t) != LM_NEW or not all(0 <= x < cfg.padded_vocab
+                                        for x in t)
+            for t in done.values()):
+        raise AssertionError(f"{arch}: malformed generations {done}")
+    if launches["flash_attention"] != cfg.n_layers * n_prefills \
+            or n_prefills < 1:
+        raise AssertionError(f"{arch}: {launches['flash_attention']} flash "
+                             f"launches for {n_prefills} prefills of "
+                             f"{cfg.n_layers} layers")
+    if held != out["cache_bytes"]:
+        raise AssertionError(f"{arch}: the engine's cache holds {held} "
+                             f"bytes, the formula {out['cache_bytes']}")
+    for req in serve_requests(cfg, slots, seed=4, lo=prompt // 2, hi=prompt,
+                              max_new=LM_PROFILED_NEW):
+        engine.submit(req)
+    window = out["profiled_window"] = profiled_serving(engine,
+                                                       reset_counters())
+    n_prof = window["phases"]["serve/prefill"]["n"]
+    if not (n_prof == 1 and window["flash_launches"] == cfg.n_layers
+            and window["flash_symbol_launches"] == cfg.n_layers
+            and window["flash_profiled_launches"] == cfg.n_layers):
+        raise AssertionError(
+            f"{arch} profiled epoch: {window['flash_launches']} flash "
+            f"launches counted, {window['flash_symbol_launches']} of "
+            f"{window['flash_profiled_launches']} profiled ones the tensor-"
+            f"core kernel, for {n_prof} prefills of {cfg.n_layers} layers")
+    out["flash_launch"] = flash_launch_bound(cfg, window, slots, prompt)
+    out["seam"] = prefill_routes(model, make_prefill_step(cfg), requests,
+                                 dev, counters, SERVE_CONTRACT, slots, prompt)
+    if arch == LM_SAMPLE_ARCH:
+        out["sample_temperature"] = sample_on_card(model, cfg, dev)
+    out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
+    emit("lm_archs", **out)
+    check_seam(out["seam"])
+    if out["peak_device_bytes"] > LM_MAX_PEAK:
+        raise AssertionError(f"{arch}: peak {out['peak_device_bytes']} "
+                             f"bytes > {LM_MAX_PEAK}")
+    del engine, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def lm_archs(dev) -> dict:
+    """Phase 6b: the four architectures of the MoE/MLA slice, one after
+    another, each freed before the next."""
+    t0 = time.perf_counter()
+    out = {arch: lm_arch(dev, arch, *rest) for arch, *rest in LM_ARCHS}
+    emit("lm_archs_done", phase_s=time.perf_counter() - t0,
+         flash_launches={a: r["launches"]["flash_attention"]
+                         for a, r in out.items()})
+    return out
+
+
+def train_moe(dev) -> dict:
+    """Phase 6c: ``launch.train.run`` on full-width granite-moe-1b-a400m
+    (float32 parameters, bf16 compute, seed 0), ``TRAIN_MOE_STEPS`` steps
+    of 8 x 1,024 tokens in ``TRAIN_MOE_MICRO`` microbatches, every step
+    logged, ``tda_monitor`` at step 0 (one bf16 flash launch a layer); the
+    counts set to 0 just before it.  Gates: finite losses and gradient
+    norms, a positive aux loss every step, the peak under
+    ``TRAIN_MAX_PEAK``.  Then one step of the reduced copy in float32 on
+    the card and on the CPU, under ``train_card_vs_cpu``'s gates."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import run
+    from repro_torch.obs.trace import Tracer, tracing
+
+    from repro_torch.data.tokens import ShardedTokenStream
+    from repro_torch.train import AdamW, make_train_step, warmup_cosine
+
+    cfg = get_config(TRAIN_MOE_ARCH)
+    job = train_job(cfg, dev, steps=TRAIN_MOE_STEPS, n_micro=TRAIN_MOE_MICRO,
+                    tda_every=TRAIN_MOE_STEPS)
+    torch.cuda.empty_cache()
+    counters = reset_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    tr = Tracer()
+    with tracing(tr), contextlib.redirect_stdout(io.StringIO()):
+        out = run(job)
+    torch.cuda.synchronize()
+    launches = {k: fn.launches for k, fn in counters.items()}
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    step_s = [sp.dur for sp in tr.spans if sp.name == "train/step"]
+    median_s = float(np.median(step_s[1:]))
+    res = dict(
+        arch=cfg.name, n_layers=cfg.n_layers, d_model=cfg.d_model,
+        n_experts=cfg.moe.n_experts, top_k=cfg.moe.top_k,
+        compute_dtype=cfg.compute_dtype, param_dtype=cfg.param_dtype,
+        steps=TRAIN_MOE_STEPS, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+        n_micro=TRAIN_MOE_MICRO, n_params=sum(
+            p.numel() for p in out["state"].params.parameters()),
+        loss=[h["loss"] for h in hist], aux=[h["aux_loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist], step_s=step_s,
+        median_step_s=median_s, tokens_per_s=TRAIN_BATCH * TRAIN_SEQ
+        / median_s, wall_s=out["wall_s"], peak_device_bytes=peak,
+        launches=launches,
+        tda={k: v for k, v in hist[0].items() if k.startswith("tda_")})
+    emit("train_moe", **res)
+    if not (len(hist) == TRAIN_MOE_STEPS
+            and all(np.isfinite(res["loss"] + res["grad_norm"]))
+            and all(a > 0 for a in res["aux"])):
+        raise AssertionError(f"granite-moe training: losses {res['loss']}, "
+                             f"aux {res['aux']}, grad norms "
+                             f"{res['grad_norm']}")
+    if launches["flash_attention"] != cfg.n_layers or len(res["tda"]) != 3:
+        raise AssertionError(f"granite-moe tda_monitor: "
+                             f"{launches['flash_attention']} flash launches "
+                             f"for {cfg.n_layers} layers")
+    if peak > TRAIN_MAX_PEAK:
+        raise AssertionError(f"granite-moe training peaked at {peak} bytes "
+                             f"> {TRAIN_MAX_PEAK:.0f}")
+    stream = ShardedTokenStream(vocab=cfg.vocab_size,
+                                global_batch=TRAIN_BATCH, seq=TRAIN_SEQ + 1)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(TRAIN_MOE_STEPS).items()}
+    step_fn = make_train_step(cfg, AdamW(lr=warmup_cosine(
+        TRAIN_LR, TRAIN_WARMUP, TRAIN_MOE_STEPS)), n_micro=TRAIN_MOE_MICRO)
+    res["profiled_step"], _ = profiled_step(step_fn, out["state"], batch,
+                                            median_s)
+    emit("train_moe_profiled_step", **res["profiled_step"])
+    del out, batch, step_fn
+    torch.cuda.empty_cache()
+    res["card_vs_cpu"] = train_card_vs_cpu(
+        dev, get_config(TRAIN_MOE_ARCH, reduced=True), tokens=(4, 65),
+        n_micro=2, line="train_moe_card_vs_cpu")
+    res["phase_s"] = time.perf_counter() - t0
+    torch.cuda.empty_cache()
+    return res
+
+
 def f32_sass_check(_build, ptxas) -> dict:
     """The float32 flash library holds IEEE FFMA products only: its SASS
     (``cuobjdump -sass``) has no matrix-multiply opcode (HMMA, HGMMA, IMMA,
@@ -3075,6 +3456,8 @@ def main() -> int:
     served = serve(dev)
     served_f32 = serve_f32(dev)
     trained = train(dev)
+    archs = lm_archs(dev)
+    moe_trained = train_moe(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
     path, main_res, main_filt, main_deaths = main_path(dev, MAIN_PATH_N, tap,
                                                        serial)
@@ -3100,12 +3483,17 @@ def main() -> int:
     launches = dict(path["launches"],
                     flash_attention_bf16=served["flash_launches"],
                     flash_attention_f32=served_f32["flash_launches"])
-    # the training run computes in bf16: its flash launches (tda_monitor's
-    # forward) are the bf16 kernel's
-    train_launches = dict(trained["full_width"]["launches"])
-    train_launches.update(
-        flash_attention_bf16=train_launches.pop("flash_attention"),
-        flash_attention_f32=0)
+    def bf16(counted):
+        # these runs compute in bf16: their flash launches (prefills and
+        # tda_monitor's forward) are the bf16 kernel's
+        out = dict(counted)
+        out.update(flash_attention_bf16=out.pop("flash_attention"),
+                   flash_attention_f32=0)
+        return out
+
+    train_launches = bf16(trained["full_width"]["launches"])
+    lm_launches = {a: bf16(r["launches"]) for a, r in archs.items()}
+    moe_train_launches = bf16(moe_trained["launches"])
 
     replaces = {
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
@@ -3144,6 +3532,8 @@ def main() -> int:
             serve_ph_launches=sph["launches"].get(kname),
             resilience_launches=resil["launches"].get(kname),
             train_launches=train_launches[kname],
+            lm_archs_launches={a: n[kname] for a, n in lm_launches.items()},
+            train_moe_launches=moe_train_launches[kname],
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

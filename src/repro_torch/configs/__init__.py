@@ -3,10 +3,10 @@
 Port of ``src/repro/configs/__init__.py``.  ``get_config(name)`` returns
 the full published config; ``get_config(name, reduced=True)`` the CPU
 smoke-test variant.  Modules load from this package
-(``repro_torch.configs.<name>``), never the reference's.  Only the dense
-archs the port's model runs have a module here; the others raise
-``NotImplementedError`` (ROADMAP.md §1, item 10: the rest of the LM
-substrate).
+(``repro_torch.configs.<name>``), never the reference's.  Only the archs
+the port's model runs have a module here (the dense decoders, and the MoE
+and MLA models); the others raise ``NotImplementedError`` (ROADMAP.md §1,
+item 10: the rest of the LM substrate).
 """
 from __future__ import annotations
 
@@ -21,7 +21,8 @@ ARCHS = (
     "granite_moe_1b_a400m", "recurrentgemma_9b",
 )
 
-PORTED = ("qwen3_0_6b", "gemma3_1b")
+PORTED = ("qwen3_0_6b", "gemma3_1b", "glm4_9b", "granite_34b",
+          "granite_moe_1b_a400m", "deepseek_v2_lite_16b")
 
 ALIASES = {
     "qwen3-0.6b": "qwen3_0_6b", "gemma3-1b": "gemma3_1b",

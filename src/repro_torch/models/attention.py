@@ -1,7 +1,7 @@
-"""Attention blocks: GQA/MQA with qk-norm + RoPE, sliding windows, and the
-prefill/decode KV-cache paths.
+"""Attention blocks: GQA/MQA with qk-norm + RoPE, sliding windows,
+DeepSeek-style MLA (compressed KV), and the prefill/decode cache paths.
 
-Port of ``src/repro/models/attention.py`` (MLA, M-RoPE and cross-attention
+Port of ``src/repro/models/attention.py`` (M-RoPE and cross-attention
 wait: ROADMAP.md §1, item 10).  Masking is data-driven (per-layer window
 int; -1 = global).
 
@@ -26,8 +26,17 @@ the P.V product, as :func:`_sdpa` rounds them to ``v.dtype``, while the
 kernel's plain version (the CPU route) keeps them in float32.  In float32
 compute they agree.
 
-Decode writes the new K/V into the cache in place (the reference returns
-an updated copy); :func:`attention_apply` returns the same cache tensors.
+MLA's prefill takes the same route.  Its q and k are ``nope + rope`` wide
+(192 in deepseek-v2-lite) and its values ``v_head_dim`` (128), while the
+kernel takes one width for all three: :func:`_flash_prefill` zero-pads the
+values to q's width and slices the output back.  The padded columns add
+nothing to P.V and the scale is ``1/sqrt(nope + rope)``, the reference's,
+so it is the same function.
+
+Decode writes the new K/V (MLA: the latent ``c_kv`` and the rotary key)
+into the cache in place (the reference returns an updated copy);
+:func:`attention_apply` and :func:`mla_apply` return the same cache
+tensors.
 """
 from __future__ import annotations
 
@@ -61,6 +70,29 @@ def attn_params(cfg: ModelConfig, gen: torch.Generator,
         p["q_norm"] = torch.ones(hd, **kw)
         p["k_norm"] = torch.ones(hd, **kw)
     return p
+
+
+def mla_params(cfg: ModelConfig, gen: torch.Generator,
+               device=None) -> dict:
+    """Seeded init in the reference's layout: ``wq`` (d, h·(nope+rope)),
+    the latent down-projection ``w_dkv`` (d, r), the shared rotary key
+    ``w_krope`` (d, rope), the up-projections ``w_uk`` (r, h·nope) and
+    ``w_uv`` (r, h·v), ``wo`` and the latent's norm scale ``kv_norm``."""
+    d, h = cfg.d_model, cfg.n_heads
+    m = cfg.mla
+    r = m.kv_lora_rank
+    kw = dict(dtype=cfg.pdtype, device=device)
+    return {
+        "wq": dense_init(gen, (d, h * (m.nope_head_dim + m.rope_head_dim)),
+                         **kw),
+        "w_dkv": dense_init(gen, (d, r), **kw),
+        "w_krope": dense_init(gen, (d, m.rope_head_dim), **kw),
+        "w_uk": dense_init(gen, (r, h * m.nope_head_dim), fan_in=r, **kw),
+        "w_uv": dense_init(gen, (r, h * m.v_head_dim), fan_in=r, **kw),
+        "wo": dense_init(gen, (h * m.v_head_dim, d), fan_in=h * m.v_head_dim,
+                         **kw),
+        "kv_norm": torch.ones(r, **kw),
+    }
 
 
 def _mask_bias(q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
@@ -137,7 +169,9 @@ def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int, causal: bool) -> torch.Tensor:
     """Self-attention over positions ``arange(S)`` through the flash kernel:
-    KV expanded to H heads, (B, S, H, D) -> (B·H, S, D) and back.
+    KV expanded to H heads, (B, S, H, D) -> (B·H, S, D) and back.  Values
+    narrower than q and k (MLA) are zero-padded to their width for the
+    kernel; the output has the values' head dim.
 
     Forward only, on every device: the kernel's output on the card has no
     ``grad_fn`` (``wq``, ``wk`` and ``wv`` would get no gradient through
@@ -153,16 +187,22 @@ def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             "take _sdpa_masked, or run under torch.no_grad()")
     b, s, h, hd = q.shape
     kvh = k.shape[2]
+    dv = v.shape[-1]
+    if dv > hd:
+        raise ValueError(f"values of head dim {dv} wider than q's {hd}: the "
+                         "kernel's scale would change with padded q and k")
     if kvh != h:
         k = torch.repeat_interleave(k, h // kvh, dim=2)
         v = torch.repeat_interleave(v, h // kvh, dim=2)
+    if dv < hd:
+        v = torch.nn.functional.pad(v, (0, hd - dv))
 
     def heads_first(t):
         return t.permute(0, 2, 1, 3).reshape(b * h, s, t.shape[-1])
 
     out = ops.attention(heads_first(q), heads_first(k), heads_first(v),
                         causal=causal, window=window)
-    return out.reshape(b, h, s, hd).permute(0, 2, 1, 3)
+    return out.reshape(b, h, s, hd)[..., :dv].permute(0, 2, 1, 3)
 
 
 def attention_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
@@ -222,6 +262,81 @@ def attention_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     return out @ p["wo"].to(cdt), new_cache
 
 
+def mla_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
+              x: torch.Tensor, positions: Optional[torch.Tensor],
+              window: int,
+              cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              cache_pos: Optional[int] = None):
+    """DeepSeek-V2 Multi-head Latent Attention over ``p`` (the
+    :func:`mla_params` layout): KV compressed to ``kv_lora_rank`` plus one
+    shared rotary key head; the cache holds only the latent ``c_kv`` and
+    the rotary key, (B, S_max, r) and (B, S_max, rope).
+
+    ``cache`` given: a decode step in the reference's absorbed form, scored
+    against the latent cache, ``q·K^T = (q_nope W_uk^T)·c^T`` and ``out =
+    (P·c) W_uv``, with ``q_nope W_uk^T`` rounded to the compute dtype and
+    the scores accumulated in float32.  Otherwise a prefill whose K is
+    ``[c_kv W_uk, k_rope]`` and V ``c_kv W_uv``; ``positions=None`` (with
+    ``window != 0``) takes the flash-kernel route, explicit positions
+    :func:`_sdpa_masked`.  Returns (out, (c_kv, k_rope)).
+    """
+    cdt = cfg.cdtype
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope, dv = m.nope_head_dim, m.rope_head_dim, m.v_head_dim
+    r = m.kv_lora_rank
+    flash = positions is None and cache is None and window != 0
+    if positions is None:
+        positions = torch.arange(s, device=x.device).expand(b, s)
+    x = x.to(cdt)
+    q = (x @ p["wq"].to(cdt)).reshape(b, s, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+
+    c_kv = rmsnorm(x @ p["w_dkv"].to(cdt), p["kv_norm"], cfg.norm_eps)
+    k_rope = apply_rope((x @ p["w_krope"].to(cdt))[:, :, None, :],
+                        positions, cfg.rope_theta)            # (B,S,1,rope)
+
+    if cache is not None:
+        c_cache, kr_cache = cache
+        c_cache[:, cache_pos:cache_pos + s] = c_kv.to(c_cache.dtype)
+        kr_cache[:, cache_pos:cache_pos + s] = k_rope[:, :, 0].to(
+            kr_cache.dtype)
+        f32 = torch.float32
+        c_all = c_cache.to(cdt).to(f32)
+        kr_all = kr_cache.to(cdt).to(f32)
+        w_uk_h = p["w_uk"].to(cdt).reshape(r, h, nope)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk_h)  # cdt
+        s_nope = torch.einsum("bqhr,bkr->bhqk", q_lat.to(f32), c_all)
+        s_rope = torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32), kr_all)
+        scores = (s_nope + s_rope) * (1.0 / math.sqrt(nope + rope))
+        k_idx = torch.arange(c_cache.shape[1], device=x.device)
+        ok = k_idx <= cache_pos
+        if window >= 0:
+            ok &= cache_pos - k_idx < max(window, 1)
+        scores = torch.where(ok, scores, NEG_INF)
+        probs = torch.softmax(scores, dim=-1)
+        out_lat = torch.einsum("bhqk,bkr->bqhr", probs.to(cdt).to(f32),
+                               c_all)                          # float32
+        w_uv_h = p["w_uv"].to(cdt).reshape(r, h, dv)
+        out = torch.einsum("bqhr,rhv->bqhv", out_lat.to(cdt), w_uv_h)
+        out = out.reshape(b, s, h * dv).to(cdt)
+        return out @ p["wo"].to(cdt), (c_cache, kr_cache)
+
+    k_nope = (c_kv @ p["w_uk"].to(cdt)).reshape(b, s, h, nope)
+    val = (c_kv @ p["w_uv"].to(cdt)).reshape(b, s, h, dv)
+    k_full = torch.cat([k_nope, k_rope.expand(b, s, h, rope)], dim=-1)
+    q_full = torch.cat([q_nope, q_rope], dim=-1)
+    if flash:
+        out = _flash_prefill(q_full, k_full, val, window, True)
+    else:
+        out = _sdpa_masked(q_full, k_full, val, positions, positions, window,
+                           causal=True)
+    out = out.reshape(b, s, h * dv).to(cdt)
+    return out @ p["wo"].to(cdt), (c_kv, k_rope[:, :, 0])
+
+
 class Attention(nn.Module):
     """Holds one layer's attention weights (the :func:`attn_params`
     layout) and applies :func:`attention_apply`."""
@@ -234,3 +349,17 @@ class Attention(nn.Module):
     def forward(self, x, positions, window, cache=None, cache_pos=None):
         return attention_apply(self.p, self.cfg, x, positions, window,
                                cache=cache, cache_pos=cache_pos)
+
+
+class MLA(nn.Module):
+    """Holds one layer's latent-attention weights (the :func:`mla_params`
+    layout) and applies :func:`mla_apply`."""
+
+    def __init__(self, cfg: ModelConfig, p: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.p = nn.ParameterDict({name: _param(t) for name, t in p.items()})
+
+    def forward(self, x, positions, window, cache=None, cache_pos=None):
+        return mla_apply(self.p, self.cfg, x, positions, window,
+                         cache=cache, cache_pos=cache_pos)

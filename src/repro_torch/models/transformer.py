@@ -1,10 +1,14 @@
 """Model assembly: the layer plan, the ``Transformer`` module, forward and
 decode.
 
-Port of ``src/repro/models/transformer.py`` for the dense decoder.  Where
-the reference scans one stacked parameter group over its repeats, the port
-holds an ``nn.ModuleList`` of blocks, each with its own window int (the
-reference's per-repeat window scalar).  Entry points:
+Port of ``src/repro/models/transformer.py`` for the decoder-only families:
+dense, MoE (``models/moe.py``) and MLA (``mla_apply``).  Where the
+reference scans each stacked parameter group of its plan over its repeats
+(deepseek-v2-lite: a ``dense_head`` group of one ``mla_mlp`` layer, then
+``blocks`` of ``mla_moe``), the port holds one ``nn.ModuleList`` of blocks
+in the same order, each with its own kind and window int (the reference's
+per-repeat window scalar); :func:`layer_slots` says where each sits in the
+reference's groups.  Entry points:
 
 * :func:`init_params` — seeded init on the card (``device=None``) or the
   CPU, returning the module;
@@ -15,12 +19,13 @@ reference's per-repeat window scalar).  Entry points:
   :func:`named_from_arrays` for any tree that mirrors the parameters (the
   optimizer's moments, gradients) and :func:`load_arrays_` to copy such a
   tree into tensors in place;
-* :func:`forward` — tokens -> float32 logits (+ per-layer ``(K, V)`` with
-  ``return_caches``), the training forward too, with ``cfg.remat``'s
-  activation checkpointing per block under autograd;
+* :func:`forward` — tokens -> float32 logits and the summed MoE auxiliary
+  loss (+ per-layer caches with ``return_caches``), the training forward
+  too, with ``cfg.remat``'s activation checkpointing per block under
+  autograd;
 * :func:`decode_step` — one token against the fixed-capacity cache.
 
-MoE, MLA, the recurrent blocks, enc-dec, M-RoPE and embedding inputs raise
+The recurrent blocks, enc-dec, M-RoPE and embedding inputs raise
 ``NotImplementedError`` (ROADMAP.md §1, item 10).  The trainer
 (``repro_torch.train``) differentiates :func:`forward` with explicit
 positions, which take ``_sdpa_masked`` as the reference's training forward
@@ -37,9 +42,10 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device, to_host
 
-from .attention import Attention, attn_params
+from .attention import MLA, Attention, attn_params, mla_params
 from .config import ModelConfig
 from .layers import MLP, RMSNorm, _param, dense_init, embed, unembed
+from .moe import MoE, moe_params
 
 _NOT_PORTED = "not ported yet (ROADMAP.md §1, item 10, LM substrate)"
 
@@ -52,11 +58,30 @@ class GroupSpec:
     windows: Optional[np.ndarray] = None    # (repeats, n_instances) int32
     d_ff_override: int = 0
 
+    @property
+    def instances(self) -> List[Tuple[str, int]]:
+        out = []
+        for kind, count in self.parts:
+            for _ in range(count):
+                out.append((kind, len(out)))
+        return out
+
+
+@dataclasses.dataclass(frozen=True)
+class LayerSlot:
+    """Where one module layer sits in the reference's parameter tree:
+    ``groups[group][key]`` at index ``repeat`` of the stacked axis."""
+    group: int
+    key: str                # "<kind>_<instance>", e.g. "mla_moe_0"
+    repeat: int
+    kind: str               # "<mixer>_<ffn>": attn|mla x mlp|moe
+    window: int
+    d_ff: int               # the dense MLP's hidden width
+
 
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's model lacks."""
     missing = [what for what, has in (
-        ("moe", cfg.moe is not None), ("mla", cfg.mla is not None),
         ("xlstm", cfg.xlstm is not None), ("rglru", cfg.rglru is not None),
         ("enc_dec", cfg.enc_dec), ('rope_kind="mrope"',
                                    cfg.rope_kind == "mrope"),
@@ -67,25 +92,60 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def build_plan(cfg: ModelConfig) -> List[GroupSpec]:
-    """The dense branch of the reference's plan: one group of
-    ``attn_mlp`` blocks with per-layer windows."""
+    """The reference's plan for the decoder-only families: with MoE's
+    ``first_dense_layers``, a ``dense_head`` group of ``{mixer}_mlp``
+    layers at ``d_ff_override = dense_d_ff``; then ``blocks`` of
+    ``{mixer}_{ffn}`` (mixer ``attn`` or ``mla``, ffn ``mlp`` or ``moe``)
+    with per-layer windows."""
     check_supported(cfg)
-    win = np.array([[cfg.window_for_layer(i)] for i in range(cfg.n_layers)],
+    mixer = "mla" if cfg.mla is not None else "attn"
+    ffn = "moe" if cfg.moe is not None else "mlp"
+    groups = []
+    start = 0
+    if cfg.moe is not None and cfg.moe.first_dense_layers:
+        groups.append(GroupSpec(
+            "dense_head", ((f"{mixer}_mlp", 1),), cfg.moe.first_dense_layers,
+            d_ff_override=cfg.moe.dense_d_ff))
+        start = cfg.moe.first_dense_layers
+    n = cfg.n_layers - start
+    win = np.array([[cfg.window_for_layer(start + i)] for i in range(n)],
                    dtype=np.int32)
-    return [GroupSpec("blocks", (("attn_mlp", 1),), cfg.n_layers,
-                      windows=win)]
+    groups.append(GroupSpec("blocks", ((f"{mixer}_{ffn}", 1),), n,
+                            windows=win))
+    return groups
+
+
+def layer_slots(cfg: ModelConfig) -> List[LayerSlot]:
+    """Each module layer's place in the reference's plan, in the order the
+    reference runs them (group by group, repeat by repeat).  A group
+    without windows is global (-1) everywhere, as the reference's scan."""
+    out = []
+    for gi, g in enumerate(build_plan(cfg)):
+        for r in range(g.repeats):
+            for kind, idx in g.instances:
+                win = -1 if g.windows is None else int(g.windows[r, idx])
+                out.append(LayerSlot(gi, f"{kind}_{idx}", r, kind, win,
+                                     g.d_ff_override or cfg.d_ff))
+    return out
 
 
 class Block(nn.Module):
-    """Pre-norm attention + MLP, with this layer's window."""
+    """Pre-norm attention (GQA or MLA) + FFN (MLP or MoE), with this
+    layer's window.  Returns ``(x, cache, aux)``; ``aux`` is the MoE
+    router's loss, ``None`` for a dense FFN."""
 
-    def __init__(self, cfg: ModelConfig, p: Mapping[str, Any], window: int):
+    def __init__(self, cfg: ModelConfig, p: Mapping[str, Any],
+                 slot: LayerSlot):
         super().__init__()
-        self.window = int(window)
+        mixer, ffn = slot.kind.split("_")
+        self.kind = slot.kind
+        self.window = int(slot.window)
         self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
-        self.attn = Attention(cfg, p["attn"])
+        self.attn = (MLA if mixer == "mla" else Attention)(cfg, p["attn"])
         self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
-        self.ffn = MLP(p["ffn"], cfg.cdtype)
+        self.moe = ffn == "moe"
+        self.ffn = MoE(cfg, p["ffn"]) if self.moe \
+            else MLP(p["ffn"], cfg.cdtype)
         self.cdtype = cfg.cdtype
 
     def forward(self, x, positions, cache=None, cache_pos=None):
@@ -94,34 +154,44 @@ class Block(nn.Module):
                                      cache_pos=cache_pos)
         x = x + a_out.to(x.dtype)
         h = self.ln2(x.to(self.cdtype))
-        return x + self.ffn(h).to(x.dtype), new_cache
+        if self.moe:
+            f_out, aux = self.ffn(h)
+        else:
+            f_out, aux = self.ffn(h), None
+        return x + f_out.to(x.dtype), new_cache, aux
 
 
 class Transformer(nn.Module):
     def __init__(self, cfg: ModelConfig, p: Mapping[str, Any]):
         super().__init__()
-        plan = build_plan(cfg)
         self.cfg = cfg
         self.embed = _param(p["embed"])
         self.final_norm = RMSNorm(p["final_norm"], cfg.norm_eps)
         self.lm_head = _param(p["lm_head"]) if "lm_head" in p else None
-        windows = plan[0].windows[:, 0]
         self.blocks = nn.ModuleList(
-            Block(cfg, bp, w) for bp, w in zip(p["blocks"], windows))
+            Block(cfg, bp, slot) for bp, slot in zip(p["blocks"],
+                                                     layer_slots(cfg)))
 
     @property
     def device(self) -> torch.device:
         return self.embed.device
 
 
-def _block_init(cfg: ModelConfig, gen: torch.Generator, device) -> dict:
+def _block_init(cfg: ModelConfig, gen: Optional[torch.Generator], device,
+                slot: LayerSlot) -> dict:
     kw = dict(dtype=cfg.pdtype, device=device)
-    ffn = {"w_up": dense_init(gen, (cfg.d_model, cfg.d_ff), **kw),
-           "w_down": dense_init(gen, (cfg.d_ff, cfg.d_model), **kw)}
-    if cfg.act in ("silu", "swiglu"):
-        ffn["w_gate"] = dense_init(gen, (cfg.d_model, cfg.d_ff), **kw)
-    return {"ln1": torch.ones(cfg.d_model, **kw),
-            "attn": attn_params(cfg, gen, device),
+    mixer, kind = slot.kind.split("_")
+    if kind == "moe":
+        ffn = moe_params(cfg, gen, device)
+    else:
+        d_ff = slot.d_ff
+        ffn = {"w_up": dense_init(gen, (cfg.d_model, d_ff), **kw),
+               "w_down": dense_init(gen, (d_ff, cfg.d_model), **kw)}
+        if cfg.act in ("silu", "swiglu"):
+            ffn["w_gate"] = dense_init(gen, (cfg.d_model, d_ff), **kw)
+    attn = mla_params(cfg, gen, device) if mixer == "mla" \
+        else attn_params(cfg, gen, device)
+    return {"ln1": torch.ones(cfg.d_model, **kw), "attn": attn,
             "ln2": torch.ones(cfg.d_model, **kw), "ffn": ffn}
 
 
@@ -137,8 +207,8 @@ def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator],
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model), **kw)
-    p["blocks"] = [_block_init(cfg, gen, device)
-                   for _ in range(cfg.n_layers)]
+    p["blocks"] = [_block_init(cfg, gen, device, slot)
+                   for slot in layer_slots(cfg)]
     return p
 
 
@@ -156,34 +226,42 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
                        device: DeviceLike = None) -> Transformer:
     """The module from the reference's params as numpy arrays: ``embed``,
-    ``final_norm``, optional ``lm_head`` and ``groups[0]["attn_mlp_0"]``
-    stacked on a leading ``repeats`` axis.  The module is laid out on the
-    meta device, allocated on ``device`` uninitialised and then loaded
+    ``final_norm``, optional ``lm_head`` and ``groups``, each layer's
+    weights stacked on its group's leading ``repeats`` axis
+    (:func:`layer_slots`).  The module is laid out on the meta device,
+    allocated on ``device`` uninitialised and then loaded
     (:func:`load_arrays_`)."""
     check_supported(cfg)
     dev = resolve_device(device)
     model = Transformer(cfg, _param_tree(cfg, None, torch.device("meta")))
     model.to_empty(device=dev)
-    load_arrays_(dict(model.named_parameters()), tree)
+    load_arrays_(dict(model.named_parameters()), tree, cfg)
     return model
 
 
-def _slot(name: str) -> Tuple[Tuple[str, ...], Optional[int]]:
+def _layer_places(cfg: ModelConfig) -> Dict[int, Tuple[int, str, int]]:
+    """Each module layer's ``(group, key, repeat)`` in the reference's tree,
+    from the plan (:func:`layer_slots`)."""
+    return {i: (s.group, s.key, s.repeat)
+            for i, s in enumerate(layer_slots(cfg))}
+
+
+def _slot(name: str, slots: Mapping[int, Tuple[int, str, int]]
+          ) -> Tuple[Tuple[str, ...], Optional[Tuple[int, str, int]]]:
     """Where the module's parameter ``name`` sits in the reference's tree:
-    the key path (inside ``groups[0]["attn_mlp_0"]`` for a block's
-    weights) and the layer index on the stacked ``repeats`` axis."""
+    the key path (inside ``groups[group][key]`` for a block's weights) and,
+    for a block's weights, ``(group, key, repeat)`` from ``slots``
+    (:func:`_layer_places`)."""
     parts = name.split(".")
     if parts[0] == "blocks":
-        layer, kind = int(parts[1]), parts[2]
-        if kind == "attn":                          # blocks.i.attn.p.<w>
-            w = parts[4]
-            path = ("attn", w, "scale") if w in ("q_norm", "k_norm") \
-                else ("attn", w)
-        elif kind in ("ln1", "ln2"):
+        layer, kind, w = int(parts[1]), parts[2], parts[-1]
+        if kind in ("ln1", "ln2"):
             path = (kind, "scale")
-        else:
-            path = ("ffn", parts[3])
-        return path, layer
+        elif kind == "attn" and w in ("q_norm", "k_norm", "kv_norm"):
+            path = ("attn", w, "scale")      # blocks.i.attn.p.<norm>
+        else:                                # blocks.i.{attn,ffn}[.p].<w>
+            path = (kind, w)
+        return path, slots[layer]
     if name in ("embed", "lm_head"):
         return (name, "table"), None
     if name == "final_norm.scale":
@@ -198,57 +276,65 @@ def _stand_in(t) -> np.ndarray:
     return np.broadcast_to(np.zeros((), dtype=dtype), tuple(t.shape))
 
 
-def arrays_from_named(named: Mapping[str, Any],
+def arrays_from_named(named: Mapping[str, Any], cfg: ModelConfig,
                       shapes_only: bool = False) -> Dict[str, Any]:
     """The reference's parameter tree, as numpy arrays on the host, from a
     mapping keyed by the module's parameter names (the parameters, their
-    gradients or a moment of the optimizer): ``embed``, ``final_norm``,
-    optional ``lm_head`` and ``groups[0]["attn_mlp_0"]`` stacked on
-    ``repeats``.  With ``shapes_only`` each leaf is a zero-stride array of
-    its shape and dtype (a restore template that copies nothing)."""
+    gradients or a moment of the optimizer) of a model of ``cfg``:
+    ``embed``, ``final_norm``, optional ``lm_head`` and ``groups``, a dict a
+    group of ``cfg``'s plan (``attn_mlp_0``; deepseek's ``mla_mlp_0``, then
+    ``mla_moe_0``) of each layer's weights stacked on ``repeats``.  With ``shapes_only`` each leaf is a
+    zero-stride array of its shape and dtype (a restore template that
+    copies nothing)."""
     leaf = _stand_in if shapes_only else to_host
+    slots = _layer_places(cfg)
     tree: Dict[str, Any] = {}
-    layers: Dict[Tuple[str, ...], Dict[int, np.ndarray]] = {}
+    layers: Dict[Tuple[int, str, Tuple[str, ...]], Dict[int, Any]] = {}
     for name, t in named.items():
-        path, layer = _slot(name)
-        if layer is None:
+        path, slot = _slot(name, slots)
+        if slot is None:
             tree.setdefault(path[0], {})[path[1]] = leaf(t)
         else:
-            layers.setdefault(path, {})[layer] = leaf(t)
-    stack: Dict[str, Any] = {}
-    for path, per in layers.items():
-        node = stack
+            group, key, rep = slot
+            layers.setdefault((group, key, path), {})[rep] = leaf(t)
+    groups: List[Dict[str, Any]] = [
+        {} for _ in range(1 + max((g for g, _, _ in slots.values()),
+                                  default=-1))]
+    for (group, key, path), per in layers.items():
+        node = groups[group].setdefault(key, {})
         for k in path[:-1]:
             node = node.setdefault(k, {})
         rows = [per[i] for i in range(len(per))]
         node[path[-1]] = np.broadcast_to(rows[0], (len(rows),)
                                          + rows[0].shape) \
             if shapes_only else np.stack(rows)
-    tree["groups"] = [{"attn_mlp_0": stack}]
+    tree["groups"] = groups
     return tree
 
 
-def named_from_arrays(tree: Mapping[str, Any],
-                      names) -> Dict[str, np.ndarray]:
+def named_from_arrays(tree: Mapping[str, Any], names,
+                      cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The inverse of :func:`arrays_from_named` for the parameter
-    ``names``: each name's array out of the reference's tree."""
+    ``names`` of a model of ``cfg``: each name's array out of the
+    reference's tree."""
+    slots = _layer_places(cfg)
     out = {}
     for name in names:
-        path, layer = _slot(name)
-        node = tree if layer is None else tree["groups"][0]["attn_mlp_0"]
+        path, slot = _slot(name, slots)
+        node = tree if slot is None else tree["groups"][slot[0]][slot[1]]
         for k in path:
             node = node[k]
-        out[name] = np.asarray(node if layer is None else node[layer])
+        out[name] = np.asarray(node if slot is None else node[slot[2]])
     return out
 
 
 def load_arrays_(named: Mapping[str, torch.Tensor],
-                 tree: Mapping[str, Any]) -> None:
+                 tree: Mapping[str, Any], cfg: ModelConfig) -> None:
     """Copy the reference's tree into the tensors of ``named`` (keyed by
-    the module's parameter names: the parameters or a moment), in place,
-    each converted to its tensor's dtype."""
+    the parameter names of a model of ``cfg``: the parameters or a
+    moment), in place, each converted to its tensor's dtype."""
     with torch.no_grad():
-        for name, a in named_from_arrays(tree, named).items():
+        for name, a in named_from_arrays(tree, named, cfg).items():
             if not a.flags.writeable:     # torch wants a writeable buffer
                 a = a.copy()
             named[name].copy_(torch.from_numpy(a))
@@ -257,7 +343,7 @@ def load_arrays_(named: Mapping[str, torch.Tensor],
 def params_to_arrays(model: Transformer) -> Dict[str, Any]:
     """The inverse of :func:`params_from_arrays`: the reference's parameter
     tree as numpy arrays (host copies)."""
-    return arrays_from_named(dict(model.named_parameters()))
+    return arrays_from_named(dict(model.named_parameters()), model.cfg)
 
 
 def count_params(model: Transformer) -> int:
@@ -267,14 +353,22 @@ def count_params(model: Transformer) -> int:
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
                device: DeviceLike = None) -> List[Tuple[torch.Tensor,
                                                         torch.Tensor]]:
-    """Per-layer zero (K, V) of (batch, s_max, KV, head_dim) in the compute
-    dtype."""
-    check_supported(cfg)
+    """Per-layer zero caches in the compute dtype: (K, V) of (batch, s_max,
+    KV, head_dim), or for MLA the latent ``c_kv`` (batch, s_max, r) and
+    the rotary key (batch, s_max, rope) (the reference's
+    ``_block_cache``)."""
     dev = resolve_device(device)
-    shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
-    return [(torch.zeros(shape, dtype=cfg.cdtype, device=dev),
-             torch.zeros(shape, dtype=cfg.cdtype, device=dev))
-            for _ in range(cfg.n_layers)]
+    kw = dict(dtype=cfg.cdtype, device=dev)
+    out = []
+    for slot in layer_slots(cfg):
+        if slot.kind.startswith("mla"):
+            m = cfg.mla
+            out.append((torch.zeros((batch, s_max, m.kv_lora_rank), **kw),
+                        torch.zeros((batch, s_max, m.rope_head_dim), **kw)))
+        else:
+            shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
+            out.append((torch.zeros(shape, **kw), torch.zeros(shape, **kw)))
+    return out
 
 
 def make_cache(cfg: ModelConfig, batch: int, s_max: int,
@@ -311,7 +405,8 @@ def _run_block(blk: Block, x: torch.Tensor, positions, remat: str):
     """One block, under ``remat``'s activation checkpointing when autograd
     records: ``"full"`` keeps only the block's input and recomputes the
     rest in the backward pass, ``"dots"`` keeps the products without batch
-    dimensions too (the reference's ``_run_group`` policies)."""
+    dimensions too (the reference's ``_run_group`` policies).  Returns
+    ``(x, cache, aux)``."""
     if remat == "none" or not torch.is_grad_enabled():
         return blk(x, positions)
     from torch.utils.checkpoint import checkpoint
@@ -330,19 +425,23 @@ def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
     (B, S); without them the positions are ``arange(S)`` and prefill
     attention takes the flash-kernel route (``models/attention.py``),
     which is forward only: a training forward passes explicit positions.
-    Returns ``(logits, aux)``, or ``(logits, aux, {"layers": [(K, V), ...],
-    "enc_out": None})`` with ``return_caches``.  ``aux`` is the MoE
-    auxiliary loss of the reference, 0 for dense blocks."""
+    Returns ``(logits, aux)``, or ``(logits, aux, {"layers": [cache, ...],
+    "enc_out": None})`` with ``return_caches`` (a layer's cache: (K, V),
+    or MLA's (c_kv, k_rope)).  ``aux`` is the sum over the MoE layers of
+    the router's auxiliary loss, in layer order as the reference sums it;
+    0 without MoE."""
     cfg = model.cfg
     x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
     positions = batch.get("positions")
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for blk in model.blocks:
-        x, kv = _run_block(blk, x, positions, cfg.remat)
+        x, kv, a = _run_block(blk, x, positions, cfg.remat)
+        if a is not None:
+            aux = aux + a
         if return_caches:
             caches.append(kv)
     logits = _head(model, x)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if return_caches:
         return logits, aux, {"layers": caches, "enc_out": None}
     return logits, aux
@@ -351,7 +450,9 @@ def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
 def decode_step(model: Transformer, cache: Dict[str, Any],
                 batch: Mapping[str, Any]):
     """One-token serving step.  batch: ``tokens`` (B, 1), ``cache_pos``
-    int.  The cache's K/V are updated in place.  Returns (logits, cache)."""
+    int.  The caches are updated in place.  Returns (logits, cache); the
+    MoE layers' auxiliary loss is dropped, as the reference's decode step
+    drops it."""
     cfg = model.cfg
     x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
     pos = int(batch["cache_pos"])
@@ -359,7 +460,7 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
     new_layers = []
     for blk, kv in zip(model.blocks, cache["layers"]):
-        x, kv = blk(x, positions, cache=kv, cache_pos=pos)
+        x, kv, _ = blk(x, positions, cache=kv, cache_pos=pos)
         new_layers.append(kv)
     return _head(model, x), {"layers": new_layers,
                              "enc_out": cache.get("enc_out")}

@@ -153,32 +153,34 @@ def train_state_to_arrays(state: TrainState,
                           shapes_only: bool = False) -> TrainState:
     """The state in the reference's layout, as numpy arrays on the host:
     ``params`` and the moments as the reference's parameter tree
-    (``groups[0]["attn_mlp_0"]`` stacked on ``repeats``) and ``opt.step``
-    a 0-d int32 array, so a checkpoint of it is the reference's leaf for
-    leaf.  With ``shapes_only`` every leaf is a zero-stride stand-in of its
+    (each layer's weights in its plan group, stacked on ``repeats``) and
+    ``opt.step`` a 0-d int32 array, so a checkpoint of it is the
+    reference's leaf for leaf.  With ``shapes_only`` every leaf is a zero-stride stand-in of its
     shape and dtype: a restore template that copies nothing off the
     device."""
-    opt = state.opt
+    opt, cfg = state.opt, state.params.cfg
     step = np.zeros((), dtype=np.int32) if shapes_only \
         else np.asarray(int(opt.step), dtype=np.int32)
     return TrainState(
-        params=arrays_from_named(dict(state.params.named_parameters()),
+        params=arrays_from_named(dict(state.params.named_parameters()), cfg,
                                  shapes_only),
-        opt=AdamWState(step=step, m=arrays_from_named(opt.m, shapes_only),
-                       v=arrays_from_named(opt.v, shapes_only)))
+        opt=AdamWState(step=step,
+                       m=arrays_from_named(opt.m, cfg, shapes_only),
+                       v=arrays_from_named(opt.v, cfg, shapes_only)))
 
 
 def load_train_state_(state: TrainState, tree) -> TrainState:
     """Copy a state in the reference's layout (a restored checkpoint of
     either package) into ``state``'s tensors in place; returns ``state``."""
-    load_arrays_(dict(state.params.named_parameters()), tree.params)
-    _load_opt_(state.opt, tree.opt)
+    cfg = state.params.cfg
+    load_arrays_(dict(state.params.named_parameters()), tree.params, cfg)
+    _load_opt_(state.opt, tree.opt, cfg)
     return state
 
 
-def _load_opt_(opt: AdamWState, tree: AdamWState) -> None:
-    load_arrays_(opt.m, tree.m)
-    load_arrays_(opt.v, tree.v)
+def _load_opt_(opt: AdamWState, tree: AdamWState, cfg: ModelConfig) -> None:
+    load_arrays_(opt.m, tree.m, cfg)
+    load_arrays_(opt.v, tree.v, cfg)
     opt.step.fill_(int(np.asarray(tree.step)))
 
 
@@ -194,5 +196,5 @@ def train_state_from_arrays(cfg: ModelConfig, tree,
            for n, p in named.items()},
         v={n: torch.empty(p.shape, dtype=torch.float32, device=p.device)
            for n, p in named.items()}))
-    _load_opt_(state.opt, tree.opt)
+    _load_opt_(state.opt, tree.opt, cfg)
     return state

@@ -5,7 +5,9 @@ fall-back to an older step.
 
 A ``TrainState`` written by either package restores in the other bit for
 bit (``np.array_equal`` on every leaf, same dtype), and the two manifests
-agree in leaf names, shapes, dtypes and ``sha256``.  Reduced qwen3-0.6b.
+agree in leaf names, shapes, dtypes and ``sha256``.  Reduced qwen3-0.6b,
+and reduced deepseek-v2-lite-16b and granite-moe-1b-a400m (two groups,
+MLA's ``kv_norm``, the 3-D expert stacks and the shared experts).
 """
 import collections
 import json
@@ -187,6 +189,51 @@ def test_checkpoints_cross_packages(tmp_path, states):
     _assert_bitwise(mine, host)
     theirs, meta = JCheckpointer(str(tmp_path / "port")).restore(js)
     assert meta == {"step": 7}
+    _assert_bitwise(jax.tree.map(np.asarray, theirs), host)
+
+
+@pytest.mark.parametrize("arch,names", [
+    ("deepseek-v2-lite-16b",
+     ("params__groups__0__mla_mlp_0__attn__kv_norm__scale",
+      "params__groups__0__mla_mlp_0__ffn__w_gate",
+      "params__groups__1__mla_moe_0__ffn__w_down",
+      "params__groups__1__mla_moe_0__ffn__shared_up",
+      "opt__v__groups__1__mla_moe_0__ffn__router")),
+    ("granite-moe-1b-a400m",
+     ("params__groups__0__attn_moe_0__ffn__w_up",
+      "opt__m__groups__0__attn_moe_0__attn__wq"))])
+def test_moe_mla_checkpoints_cross_packages(tmp_path, arch, names):
+    """A train state of a reduced MoE/MLA model after one step: the
+    port's arrays equal the reference's, each package's checkpoint
+    restores in the other bit for bit, the manifests agree, and a restore
+    into a live state goes through the shapes-only template."""
+    jcfg = jax_get_config(arch, reduced=True)
+    tcfg = get_config(arch, reduced=True)
+    opt = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    js = jts.init_train_state(jcfg, opt, jax.random.PRNGKey(1))
+    toks = np.random.default_rng(1).integers(0, jcfg.vocab_size, (4, 17))
+    js, _ = jax.jit(jts.make_train_step(jcfg, opt))(
+        js, {"tokens": jnp.asarray(toks.astype(np.int32))})
+    host = jax.tree.map(np.asarray, js)
+    ts = tts.train_state_from_arrays(tcfg, host, "cpu")
+    _assert_bitwise(tts.train_state_to_arrays(ts), host)
+
+    JCheckpointer(str(tmp_path / "ref")).save(2, js, metadata={"step": 2})
+    Checkpointer(str(tmp_path / "port")).save(
+        2, tts.train_state_to_arrays(ts), metadata={"step": 2})
+    manifests = [json.load(open(tmp_path / d / "step_0000000002" /
+                                "manifest.json")) for d in ("ref", "port")]
+    assert manifests[0] == manifests[1]
+    assert set(names) <= set(manifests[0]["leaves"])
+
+    topt_ = topt.AdamW(lr=topt.warmup_cosine(1e-3, 2, 10))
+    live = tts.init_train_state(tcfg, topt_, seed=5, device="cpu")
+    tree, meta = Checkpointer(str(tmp_path / "ref")).restore(
+        tts.train_state_to_arrays(live, shapes_only=True))
+    assert meta == {"step": 2}
+    tts.load_train_state_(live, tree)
+    _assert_bitwise(tts.train_state_to_arrays(live), host)
+    theirs, _ = JCheckpointer(str(tmp_path / "port")).restore(js)
     _assert_bitwise(jax.tree.map(np.asarray, theirs), host)
 
 

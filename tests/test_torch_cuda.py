@@ -630,10 +630,11 @@ def test_flash_kernel_matches_plain(dev, dtype, tol, bh, s, d, causal,
 @pytest.mark.parametrize("window", [-1, 1, 256])
 @pytest.mark.parametrize("causal", [True, False])
 @pytest.mark.parametrize("s", [1, 63, 128, 1000, 2048])
-@pytest.mark.parametrize("d", [40, 64, 128, 256])
+@pytest.mark.parametrize("d", [40, 64, 128, 192, 256])
 def test_flash_bf16_kernel_matches_plain(dev, d, s, causal, window, bh):
     """The tensor-core route over head widths (d = 40 runs at D = 64 with
-    zero columns), ragged and single-row S, both masks and many heads."""
+    zero columns; d = 192, MLA's padded width, at D = 256), ragged and
+    single-row S, both masks and many heads."""
     rng = np.random.default_rng(d * 7919 + s)
     q, k, v = (torch.as_tensor(rng.normal(size=(bh, s, d)),
                                dtype=torch.bfloat16, device=dev)
@@ -723,7 +724,11 @@ def test_flash_kernel_rejects_what_it_cannot_take(dev):
         flash_attention(q, q, q)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
+ARCHS = ["qwen3-0.6b", "gemma3-1b", "granite-moe-1b-a400m",
+         "deepseek-v2-lite-16b", "glm4-9b", "granite-34b"]
+
+
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_prefill_card_matches_cpu(dev, arch):
     cfg = get_config(arch, reduced=True)
     host = init_params(cfg, seed=0, device="cpu")
@@ -739,7 +744,7 @@ def test_reduced_prefill_card_matches_cpu(dev, arch):
     torch.testing.assert_close(got.cpu(), want, rtol=2e-4, atol=2e-4)
 
 
-@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b"])
+@pytest.mark.parametrize("arch", ARCHS)
 def test_reduced_train_step_card_matches_cpu(dev, arch):
     """One train step of a reduced model (float32 compute, TF32 off) on
     the card and on the CPU from the same weights: loss and gradient norm
@@ -773,6 +778,55 @@ def test_reduced_train_step_card_matches_cpu(dev, arch):
     assert float(d.median()) <= 1e-7
     assert float(torch.quantile(d, 0.999)) <= 1e-6
     assert float(d.max()) <= 2 * float(hm["lr"]) * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("capacity_factor", [1.25, 16.0])
+def test_moe_apply_card_matches_cpu(dev, capacity_factor):
+    """The MoE FFN (reduced deepseek, float32, TF32 off) on the card and
+    on the CPU: the same routings dropped, output within 1e-5, aux within
+    1e-6."""
+    import dataclasses
+
+    from repro_torch.models.moe import moe_apply, moe_params
+
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=capacity_factor))
+    p = moe_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    x = torch.as_tensor(np.random.default_rng(9).normal(
+        size=(3, 40, cfg.d_model)), dtype=torch.float32)
+    want, want_aux = moe_apply(p, cfg, x)
+    got, aux = moe_apply({k: v.to(dev) for k, v in p.items()}, cfg,
+                         x.to(dev))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(aux.cpu(), want_aux, rtol=1e-6, atol=1e-6)
+
+
+def test_mla_decode_card_matches_cpu(dev):
+    """Reduced deepseek: prefill (the flash route, values padded) and
+    three absorbed decode steps on the card against the CPU, 2e-4."""
+    from repro_torch.serve.steps import extend_cache
+
+    cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    host = init_params(cfg, seed=3, device="cpu")
+    card = init_params(cfg, seed=3, device="cpu").to(dev)
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (2, 12)), dtype=torch.int32)
+    from repro_torch.models.transformer import decode_step
+
+    outs = []
+    for model, d in ((host, "cpu"), (card, dev)):
+        with torch.inference_mode():
+            _, _, c = forward(model, {"tokens": toks[:, :9].to(d)},
+                              return_caches=True)
+            cache = extend_cache(cfg, c, 9, 16)
+            steps = []
+            for i in range(9, 12):
+                lg, cache = decode_step(model, cache, {
+                    "tokens": toks[:, i:i + 1].to(d), "cache_pos": i})
+                steps.append(lg.cpu())
+        outs.append(torch.cat(steps, dim=1))
+    torch.testing.assert_close(outs[1], outs[0], rtol=2e-4, atol=2e-4)
 
 
 def test_train_checkpoint_card_to_cpu(dev, tmp_path):

@@ -64,7 +64,10 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.data, repro_torch.train, "
             "repro_torch.train.optimizer, repro_torch.train.train_step, "
             "repro_torch.checkpoint, repro_torch.checkpoint.checkpointer, "
-            "repro_torch.launch.train; "
+            "repro_torch.launch.train, repro_torch.models.moe, "
+            "repro_torch.configs.glm4_9b, repro_torch.configs.granite_34b, "
+            "repro_torch.configs.granite_moe_1b_a400m, "
+            "repro_torch.configs.deepseek_v2_lite_16b; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

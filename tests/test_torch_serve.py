@@ -1,11 +1,20 @@
 """The port's transformer and serving engine on the CPU against the JAX
 package, with weights carried across (``params_from_arrays``), for reduced
 qwen3-0.6b and gemma3-1b (gemma3's local layers exercise the flash
-route's window mask through the model).
+route's window mask through the model), and the engine for the MoE and
+MLA architectures and the two larger dense ones; the configs of every
+ported architecture; ``sample_temperature``'s contract.
 
 Tolerances: logits ``rtol = atol = 2e-4`` (reduced configs compute in
 float32; sums in another order), as ``tests/test_archs.py`` holds decode
 against forward.  Generated tokens are compared exactly.
+
+``sample_temperature`` cannot draw ``jax.random.categorical``'s tokens
+from a torch generator, so its contract is the port's own: the same seed
+gives the same tokens on the same device; over many draws the
+frequencies match ``softmax(logits / temperature)`` (each within five
+standard errors of a binomial count); at ``temperature -> 0`` the result
+is ``sample_greedy``'s.
 """
 import os
 import subprocess
@@ -23,9 +32,9 @@ from repro.models import transformer as jtf
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.steps import extend_cache as jax_extend_cache
-from repro_torch.configs import get_config
+from repro_torch.configs import PORTED, get_config
 from repro_torch.models import transformer as ttf
-from repro_torch.models.config import MoEConfig
+from repro_torch.models.config import MoEConfig, RGLRUConfig, XLSTMConfig
 from repro_torch.serve import steps as tsteps
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -44,27 +53,29 @@ def _models(arch, seed=0):
 
 
 def test_configs_equal_reference():
-    for arch in ARCHS:
+    """Every ported architecture's config, full and reduced, field by
+    field (``dataclasses.asdict``, the MoE and MLA sub-configs too)."""
+    import dataclasses
+
+    for arch in PORTED:
         for reduced in (False, True):
             j = jax_get_config(arch, reduced=reduced)
             t = get_config(arch, reduced=reduced)
-            for f in j.__dataclass_fields__:
-                assert getattr(j, f) == getattr(t, f), (arch, f)
+            assert dataclasses.asdict(t) == dataclasses.asdict(j), arch
             assert t.cdtype == getattr(torch, str(j.cdtype))
             assert t.pdtype == getattr(torch, str(j.pdtype))
 
 
 SERVE_EXPORTS = ("ServeEngine", "Request", "extend_cache",
                  "make_prefill_step", "make_decode_step", "sample_greedy",
-                 "AdmissionDecision", "PHRequest", "PHResponse",
-                 "PHServeEngine", "fingerprint_points")
+                 "sample_temperature", "AdmissionDecision", "PHRequest",
+                 "PHResponse", "PHServeEngine", "fingerprint_points")
 
 
 @pytest.mark.parametrize("name", SERVE_EXPORTS)
 def test_serve_package_exports(name):
-    """``repro_torch.serve`` re-exports the ported names of
-    ``repro.serve``, the PH service's included; ``sample_temperature``
-    (item 10) stays absent until it is ported."""
+    """``repro_torch.serve`` re-exports every name of ``repro.serve``,
+    the PH service's and ``sample_temperature`` included."""
     import repro.serve
     import repro_torch.serve
 
@@ -72,7 +83,7 @@ def test_serve_package_exports(name):
     got = getattr(repro_torch.serve, name)
     assert got.__module__.startswith("repro_torch.serve.")
     assert name in repro_torch.serve.__all__
-    assert not hasattr(repro_torch.serve, "sample_temperature")
+    assert sorted(repro_torch.serve.__all__) == sorted(SERVE_EXPORTS)
 
 
 def test_get_config_loads_the_ports_modules():
@@ -80,7 +91,7 @@ def test_get_config_loads_the_ports_modules():
     assert type(cfg).__module__ == "repro_torch.models.config"
     assert sys.modules["repro_torch.configs.qwen3_0_6b"].CONFIG is cfg
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("deepseek-v2-lite-16b")
+        get_config("xlstm-1.3b")
 
 
 def test_port_serves_with_jax_and_repro_blocked():
@@ -227,9 +238,10 @@ def test_serve_engine_rejects_params_on_another_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(moe=MoEConfig(n_experts=4, top_k=2, d_expert=32)),
+    dict(xlstm=XLSTMConfig(slstm_every=2, chunk=8)),
     dict(enc_dec=True), dict(rope_kind="mrope"),
-    dict(input_kind="embeddings")])
+    dict(input_kind="embeddings"),
+    dict(rglru=RGLRUConfig(d_rnn=64, attn_window=16))])
 def test_unported_configs_raise(change):
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
@@ -238,6 +250,28 @@ def test_unported_configs_raise(change):
         ttf.init_params(cfg, 0, "cpu")
     with pytest.raises(NotImplementedError, match="item 10"):
         tsteps.make_prefill_step(cfg)
+
+
+def test_moe_on_a_dense_config_builds_and_matches_jax():
+    """An MoE FFN on qwen3's reduced config (refused until MoE was
+    ported) builds, and its forward and aux match the reference's."""
+    import dataclasses
+
+    moe = dict(moe=MoEConfig(n_experts=4, top_k=2, d_expert=32))
+    jcfg = dataclasses.replace(jax_get_config("qwen3-0.6b", reduced=True),
+                               **moe)
+    tcfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True), **moe)
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(0))
+    model = ttf.params_from_arrays(tcfg, jax.tree.map(np.asarray, jp),
+                                   "cpu")
+    assert all(blk.kind == "attn_moe" for blk in model.blocks)
+    toks = np.random.default_rng(7).integers(
+        0, jcfg.vocab_size, (2, 12)).astype(np.int32)
+    want, want_aux = jtf.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})
+    got, aux = ttf.forward(model, {"tokens": torch.from_numpy(toks)})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    np.testing.assert_allclose(float(aux), float(want_aux), **TOL)
+    assert float(aux) > 0
 
 
 def test_init_params_is_seeded():
@@ -263,6 +297,72 @@ def test_sample_greedy_takes_the_first_of_ties():
     assert got.dtype == torch.int32 and got.tolist() == [[1], [0]]
 
 
+NEW_ARCHS = ["granite-moe-1b-a400m", "deepseek-v2-lite-16b", "glm4-9b",
+             "granite-34b"]
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_serve_engine_matches_jax_new_archs(arch):
+    """The engine, unchanged, serves the MoE, MLA and larger dense models:
+    the same tokens as the reference's engine (left-padded prompts take
+    MoE capacity at prefill in both)."""
+    jcfg, tcfg, jp, model = _models(arch, seed=4)
+    kw = dict(max_batch=2, prompt_len=8, s_max=16)
+    jeng = JServeEngine(jcfg, params=jp, **kw)
+    teng = ServeEngine(tcfg, params=model, device="cpu", **kw)
+    for uid, prompt in _requests(tcfg, 3, 8, seed=1):
+        jeng.submit(JRequest(uid=uid, prompt=prompt, max_new=3))
+        teng.submit(Request(uid=uid, prompt=prompt, max_new=3))
+    want, got = jeng.run(), teng.run()
+    assert got == want
+    assert len(got) == 3 and all(len(v) == 3 for v in got.values())
+    assert teng.stats() == jeng.stats()
+
+
+def _draws(logits, seed, n, temperature=1.0):
+    gen = torch.Generator().manual_seed(seed)
+    return torch.cat([tsteps.sample_temperature(logits, gen, temperature)
+                      for _ in range(n)], dim=1)
+
+
+def test_sample_temperature_is_seeded():
+    logits = torch.from_numpy(np.random.default_rng(8).normal(
+        size=(3, 2, 50)).astype(np.float32))
+    a, b = _draws(logits, 3, 20), _draws(logits, 3, 20)
+    assert a.dtype == torch.int32 and a.shape == (3, 20)
+    assert torch.equal(a, b)
+    assert not torch.equal(a, _draws(logits, 4, 20))
+    one = tsteps.sample_temperature(logits, torch.Generator().manual_seed(3))
+    assert one.shape == (3, 1) and torch.equal(one[:, 0], a[:, 0])
+
+
+@pytest.mark.parametrize("temperature", [1.0, 0.5, 2.0])
+def test_sample_temperature_frequencies_follow_the_softmax(temperature):
+    """Each token's share of 20,000 draws within five binomial standard
+    errors of ``softmax(logits[:, -1] / temperature)``."""
+    logits = torch.tensor([[[9.0, 0.0, 0.0],
+                            [0.0, 1.0, -1.0]]])      # only the last counts
+    logits = torch.cat([logits, torch.tensor([[[0.2, 0.5, 0.0]]])], dim=1)
+    n = 20_000
+    gen = torch.Generator().manual_seed(11)
+    got = tsteps.sample_temperature(logits.expand(n, 3, 3), gen,
+                                    temperature)[:, 0]
+    freq = torch.bincount(got.long(), minlength=3).double() / n
+    p = torch.softmax(logits[0, -1].double() / temperature, dim=-1)
+    se = torch.sqrt(p * (1 - p) / n)
+    assert torch.all((freq - p).abs() <= 5 * se), (freq, p)
+
+
+def test_sample_temperature_at_zero_is_greedy():
+    logits = torch.from_numpy(np.random.default_rng(9).normal(
+        size=(16, 3, 200)).astype(np.float32))
+    greedy = tsteps.sample_greedy(logits)
+    for seed in range(3):
+        got = tsteps.sample_temperature(
+            logits, torch.Generator().manual_seed(seed), 1e-7)
+        assert torch.equal(got, greedy)
+
+
 def test_launch_serve_cpu(capsys):
     from repro_torch.launch import serve
     done = serve.run_tokens(serve_args(requests=3, max_new=2))
@@ -277,6 +377,16 @@ def test_launch_serve_cpu(capsys):
         "serve_ph_n_cold", "serve_ph_n_batched", "serve_ph_n_warm_tau",
         "serve_ph_n_warm_points", "serve_ph_n_rejected",
         "serve_ph_store_bytes"]
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "glm4-9b",
+                                  "granite-34b"])
+def test_launch_serve_new_archs_cpu(capsys, arch):
+    from repro_torch.launch import serve
+    serve.main(["--arch", arch, "--device", "cpu", "--requests", "3",
+                "--max-new", "2", "--prompt-len", "8", "--s-max", "16"])
+    assert "served 3/3 requests" in capsys.readouterr().out
 
 
 def serve_args(**kw):

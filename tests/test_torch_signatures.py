@@ -545,3 +545,40 @@ def test_trainer_refusals_name_item_10(case, tmp_path):
     ``NotImplementedError`` naming ROADMAP.md §1 item 10."""
     with pytest.raises(NotImplementedError, match=r"item 10\b"):
         _trainer_refusal(case, tmp_path)
+
+
+# ---------------------------------------------------------------------------
+# the distributed package's exports and the LM substrate's sampler
+# ---------------------------------------------------------------------------
+
+def test_dist_exports_the_ported_part_of_the_references():
+    """``repro_torch.dist`` exports each name of the reference's
+    ``__all__`` that the port has (``tree_path_str``); the rest of its
+    list waits for the sharded trainer (item 10).  Beside them it exports
+    its own: the Elias-Fano codec and the data axis."""
+    import repro.dist as ref_dist
+    import repro_torch.dist as port_dist
+    from repro_torch.dist import compression, sharding
+
+    ported = [n for n in ref_dist.__all__
+              if hasattr(sharding, n) or hasattr(compression, n)]
+    assert ported == ["tree_path_str"]
+    assert [n for n in port_dist.__all__ if n in ref_dist.__all__] == ported
+    assert set(port_dist.__all__) - set(ported) == {
+        "ef_encode_sorted", "ef_decode_sorted", "pack_column_payload",
+        "unpack_column_payload", "data_axis"}
+    for name in port_dist.__all__:
+        assert getattr(port_dist, name).__module__.startswith(
+            "repro_torch.dist.")
+    assert port_dist.tree_path_str is sharding.tree_path_str
+
+
+def test_sample_temperature_signature_is_the_references():
+    """The reference's parameters; ``key`` is a ``torch.Generator``."""
+    from repro.serve import steps as ref_steps
+    from repro_torch.serve import steps as port_steps
+
+    want = _params(ref_steps.sample_temperature)
+    got = _params(port_steps.sample_temperature)
+    assert [(p.name, p.kind, p.default) for p in got] == \
+        [(p.name, p.kind, p.default) for p in want]

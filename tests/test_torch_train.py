@@ -225,7 +225,7 @@ def _port_grads(model, loss_fn, batch):
     named = dict(model.named_parameters())
     grads = torch.autograd.grad(tot, list(named.values()))
     return float(tot.detach()), float(loss.detach()), ttf.arrays_from_named(
-        dict(zip(named, grads)))
+        dict(zip(named, grads)), model.cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
@@ -297,6 +297,33 @@ def test_train_steps_match_reference(arch, n_micro):
                                        rtol=1e-4, err_msg=f"{k} step {step}")
     arrays = tts.train_state_to_arrays(ts)
     assert int(arrays.opt.step) == int(js.opt.step) == 3
+    _hold_weights(arrays.params, jax.tree.map(np.asarray, js.params))
+    _hold_weights(arrays.opt.m, jax.tree.map(np.asarray, js.opt.m))
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "glm4-9b",
+                                  "granite-34b"])
+def test_one_train_step_matches_reference_new_archs(arch):
+    """One step of the MoE, MLA and larger dense models, in 2
+    microbatches: loss, the MoE aux loss (> 0 with experts), gradient
+    norm and lr rtol 1e-4; the weights and first moments as
+    :func:`_hold_weights` holds them."""
+    jcfg, tcfg, jp, _ = _carried(arch)
+    jo = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    to = topt.AdamW(lr=topt.warmup_cosine(1e-3, 2, 10))
+    js = jts.TrainState(params=jp, opt=jo.init(jp))
+    ts = _port_state(tcfg, jp, to)
+    toks = _tokens(jcfg, 4, 17, 20)
+    js, jm = jax.jit(jts.make_train_step(jcfg, jo, n_micro=2))(
+        js, {"tokens": jnp.asarray(toks)})
+    ts, tm = tts.make_train_step(tcfg, to, n_micro=2)(
+        ts, {"tokens": torch.from_numpy(toks)})
+    for k in ("loss", "aux_loss", "grad_norm", "lr"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-4,
+                                   err_msg=k)
+    assert (float(tm["aux_loss"]) > 0) == (tcfg.moe is not None)
+    arrays = tts.train_state_to_arrays(ts)
     _hold_weights(arrays.params, jax.tree.map(np.asarray, js.params))
     _hold_weights(arrays.opt.m, jax.tree.map(np.asarray, js.opt.m))
 
@@ -522,6 +549,25 @@ def test_cli_prints_the_reference_lines():
     assert all(np.isfinite(r["loss"]) for r in rows)
     assert lines[-1].startswith("done: 15 steps in ")
     assert lines[-1].split("final loss ")[1] == f"{rows[-1]['loss']:.4f}"
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "glm4-9b",
+                                  "granite-34b"])
+def test_cli_trains_the_new_archs(arch):
+    """``--arch`` takes the four architectures of the MoE/MLA slice; the
+    MoE models log a positive aux loss."""
+    argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "4",
+            "--seq", "16", "--n-micro", "2", "--device", "cpu"]
+    _, out = _quiet(tlaunch.main, argv)
+    lines = out.splitlines()
+    rows = [json.loads(ln) for ln in lines[:-1]]
+    assert [r["step"] for r in rows] == [0, 2]
+    assert all(np.isfinite(r["loss"]) and np.isfinite(r["grad_norm"])
+               for r in rows)
+    assert all((r["aux_loss"] > 0) == ("moe" in arch or "deepseek" in arch)
+               for r in rows)
+    assert lines[-1].startswith("done: 3 steps in ")
 
 
 # ---------------------------------------------------------------------------
