@@ -105,6 +105,21 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    Then one step of its reduced copy (float32, 4 x 65 tokens, 2 microbatches)
    on the card and on the CPU under ``train_card_vs_cpu``'s gates
    (``train_moe_card_vs_cpu``).
+6d. ``ssm_archs`` — the recurrent blocks (``repro_torch.models.ssm``):
+   xlstm-1.3b (42 mLSTM, 6 sLSTM; 8 slots of 1,024-2,048 tokens
+   left-padded to 2,048) and recurrentgemma-9b (26 RG-LRU, 12
+   ``local_attn`` at window 2,048; 4 slots of 2,048-4,096 tokens
+   left-padded to 4,096) at published width and depth, float32
+   parameters, bf16 compute, seed 0, as ``lm_archs`` serves: one flash
+   launch a ``local_attn`` layer a prefill (12; xlstm 0), the cache of
+   each kind's state, recurrentgemma's seam; xlstm's profiled prefill
+   records the CUDA activity alone (its sLSTM loop's host events would
+   take minutes), its decode step host and card.  Each recurrent kind's
+   block alone, and the RG-LRU scan, timed with its device launches
+   (``recurrent_parts``).  Then each reduced copy card against CPU in
+   float32: the forward's logits within ``1e-4 · max(1, max |logits|)``
+   (``ssm_card_vs_cpu_forward``) and one train step of 1 x 65 tokens
+   under ``train_card_vs_cpu``'s gates (``ssm_card_vs_cpu_train``).
 7. ``main_path`` — ``repro_torch.compute_ph`` on torus4 at n = 50,000 with
    a 96 MiB budget and 2048 x 2048 tiles (``backend="tiled"``,
    ``engine="packed"``); the launch count of every kernel of the path
@@ -212,15 +227,16 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    and the number of Borůvka rounds.
 16. ``hic_suite`` — the Hi-C pair that ``benchmarks/fig21_hic.py`` runs,
     at ``benchmarks/suite.py``'s scale 1.0 (``hic_pair(350, 24, seed=1)``,
-    tau 0.6, maxdim 2), on the card, one call after another: each condition
-    through the batch engine and the packed engine on the tiled harvest, and
-    the control also through the packed engine over ``build_filtration_coo``
-    of the card's harvest (every pair also reversed, a duplicate at a larger
-    value, diagonal entries).  Every diagram ``np.array_equal`` to the batch
-    engine's; each run's wall and launches; the Fig. 21 table (H1 and H2
+    tau 0.6; the control at maxdim 2, auxin cut to maxdim 1), on the
+    card, one call after another: each condition through the batch engine
+    and the packed engine on the tiled harvest, and the control also
+    through the packed engine over ``build_filtration_coo`` of the card's
+    harvest (every pair also reversed, a duplicate at a larger value,
+    diagonal entries).  Every diagram ``np.array_equal`` to the batch
+    engine's; each run's wall and launches; the Fig. 21 table (H1
     features with persistence above 0.02, 0.05 and 0.08, auxin against
-    control); H1 at 0.05 and 0.08 must fall under auxin, as
-    ``fig21_hic.py`` gates it.
+    control; the control's H2 counts beside it); H1 at 0.05 and 0.08 must
+    fall under auxin, as ``fig21_hic.py`` gates it.
 17. ``hic_path`` — the regime ``examples/genome_hic.py`` documents
     (50,000 loci, a 128 MiB budget), cut to fit the run's time limit: half
     its loci and a quarter of its budget, ``hic_pair(25_000, 200,
@@ -268,7 +284,8 @@ are timed beside it.
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
 ``mesh_path``, ``serve_ph``, ``resilience``, the training run, each
-``lm_archs`` architecture and ``train_moe``) and, last, ``{"ok": true,
+``lm_archs`` architecture, ``train_moe`` and each ``ssm_archs``
+architecture) and, last, ``{"ok": true,
 "device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
 and without ``src/repro_torch`` beside it (the script copied alone) it
@@ -809,13 +826,15 @@ FLASH_SYMBOL = {torch.bfloat16: FLASH_SM90, torch.float32: FLASH_F32}
 # tokens, 16 heads; (16, 2048, 192) MLA's prefill width (nope 128 + rope 64,
 # the values zero-padded to it), run at the kernel's D = 256; then the
 # lm_archs prefills: granite-moe-1b-a400m (8 x 16 heads, d = 64), glm4-9b
-# (8 x 32, d = 128) and granite-34b (2 x 48 heads of 512 tokens).
+# (8 x 32, d = 128) and granite-34b (2 x 48 heads of 512 tokens); last,
+# recurrentgemma-9b's local attention (4 x 16 heads, KV repeated from one,
+# d = 256, 4,096 tokens, window 2,048).
 FLASH_BF16_EDGES = ((8, 1000, 128, True, -1), (8, 1000, 128, False, -1),
                     (8, 1000, 128, True, 1), (16, 1000, 64, True, -1),
                     (16, 1000, 40, True, 256), (1, 2048, 128, True, -1),
                     (64, 1024, 128, True, -1), (16, 2048, 192, True, -1),
                     (128, 2048, 64, True, -1), (256, 2048, 128, True, -1),
-                    (96, 512, 128, True, -1))
+                    (96, 512, 128, True, -1), (64, 4096, 256, True, 2048))
 # Correctness-only float32 cases, at the SIMT kernel's tile edges (128
 # queries, 64 keys; 64 and 32 at d = 256): S not a multiple of 128, S below
 # 64, windows below a tile, BH = 1, and every template width.
@@ -2082,6 +2101,11 @@ def device_engine(dev, main_filt, main_n: int, death_edges) -> dict:
 
 # benchmarks/suite.py at scale 1.0, as benchmarks/fig21_hic.py runs it.
 HIC_SUITE_N, HIC_SUITE_LOOPS, HIC_SUITE_TAU = 350, 24, 0.6
+# The suite's maxdim is 2.  The auxin runs at maxdim 2 took 124.4 s of the
+# phase's 137.0 s on a slow host, so auxin runs at maxdim 1: the Fig. 21
+# gate reads H1 only, and H2 stays held on the control (three routes, one
+# diagram).
+HIC_SUITE_MAXDIM = {"control": 2, "auxin": 1}
 FIG21_THRESHOLDS = (0.02, 0.05, 0.08)
 # The regime examples/genome_hic.py documents (50,000 loci, 200 cohesin
 # loops, the tiled backend at 2048 x 2048, one tau for both conditions from
@@ -2136,7 +2160,8 @@ def hic_suite(dev) -> dict:
     """The suite's Hi-C pair on the card, one call after another: each
     condition through the batch engine (as ``fig21_hic.py`` runs it) and the
     packed engine, both on the tiled harvest, and the control also through
-    the packed engine over ``build_filtration_coo`` of the card's harvest.
+    the packed engine over ``build_filtration_coo`` of the card's harvest;
+    the control at maxdim 2, auxin at maxdim 1 (``HIC_SUITE_MAXDIM``).
     Every diagram must equal the batch engine's, and H1 at the thresholds
     >= 0.05 must fall under auxin, as ``fig21_hic.py`` gates it."""
     from repro_torch import compute_ph
@@ -2159,37 +2184,40 @@ def hic_suite(dev) -> dict:
                                                         len(points)),
                                           n=len(points),
                                           tau_max=HIC_SUITE_TAU))
+        maxdim = HIC_SUITE_MAXDIM[name]
         results, walls, launches = {}, {}, {}
         for run, kw in runs.items():
             counters = reset_counters()
             results[run], walls[run] = timed(lambda: compute_ph(
-                tau_max=HIC_SUITE_TAU, maxdim=2, device=dev, **kw))
+                tau_max=HIC_SUITE_TAU, maxdim=maxdim, device=dev, **kw))
             launches[run] = {k: counters[k].launches for k in PH_KERNELS}
             if "points" in kw and launches[run]["pairwise_sq_dists"] <= 0:
                 raise AssertionError(f"hic_suite {name} {run}: the tiled "
                                      "harvest never launched the kernel")
         ref = results["batch"]
-        check_diagrams(ref, 2, f"hic_suite {name}")
+        check_diagrams(ref, maxdim, f"hic_suite {name}")
         for run, res in results.items():
-            for d in range(3):
+            for d in range(maxdim + 1):
                 if not np.array_equal(res.diagrams[d], ref.diagrams[d]):
                     raise AssertionError(f"hic_suite {name}: H{d} of {run} "
                                          "differs from the batch engine's")
+        dims = range(1, maxdim + 1)
         out[name] = dict(
-            n_e=int(ref.stats["n_e"]), pairs=n_pairs(ref), wall_s=walls,
-            launches=launches,
+            maxdim=maxdim, n_e=int(ref.stats["n_e"]), pairs=n_pairs(ref),
+            wall_s=walls, launches=launches,
             essential={f"H{d}": int(np.isinf(ref.diagrams[d][:, 1]).sum())
-                       for d in (1, 2)},
-            counts={f"H{d}": fig21_counts(ref.diagrams[d]) for d in (1, 2)})
-    table = [dict(dim=f"H{d}", threshold=t,
-                  control=out["control"]["counts"][f"H{d}"][str(t)],
-                  auxin=out["auxin"]["counts"][f"H{d}"][str(t)])
-             for t in FIG21_THRESHOLDS for d in (1, 2)]
+                       for d in dims},
+            counts={f"H{d}": fig21_counts(ref.diagrams[d]) for d in dims})
+    table = [dict(dim="H1", threshold=t,
+                  control=out["control"]["counts"]["H1"][str(t)],
+                  auxin=out["auxin"]["counts"]["H1"][str(t)])
+             for t in FIG21_THRESHOLDS]
     for row in table:
         row["pct_change"] = (100.0 * (row["auxin"] - row["control"])
                              / max(row["control"], 1))
     emit("hic_suite", n=HIC_SUITE_N, loops=HIC_SUITE_LOOPS,
-         tau_max=HIC_SUITE_TAU, maxdim=2, identical=True, fig21=table, **out)
+         tau_max=HIC_SUITE_TAU, maxdim=HIC_SUITE_MAXDIM, identical=True,
+         fig21=table, **out)
     for row in table:
         if row["dim"] == "H1" and row["threshold"] >= 0.05 \
                 and not row["pct_change"] < 0:
@@ -2609,9 +2637,12 @@ def prefill_routes(model, prefill, requests, dev, counters,
         if mid == before or counters["flash_attention"].launches != mid:
             raise AssertionError("the seam's prefill routes are not the "
                                  "flash kernel and _sdpa_masked")
-        row_diff = (flash_logits - sdpa_logits).abs().amax(-1)
+        # a slot at a time: recurrentgemma's float32 logits are 16.8 GB a
+        # route, and a whole-batch difference would be a third copy
+        row_diff = torch.stack([(f - g).abs().amax(-1) for f, g
+                                in zip(flash_logits, sdpa_logits)])
         diff = float(row_diff.max())
-        scale = max(1.0, float(sdpa_logits.abs().max()))
+        scale = max(1.0, max(float(g.abs().max()) for g in sdpa_logits))
         rows_over = int((row_diff > contract * scale).sum())
         row_q = torch.quantile(row_diff.float().flatten(), torch.tensor(
             [0.5, 0.99, 0.999], device=dev)).tolist()
@@ -3133,14 +3164,35 @@ TRAIN_MOE_STEPS, TRAIN_MOE_MICRO = 4, 4
 
 
 def cache_bytes(cfg, slots: int, s_max: int) -> int:
-    """The decode cache: MLA's latent and rotary key, ``(r + d_rope) ·
-    layers · slots · S_max`` elements, or K and V, ``2 · layers · slots ·
-    S_max · KV · head_dim``; in the compute dtype."""
-    if cfg.mla is not None:
-        per = cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim
-    else:
-        per = 2 * cfg.n_kv_heads * cfg.head_dim_
-    return per * cfg.n_layers * slots * s_max * cfg.cdtype.itemsize
+    """The decode cache, layer by layer of the plan (``layer_slots``):
+    MLA's latent and rotary key, ``(r + d_rope) · slots · S_max``
+    elements, or K and V, ``2 · slots · S_max · KV · head_dim``, in the
+    compute dtype; the recurrent states, which do not grow with S_max, in
+    float32 (mLSTM's C and n, ``slots · nh · (hd² + hd)``; sLSTM's c, n and
+    h, ``3 · slots · d``; RG-LRU's h, ``slots · d_rnn``) beside the convs'
+    ``slots · (cw - 1) · width`` trailing inputs in the compute dtype."""
+    from repro_torch.models.transformer import layer_slots
+
+    cd = cfg.cdtype.itemsize
+    total = 0
+    for slot in layer_slots(cfg):
+        if slot.kind == "mlstm":
+            di = int(cfg.d_model * cfg.xlstm.proj_factor)
+            nh = cfg.n_heads
+            hd = di // nh
+            total += slots * (nh * (hd * hd + hd) * 4
+                              + (cfg.xlstm.conv_width - 1) * di * cd)
+        elif slot.kind == "slstm":
+            total += 3 * slots * cfg.d_model * 4
+        elif slot.kind == "rglru":
+            dr = cfg.rglru.d_rnn or cfg.d_model
+            total += slots * dr * (4 + (cfg.rglru.conv_width - 1) * cd)
+        elif cfg.mla is not None:
+            total += (cfg.mla.kv_lora_rank + cfg.mla.rope_head_dim) \
+                * slots * s_max * cd
+        else:
+            total += 2 * slots * s_max * cfg.n_kv_heads * cfg.head_dim_ * cd
+    return total
 
 
 def sample_on_card(model, cfg, dev) -> dict:
@@ -3178,13 +3230,18 @@ def flash_launch_bound(cfg, window: dict, slots: int, prompt: int) -> dict:
     the function it computes: q and k at the query-key width, v and the
     output at the value width (MLA: 192 and 128; the kernel's zero-padded
     value columns are not work), read and written once in bf16, and
-    ``2 (d_qk + d_v)`` operations an attended pair at the bf16 peak."""
+    ``2 (d_qk + d_v)`` operations an attended pair at the bf16 peak,
+    averaged over the attention layers."""
+    from repro_torch.models.transformer import is_attention, layer_slots
+
     m = cfg.mla
     d_qk = m.nope_head_dim + m.rope_head_dim if m else cfg.head_dim_
     d_v = m.v_head_dim if m else cfg.head_dim_
     bh = slots * cfg.n_heads
-    pairs = np.mean([attended_pairs(prompt, True, cfg.window_for_layer(i)
-                                    or -1) for i in range(cfg.n_layers)])
+    # over the plan's attention layers at their windows (recurrentgemma:
+    # its 12 local_attn layers at 2,048)
+    pairs = np.mean([attended_pairs(prompt, True, sl.window or -1)
+                     for sl in layer_slots(cfg) if is_attention(sl.kind)])
     ms = window["flash_device_s"] * 1e3 / window["flash_profiled_launches"]
     b_ms, b_by = bound(2 * bh * prompt * (2 * d_qk + 2 * d_v),
                        2 * bh * pairs * (d_qk + d_v), BF16_TC_FLOPS_PER_S)
@@ -3193,24 +3250,32 @@ def flash_launch_bound(cfg, window: dict, slots: int, prompt: int) -> dict:
 
 
 def lm_arch(dev, arch: str, param_dtype: str, slots: int,
-            prompt: int) -> dict:
+            prompt: int, line: str = "lm_archs") -> dict:
     """One architecture at its published width through ``ServeEngine`` on
     the card, the counts set to 0 just before ``run``: ``LM_EPOCHS``
     epochs of ``slots`` requests, every request served with ``LM_NEW``
-    tokens, one flash launch a layer a prefill (the bf16 kernel's
-    ``launches``).  Then one more epoch, a prefill and one decode step,
-    under ``torch.profiler`` (:func:`profiled_serving`): every flash
-    launch the tensor-core kernel, the card's busy share in prefill and
-    decode, the longest kernels.  Last, the first epoch's prefill through
-    the flash kernel and through ``_sdpa_masked`` (:func:`prefill_routes`),
-    the logits held to ``SERVE_CONTRACT``."""
+    tokens, one flash launch an attention layer of the plan a prefill (the
+    bf16 kernel's ``launches``; none for xlstm).  Then one more epoch, a
+    prefill and one decode step, under ``torch.profiler``
+    (:func:`profiled_serving`; a model with sLSTM layers profiles its
+    prefill's CUDA activity alone, :func:`profiled_recurrent`): every
+    flash launch the tensor-core kernel, the card's busy share in prefill
+    and decode, the longest kernels.  A model with recurrent layers times
+    each recurrent kind's block alone (:func:`recurrent_parts`).  Last,
+    for a model with attention, the first epoch's prefill through the
+    flash kernel and through ``_sdpa_masked`` (:func:`prefill_routes`),
+    the logits held to ``SERVE_CONTRACT``.  Printed as ``line``."""
     from repro_torch.configs import get_config
-    from repro_torch.models.transformer import count_params, init_params
+    from repro_torch.models.transformer import (RECURRENT, count_params,
+                                                init_params, is_attention,
+                                                layer_slots)
     from repro_torch.obs.trace import Tracer, tracing
     from repro_torch.serve.engine import ServeEngine
     from repro_torch.serve.steps import make_prefill_step
 
     cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype)
+    kinds = [sl.kind for sl in layer_slots(cfg)]
+    n_attn = sum(is_attention(k) for k in kinds)
     # earlier phases' models can outlive their phase in reference cycles
     # until the collector runs (qwen3's training model, 2.68 GB, has)
     gc.collect()
@@ -3249,6 +3314,7 @@ def lm_arch(dev, arch: str, param_dtype: str, slots: int,
     out = dict(
         arch=cfg.name, param_dtype=cfg.param_dtype,
         compute_dtype=cfg.compute_dtype, n_layers=cfg.n_layers,
+        layer_kinds={k: kinds.count(k) for k in sorted(set(kinds))},
         d_model=cfg.d_model, n_params=count_params(model),
         param_bytes=sum(p.numel() * p.element_size()
                         for p in model.parameters()),
@@ -3266,41 +3332,148 @@ def lm_arch(dev, arch: str, param_dtype: str, slots: int,
                                         for x in t)
             for t in done.values()):
         raise AssertionError(f"{arch}: malformed generations {done}")
-    if launches["flash_attention"] != cfg.n_layers * n_prefills \
+    if launches["flash_attention"] != n_attn * n_prefills \
             or n_prefills < 1:
         raise AssertionError(f"{arch}: {launches['flash_attention']} flash "
                              f"launches for {n_prefills} prefills of "
-                             f"{cfg.n_layers} layers")
+                             f"{n_attn} attention layers")
     if held != out["cache_bytes"]:
         raise AssertionError(f"{arch}: the engine's cache holds {held} "
                              f"bytes, the formula {out['cache_bytes']}")
     for req in serve_requests(cfg, slots, seed=4, lo=prompt // 2, hi=prompt,
                               max_new=LM_PROFILED_NEW):
         engine.submit(req)
-    window = out["profiled_window"] = profiled_serving(engine,
-                                                       reset_counters())
-    n_prof = window["phases"]["serve/prefill"]["n"]
-    if not (n_prof == 1 and window["flash_launches"] == cfg.n_layers
-            and window["flash_symbol_launches"] == cfg.n_layers
-            and window["flash_profiled_launches"] == cfg.n_layers):
+    profile = profiled_recurrent if "slstm" in kinds else profiled_serving
+    window = out["profiled_window"] = profile(engine, reset_counters())
+    n_prof = int(engine.stats()["serve_n_prefills"]) - n_prefills
+    if not (n_prof == 1 and window["flash_launches"] == n_attn
+            and window["flash_symbol_launches"] == n_attn
+            and window["flash_profiled_launches"] == n_attn):
         raise AssertionError(
             f"{arch} profiled epoch: {window['flash_launches']} flash "
             f"launches counted, {window['flash_symbol_launches']} of "
             f"{window['flash_profiled_launches']} profiled ones the tensor-"
-            f"core kernel, for {n_prof} prefills of {cfg.n_layers} layers")
-    out["flash_launch"] = flash_launch_bound(cfg, window, slots, prompt)
-    out["seam"] = prefill_routes(model, make_prefill_step(cfg), requests,
-                                 dev, counters, SERVE_CONTRACT, slots, prompt)
+            f"core kernel, for {n_prof} prefills of {n_attn} attention "
+            f"layers")
+    if any(k in RECURRENT for k in kinds):
+        out["recurrent_parts"] = recurrent_parts(model, cfg, dev, slots,
+                                                 prompt)
+    if n_attn:
+        out["flash_launch"] = flash_launch_bound(cfg, window, slots, prompt)
+        out["seam"] = prefill_routes(model, make_prefill_step(cfg), requests,
+                                     dev, counters, SERVE_CONTRACT, slots,
+                                     prompt)
     if arch == LM_SAMPLE_ARCH:
         out["sample_temperature"] = sample_on_card(model, cfg, dev)
     out["peak_device_bytes"] = torch.cuda.max_memory_allocated()
-    emit("lm_archs", **out)
-    check_seam(out["seam"])
+    emit(line, **out)
+    if n_attn:
+        check_seam(out["seam"])
     if out["peak_device_bytes"] > LM_MAX_PEAK:
         raise AssertionError(f"{arch}: peak {out['peak_device_bytes']} "
                              f"bytes > {LM_MAX_PEAK}")
     del engine, model
     torch.cuda.empty_cache()
+    return out
+
+
+def profiled_recurrent(engine, counters) -> dict:
+    """The profiled epoch of a model with sLSTM layers: its prefill (the
+    engine's admission) under the profiler's CUDA activity alone, since
+    the sLSTM loop's host events would take minutes to record; then the
+    decode step under :func:`profiled_serving`, whose fields it returns
+    with the prefill's under ``prefill``: wall, the card's busy and idle
+    share over it, device launches and the longest kernels."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            engine._admit()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    evs = raw_device_events(prof)
+    busy_s = busy_us(evs) / 1e6
+    top = sorted(by_kernel(evs).items(), key=lambda kv: -kv[1][1])[:10]
+    prefill = dict(wall_s=wall, device_busy_s=busy_s,
+                   device_idle_share=1.0 - busy_s / wall,
+                   device_launches=len(evs),
+                   events_read_s=time.perf_counter() - t1,
+                   top_kernels=[dict(name=k[:100], launches=n,
+                                     device_s=us / 1e6)
+                                for k, (n, us) in top])
+    del prof, evs
+    return dict(profiled_serving(engine, counters), prefill=prefill)
+
+
+class RawEvent:
+    """A device event read straight from the profiler's kineto results,
+    with the ``name`` and ``time_range`` (µs) that :func:`busy_us` and
+    :func:`by_kernel` read."""
+    __slots__ = ("name", "time_range")
+
+    def __init__(self, name: str, start_us: float, end_us: float):
+        from torch.autograd.profiler_util import Interval
+
+        self.name = name
+        self.time_range = Interval(start_us, end_us)
+
+
+def raw_device_events(prof) -> list:
+    """The device-side events of a finished ``torch.profiler.profile``,
+    from its raw kineto results: ``prof.events()`` builds the host-side
+    event tree first, which took 43 s for the 276,173 launches of
+    xlstm-1.3b's prefill."""
+    from torch.autograd import DeviceType
+
+    out = []
+    for ev in prof.profiler.kineto_results.events():
+        if ev.device_type() != DeviceType.CUDA:
+            continue
+        start = ev.start_ns() / 1e3
+        out.append(RawEvent(ev.name(), start, start + ev.duration_ns() / 1e3))
+    return out
+
+
+def recurrent_parts(model, cfg, dev, slots: int, prompt: int) -> dict:
+    """The first block of each recurrent kind of the plan alone, on a
+    random (slots, prompt, d_model) input in the compute dtype, as a
+    prefill runs it: its wall (host clock, synchronised) and, under the
+    profiler's CUDA activity, its device launches, device seconds and the
+    card's busy share over the wall.  For RG-LRU, the Hillis–Steele scan
+    (``ssm._linear_scan``) alone too, on float32 (slots, prompt, d_rnn)."""
+    from repro_torch.models import ssm
+    from repro_torch.models.transformer import RECURRENT
+
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x = torch.randn((slots, prompt, cfg.d_model), generator=gen,
+                    device=dev).to(cfg.cdtype)
+    seen = {}
+    parts = []
+    for blk in model.blocks:
+        if blk.kind not in RECURRENT or blk.kind in seen:
+            continue
+        seen[blk.kind] = blk
+        parts.append((blk.kind, lambda b=blk: b.ssm(x)))
+    if "rglru" in seen:
+        dr = cfg.rglru.d_rnn or cfg.d_model
+        a = torch.rand((slots, prompt, dr), generator=gen, device=dev)
+        bx = torch.randn((slots, prompt, dr), generator=gen, device=dev)
+        parts.append(("rglru_scan", lambda: ssm._linear_scan(a, bx)))
+    out = {}
+    with torch.inference_mode():
+        for name, fn in parts:
+            fn()                                    # warm-up
+            torch.cuda.synchronize()
+            _, wall = timed(fn)
+            (_, wall_prof), evs = profiled(lambda: timed(fn), host=False)
+            dev_s = sum(ev.time_range.elapsed_us() for ev in evs) / 1e6
+            out[name] = dict(shape=[slots, prompt], wall_s=wall,
+                             profiled_wall_s=wall_prof,
+                             device_launches=len(evs), device_s=dev_s,
+                             device_busy_share=busy_us(evs) / 1e6 / wall_prof)
+            del evs
     return out
 
 
@@ -3312,6 +3485,85 @@ def lm_archs(dev) -> dict:
     emit("lm_archs_done", phase_s=time.perf_counter() - t0,
          flash_launches={a: r["launches"]["flash_attention"]
                          for a, r in out.items()})
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 6d: the recurrent and hybrid architectures
+# ---------------------------------------------------------------------------
+
+# (arch, param_dtype, slots, prompt_len), served as lm_archs serves, with
+# the configs' own float32 parameters (13.71 and 29.93 GB).  xlstm-1.3b's
+# prompts are left-padded to 2,048, a multiple of its chunk of 64;
+# recurrentgemma-9b's to 4,096, so that its local attention's window of
+# 2,048 masks inside the prompt.
+SSM_ARCHS = (("xlstm-1.3b", "float32", 8, 2048),
+             ("recurrentgemma-9b", "float32", 4, 4096))
+# The reduced copies' float32 forward, card against CPU (TF32 off): the
+# logits within 1e-4 of max(1, their largest).
+SSM_CARD_VS_CPU_TOL = 1e-4
+
+
+def ssm_card_vs_cpu(dev, arch: str) -> dict:
+    """The reduced copy of ``arch`` (float32 compute, TF32 off) on the card
+    and on the CPU from the card's weights: one forward of 2 x 64 tokens,
+    its logits within ``SSM_CARD_VS_CPU_TOL · max(1, max |logits|)``, one
+    flash launch an attention layer on the card (the float32 kernel: the
+    copy computes in float32); then one train step under
+    :func:`train_card_vs_cpu`'s gates on 1 x 65 tokens (64 positions, a
+    multiple of xlstm's reduced chunk of 8)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.models.transformer import (forward, init_params,
+                                                is_attention, layer_slots,
+                                                params_from_arrays,
+                                                params_to_arrays)
+
+    cfg = get_config(arch, reduced=True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    card = init_params(cfg, seed=0, device=dev)
+    host = params_from_arrays(cfg, params_to_arrays(card), "cpu")
+    toks = torch.as_tensor(np.random.default_rng(10).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32)
+    n_attn = sum(is_attention(sl.kind) for sl in layer_slots(cfg))
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got = forward(card, {"tokens": toks.to(dev)})[0]
+        torch.cuda.synchronize()
+        launched = flash_attention.launches - before
+        want = forward(host, {"tokens": toks})[0]
+    diff = float((got.cpu() - want).abs().max())
+    scale = max(1.0, float(want.abs().max()))
+    out = dict(arch=cfg.name, tokens=list(toks.shape),
+               compute_dtype=cfg.compute_dtype, logits_max_abs_diff=diff,
+               logits_max_abs=scale, atol=SSM_CARD_VS_CPU_TOL * scale,
+               flash_launches=launched, attention_layers=n_attn)
+    emit("ssm_card_vs_cpu_forward", **out)
+    if not (diff <= out["atol"] and launched == n_attn):
+        raise AssertionError(f"{arch} reduced forward, card against CPU: "
+                             f"{out}")
+    del card, host
+    out["train"] = train_card_vs_cpu(dev, cfg, tokens=(1, 65),
+                                     line="ssm_card_vs_cpu_train")
+    return out
+
+
+def ssm_archs(dev) -> dict:
+    """Phase 6d: xlstm-1.3b and recurrentgemma-9b at published width and
+    depth through :func:`lm_arch`, one after another, each freed before the
+    next; then each reduced copy card against CPU
+    (:func:`ssm_card_vs_cpu`)."""
+    t0 = time.perf_counter()
+    out = {arch: lm_arch(dev, arch, *rest, line="ssm_archs")
+           for arch, *rest in SSM_ARCHS}
+    t1 = time.perf_counter()
+    for arch, *_ in SSM_ARCHS:
+        out[arch]["card_vs_cpu"] = ssm_card_vs_cpu(dev, arch)
+    emit("ssm_archs_done", phase_s=time.perf_counter() - t0,
+         card_vs_cpu_s=time.perf_counter() - t1,
+         flash_launches={a: r["launches"]["flash_attention"]
+                         for a, r in out.items()})
+    torch.cuda.empty_cache()
     return out
 
 
@@ -3458,6 +3710,7 @@ def main() -> int:
     trained = train(dev)
     archs = lm_archs(dev)
     moe_trained = train_moe(dev)
+    ssm = ssm_archs(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
     path, main_res, main_filt, main_deaths = main_path(dev, MAIN_PATH_N, tap,
                                                        serial)
@@ -3494,6 +3747,7 @@ def main() -> int:
     train_launches = bf16(trained["full_width"]["launches"])
     lm_launches = {a: bf16(r["launches"]) for a, r in archs.items()}
     moe_train_launches = bf16(moe_trained["launches"])
+    ssm_launches = {a: bf16(r["launches"]) for a, r in ssm.items()}
 
     replaces = {
         "pairwise_sq_dists": ("csrc/pairwise_dist.cu",
@@ -3534,6 +3788,7 @@ def main() -> int:
             train_launches=train_launches[kname],
             lm_archs_launches={a: n[kname] for a, n in lm_launches.items()},
             train_moe_launches=moe_train_launches[kname],
+            ssm_archs_launches={a: n[kname] for a, n in ssm_launches.items()},
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -4,9 +4,10 @@ Port of ``src/repro/configs/__init__.py``.  ``get_config(name)`` returns
 the full published config; ``get_config(name, reduced=True)`` the CPU
 smoke-test variant.  Modules load from this package
 (``repro_torch.configs.<name>``), never the reference's.  Only the archs
-the port's model runs have a module here (the dense decoders, and the MoE
-and MLA models); the others raise ``NotImplementedError`` (ROADMAP.md §1,
-item 10: the rest of the LM substrate).
+the port's model runs have a module here (the dense decoders, the MoE and
+MLA models, and the recurrent xlstm-1.3b and hybrid recurrentgemma-9b);
+the others raise ``NotImplementedError`` (ROADMAP.md §1, item 10: the rest
+of the LM substrate).
 """
 from __future__ import annotations
 
@@ -22,7 +23,8 @@ ARCHS = (
 )
 
 PORTED = ("qwen3_0_6b", "gemma3_1b", "glm4_9b", "granite_34b",
-          "granite_moe_1b_a400m", "deepseek_v2_lite_16b")
+          "granite_moe_1b_a400m", "deepseek_v2_lite_16b", "xlstm_1_3b",
+          "recurrentgemma_9b")
 
 ALIASES = {
     "qwen3-0.6b": "qwen3_0_6b", "gemma3-1b": "gemma3_1b",

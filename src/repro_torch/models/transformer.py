@@ -2,13 +2,16 @@
 decode.
 
 Port of ``src/repro/models/transformer.py`` for the decoder-only families:
-dense, MoE (``models/moe.py``) and MLA (``mla_apply``).  Where the
-reference scans each stacked parameter group of its plan over its repeats
-(deepseek-v2-lite: a ``dense_head`` group of one ``mla_mlp`` layer, then
-``blocks`` of ``mla_moe``), the port holds one ``nn.ModuleList`` of blocks
-in the same order, each with its own kind and window int (the reference's
-per-repeat window scalar); :func:`layer_slots` says where each sits in the
-reference's groups.  Entry points:
+dense, MoE (``models/moe.py``), MLA (``mla_apply``) and the recurrent and
+hybrid ones (``models/ssm.py``: xLSTM's mLSTM and sLSTM, Griffin's RG-LRU
+beside windowed ``local_attn``).  Where the reference scans each stacked
+parameter group of its plan over its repeats (deepseek-v2-lite: a
+``dense_head`` group of one ``mla_mlp`` layer, then ``blocks`` of
+``mla_moe``; xlstm-1.3b: ``xlstm``, a superblock of ``mlstm_0`` ...
+``mlstm_6`` and ``slstm_7`` six times), the port holds one
+``nn.ModuleList`` of blocks in the same order, each with its own kind and
+window int (the reference's per-repeat window scalar); :func:`layer_slots`
+says where each sits in the reference's groups.  Entry points:
 
 * :func:`init_params` — seeded init on the card (``device=None``) or the
   CPU, returning the module;
@@ -25,7 +28,9 @@ reference's groups.  Entry points:
   autograd;
 * :func:`decode_step` — one token against the fixed-capacity cache.
 
-The recurrent blocks, enc-dec, M-RoPE and embedding inputs raise
+A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
+MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h) and
+RG-LRU's (h, conv).  Enc-dec, M-RoPE and embedding inputs raise
 ``NotImplementedError`` (ROADMAP.md §1, item 10).  The trainer
 (``repro_torch.train``) differentiates :func:`forward` with explicit
 positions, which take ``_sdpa_masked`` as the reference's training forward
@@ -46,8 +51,20 @@ from .attention import MLA, Attention, attn_params, mla_params
 from .config import ModelConfig
 from .layers import MLP, RMSNorm, _param, dense_init, embed, unembed
 from .moe import MoE, moe_params
+from . import ssm
 
 _NOT_PORTED = "not ported yet (ROADMAP.md §1, item 10, LM substrate)"
+
+# The recurrent block kinds: (module, params, zero cache) of models/ssm.py.
+RECURRENT = {"mlstm": (ssm.MLSTM, ssm.mlstm_params, ssm.mlstm_init_cache),
+             "slstm": (ssm.SLSTM, ssm.slstm_params, ssm.slstm_init_cache),
+             "rglru": (ssm.RGLRU, ssm.rglru_params, ssm.rglru_init_cache)}
+
+
+def is_attention(kind: str) -> bool:
+    """The block kinds whose cache has a sequence axis: self-attention
+    (GQA, MLA) and ``local_attn``."""
+    return kind not in RECURRENT
 
 
 @dataclasses.dataclass(frozen=True)
@@ -74,7 +91,8 @@ class LayerSlot:
     group: int
     key: str                # "<kind>_<instance>", e.g. "mla_moe_0"
     repeat: int
-    kind: str               # "<mixer>_<ffn>": attn|mla x mlp|moe
+    kind: str               # "<mixer>_<ffn>" (attn|mla x mlp|moe), or
+                            # local_attn, mlstm, slstm, rglru
     window: int
     d_ff: int               # the dense MLP's hidden width
 
@@ -82,7 +100,6 @@ class LayerSlot:
 def check_supported(cfg: ModelConfig) -> None:
     """Raise ``NotImplementedError`` for what the port's model lacks."""
     missing = [what for what, has in (
-        ("xlstm", cfg.xlstm is not None), ("rglru", cfg.rglru is not None),
         ("enc_dec", cfg.enc_dec), ('rope_kind="mrope"',
                                    cfg.rope_kind == "mrope"),
         ('input_kind="embeddings"', cfg.input_kind != "tokens")) if has]
@@ -92,12 +109,36 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def build_plan(cfg: ModelConfig) -> List[GroupSpec]:
-    """The reference's plan for the decoder-only families: with MoE's
-    ``first_dense_layers``, a ``dense_head`` group of ``{mixer}_mlp``
-    layers at ``d_ff_override = dense_d_ff``; then ``blocks`` of
-    ``{mixer}_{ffn}`` (mixer ``attn`` or ``mla``, ffn ``mlp`` or ``moe``)
-    with per-layer windows."""
+    """The reference's plan for the decoder-only families.  xLSTM: one
+    group ``xlstm`` of ``slstm_every - 1`` mLSTM blocks and one sLSTM,
+    ``n_layers // slstm_every`` times.  Griffin: ``griffin``, the block
+    pattern (RG-LRU, RG-LRU, ``local_attn`` at ``attn_window``) repeated,
+    then ``griffin_rem`` with the pattern's first blocks for the layers
+    left over.  Otherwise, with MoE's ``first_dense_layers``, a
+    ``dense_head`` group of ``{mixer}_mlp`` layers at ``d_ff_override =
+    dense_d_ff``; then ``blocks`` of ``{mixer}_{ffn}`` (mixer ``attn`` or
+    ``mla``, ffn ``mlp`` or ``moe``) with per-layer windows."""
     check_supported(cfg)
+    if cfg.xlstm is not None:
+        se = cfg.xlstm.slstm_every
+        reps = cfg.n_layers // se
+        return [GroupSpec("xlstm", (("mlstm", se - 1), ("slstm", 1)), reps)]
+    if cfg.rglru is not None:
+        pat = cfg.rglru.block_pattern
+        plen = len(pat)
+        reps = cfg.n_layers // plen
+        rem = cfg.n_layers - reps * plen
+        win = np.full((reps, plen), -1, dtype=np.int32)
+        for i, k in enumerate(pat):
+            if k == "local_attn":
+                win[:, i] = cfg.rglru.attn_window
+        groups = [GroupSpec("griffin", tuple((k, 1) for k in pat), reps,
+                            windows=win)]
+        if rem:
+            groups.append(GroupSpec(
+                "griffin_rem", tuple((pat[i], 1) for i in range(rem)), 1,
+                windows=np.full((1, rem), -1, dtype=np.int32)))
+        return groups
     mixer = "mla" if cfg.mla is not None else "attn"
     ffn = "moe" if cfg.moe is not None else "mlp"
     groups = []
@@ -130,29 +171,45 @@ def layer_slots(cfg: ModelConfig) -> List[LayerSlot]:
 
 
 class Block(nn.Module):
-    """Pre-norm attention (GQA or MLA) + FFN (MLP or MoE), with this
-    layer's window.  Returns ``(x, cache, aux)``; ``aux`` is the MoE
-    router's loss, ``None`` for a dense FFN."""
+    """One layer of the plan, with this layer's window.  Attention kinds
+    (GQA, MLA, ``local_attn``): pre-norm attention, then, where the layer
+    has one, a pre-norm FFN (MLP or MoE).  Recurrent kinds (``mlstm``,
+    ``slstm``, ``rglru``): the block of ``models/ssm.py`` (its own norms
+    and residual), then for RG-LRU the pre-norm MLP where the config has a
+    ``d_ff`` (the reference's ``_apply_block``).  Returns ``(x, cache,
+    aux)``; ``aux`` is the MoE router's loss, ``None`` without MoE."""
 
     def __init__(self, cfg: ModelConfig, p: Mapping[str, Any],
                  slot: LayerSlot):
         super().__init__()
-        mixer, ffn = slot.kind.split("_")
         self.kind = slot.kind
         self.window = int(slot.window)
-        self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
-        self.attn = (MLA if mixer == "mla" else Attention)(cfg, p["attn"])
-        self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
-        self.moe = ffn == "moe"
-        self.ffn = MoE(cfg, p["ffn"]) if self.moe \
-            else MLP(p["ffn"], cfg.cdtype)
         self.cdtype = cfg.cdtype
+        self.moe = slot.kind.endswith("_moe")
+        if slot.kind in RECURRENT:
+            self.ssm = RECURRENT[slot.kind][0](cfg, p["ssm"])
+        else:
+            self.ssm = None
+            self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
+            self.attn = (MLA if slot.kind.startswith("mla")
+                         else Attention)(cfg, p["attn"])
+        if "ffn" in p:
+            self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
+            self.ffn = MoE(cfg, p["ffn"]) if self.moe \
+                else MLP(p["ffn"], cfg.cdtype)
+        else:
+            self.ffn = None
 
     def forward(self, x, positions, cache=None, cache_pos=None):
-        h = self.ln1(x.to(self.cdtype))
-        a_out, new_cache = self.attn(h, positions, self.window, cache=cache,
-                                     cache_pos=cache_pos)
-        x = x + a_out.to(x.dtype)
+        if self.ssm is not None:
+            x, new_cache = self.ssm(x, cache)
+        else:
+            h = self.ln1(x.to(self.cdtype))
+            a_out, new_cache = self.attn(h, positions, self.window,
+                                         cache=cache, cache_pos=cache_pos)
+            x = x + a_out.to(x.dtype)
+        if self.ffn is None:
+            return x, new_cache, None
         h = self.ln2(x.to(self.cdtype))
         if self.moe:
             f_out, aux = self.ffn(h)
@@ -177,22 +234,38 @@ class Transformer(nn.Module):
         return self.embed.device
 
 
+def _ffn_init(cfg: ModelConfig, gen: Optional[torch.Generator], device,
+              slot: LayerSlot) -> dict:
+    if slot.kind.endswith("_moe"):
+        return moe_params(cfg, gen, device)
+    kw = dict(dtype=cfg.pdtype, device=device)
+    ffn = {"w_up": dense_init(gen, (cfg.d_model, slot.d_ff), **kw),
+           "w_down": dense_init(gen, (slot.d_ff, cfg.d_model), **kw)}
+    if cfg.act in ("silu", "swiglu"):
+        ffn["w_gate"] = dense_init(gen, (cfg.d_model, slot.d_ff), **kw)
+    return ffn
+
+
 def _block_init(cfg: ModelConfig, gen: Optional[torch.Generator], device,
                 slot: LayerSlot) -> dict:
-    kw = dict(dtype=cfg.pdtype, device=device)
-    mixer, kind = slot.kind.split("_")
-    if kind == "moe":
-        ffn = moe_params(cfg, gen, device)
-    else:
-        d_ff = slot.d_ff
-        ffn = {"w_up": dense_init(gen, (cfg.d_model, d_ff), **kw),
-               "w_down": dense_init(gen, (d_ff, cfg.d_model), **kw)}
-        if cfg.act in ("silu", "swiglu"):
-            ffn["w_gate"] = dense_init(gen, (cfg.d_model, d_ff), **kw)
-    attn = mla_params(cfg, gen, device) if mixer == "mla" \
+    ones = torch.ones(cfg.d_model, dtype=cfg.pdtype, device=device)
+    if slot.kind in RECURRENT:
+        # of the recurrent blocks only RG-LRU carries an MLP, where d_ff
+        # is set (the reference's _block_params)
+        p = {"ssm": RECURRENT[slot.kind][1](cfg, gen, device)}
+        if slot.kind == "rglru" and cfg.d_ff:
+            p.update(ln2=ones.clone(), ffn=_ffn_init(cfg, gen, device, slot))
+        return p
+    # The FFN is drawn before the attention: a seed gives the weights it
+    # gave before the recurrent kinds came.
+    ffn = _ffn_init(cfg, gen, device, slot) \
+        if slot.kind != "local_attn" or cfg.d_ff else None
+    attn = mla_params(cfg, gen, device) if slot.kind.startswith("mla") \
         else attn_params(cfg, gen, device)
-    return {"ln1": torch.ones(cfg.d_model, **kw), "attn": attn,
-            "ln2": torch.ones(cfg.d_model, **kw), "ffn": ffn}
+    p = {"ln1": ones, "attn": attn}
+    if ffn is not None:
+        p.update(ln2=ones.clone(), ffn=ffn)
+    return p
 
 
 def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator],
@@ -259,6 +332,8 @@ def _slot(name: str, slots: Mapping[int, Tuple[int, str, int]]
             path = (kind, "scale")
         elif kind == "attn" and w in ("q_norm", "k_norm", "kv_norm"):
             path = ("attn", w, "scale")      # blocks.i.attn.p.<norm>
+        elif kind == "ssm":                  # blocks.i.ssm.p.<w>, flat
+            path = (w, "scale") if w in ("norm", "out_norm") else (w,)
         else:                                # blocks.i.{attn,ffn}[.p].<w>
             path = (kind, w)
         return path, slots[layer]
@@ -351,17 +426,21 @@ def count_params(model: Transformer) -> int:
 
 
 def init_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device: DeviceLike = None) -> List[Tuple[torch.Tensor,
-                                                        torch.Tensor]]:
-    """Per-layer zero caches in the compute dtype: (K, V) of (batch, s_max,
-    KV, head_dim), or for MLA the latent ``c_kv`` (batch, s_max, r) and
-    the rotary key (batch, s_max, rope) (the reference's
-    ``_block_cache``)."""
+               device: DeviceLike = None) -> List[Tuple[torch.Tensor, ...]]:
+    """Per-layer zero caches, each its kind's (the reference's
+    ``_block_cache``): (K, V) of (batch, s_max, KV, head_dim) for
+    attention and ``local_attn``; MLA's latent ``c_kv`` (batch, s_max, r)
+    and rotary key (batch, s_max, rope); in the compute dtype.  The
+    recurrent kinds' states do not grow with ``s_max``: mLSTM's (C, n,
+    conv), sLSTM's (c, n, h), RG-LRU's (h, conv), float32 but for the
+    convs' trailing inputs (``models/ssm.py``)."""
     dev = resolve_device(device)
     kw = dict(dtype=cfg.cdtype, device=dev)
     out = []
     for slot in layer_slots(cfg):
-        if slot.kind.startswith("mla"):
+        if slot.kind in RECURRENT:
+            out.append(RECURRENT[slot.kind][2](cfg, batch, dev))
+        elif slot.kind.startswith("mla"):
             m = cfg.mla
             out.append((torch.zeros((batch, s_max, m.kv_lora_rank), **kw),
                         torch.zeros((batch, s_max, m.rope_head_dim), **kw)))
@@ -426,10 +505,10 @@ def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
     attention takes the flash-kernel route (``models/attention.py``),
     which is forward only: a training forward passes explicit positions.
     Returns ``(logits, aux)``, or ``(logits, aux, {"layers": [cache, ...],
-    "enc_out": None})`` with ``return_caches`` (a layer's cache: (K, V),
-    or MLA's (c_kv, k_rope)).  ``aux`` is the sum over the MoE layers of
-    the router's auxiliary loss, in layer order as the reference sums it;
-    0 without MoE."""
+    "enc_out": None})`` with ``return_caches`` (a layer's cache is its
+    kind's, as :func:`init_cache` lists them).  ``aux`` is the sum over the
+    MoE layers of the router's auxiliary loss, in layer order as the
+    reference sums it; 0 without MoE."""
     cfg = model.cfg
     x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
     positions = batch.get("positions")
@@ -450,9 +529,9 @@ def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
 def decode_step(model: Transformer, cache: Dict[str, Any],
                 batch: Mapping[str, Any]):
     """One-token serving step.  batch: ``tokens`` (B, 1), ``cache_pos``
-    int.  The caches are updated in place.  Returns (logits, cache); the
-    MoE layers' auxiliary loss is dropped, as the reference's decode step
-    drops it."""
+    int.  Attention caches are updated in place; the recurrent layers'
+    states come back new.  Returns (logits, cache); the MoE layers'
+    auxiliary loss is dropped, as the reference's decode step drops it."""
     cfg = model.cfg
     x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
     pos = int(batch["cache_pos"])

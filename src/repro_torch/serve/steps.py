@@ -4,8 +4,9 @@ Port of ``src/repro/serve/steps.py``.  PyTorch runs eagerly, so the step
 builders return plain closures where the reference returns functions for
 ``jax.jit``.  ``extend_cache`` turns a prefill cache (KV length = prompt
 length) into a fixed-capacity decode cache (KV length = ``s_max``) by
-zero-padding every layer's sequence axis: self-attention's K/V, and MLA's
-latent ``c_kv`` and rotary key.
+zero-padding the sequence axis of the attention-family layers
+(self-attention's and ``local_attn``'s K/V, MLA's latent ``c_kv`` and
+rotary key); the recurrent layers' states pass through.
 """
 from __future__ import annotations
 
@@ -15,7 +16,8 @@ import torch
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (Transformer, check_supported,
-                                            decode_step, forward)
+                                            decode_step, forward,
+                                            is_attention, layer_slots)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
@@ -43,9 +45,12 @@ def make_decode_step(cfg: ModelConfig) -> Callable:
 
 def extend_cache(cfg: ModelConfig, prefill_cache: Dict[str, Any],
                  prompt_len: int, s_max: int) -> Dict[str, Any]:
-    """Pad each layer's cache pair along the sequence (axis 1) to ``s_max``
-    with zeros: (K, V) of (B, prompt_len, KV, D), or MLA's (c_kv, k_rope)
-    of (B, prompt_len, r) and (B, prompt_len, d_rope)."""
+    """Pad each attention-family layer's cache along the sequence (axis 1)
+    to ``s_max`` with zeros: (K, V) of (B, prompt_len, KV, D), or MLA's
+    (c_kv, k_rope) of (B, prompt_len, r) and (B, prompt_len, d_rope).  The
+    layers are chosen by their kind (:func:`layer_slots`), never by shape,
+    as the reference chooses them: a recurrent state whose dimension
+    happens to equal ``prompt_len`` passes through."""
 
     def pad(t: torch.Tensor) -> torch.Tensor:
         extra = s_max - t.shape[1]
@@ -54,7 +59,10 @@ def extend_cache(cfg: ModelConfig, prefill_cache: Dict[str, Any],
         return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
                          dim=1)
 
-    layers = [(pad(k), pad(v)) for k, v in prefill_cache["layers"]]
+    layers = [tuple(pad(t) for t in layer) if is_attention(slot.kind)
+              else layer
+              for layer, slot in zip(prefill_cache["layers"],
+                                     layer_slots(cfg))]
     return {"layers": layers, "enc_out": prefill_cache.get("enc_out")}
 
 

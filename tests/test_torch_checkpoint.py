@@ -7,7 +7,9 @@ A ``TrainState`` written by either package restores in the other bit for
 bit (``np.array_equal`` on every leaf, same dtype), and the two manifests
 agree in leaf names, shapes, dtypes and ``sha256``.  Reduced qwen3-0.6b,
 and reduced deepseek-v2-lite-16b and granite-moe-1b-a400m (two groups,
-MLA's ``kv_norm``, the 3-D expert stacks and the shared experts).
+MLA's ``kv_norm``, the 3-D expert stacks and the shared experts),
+xlstm-1.3b and recurrentgemma-9b (the recurrent blocks' flat weights and
+norms, ``local_attn`` beside RG-LRU in one superblock).
 """
 import collections
 import json
@@ -201,9 +203,21 @@ def test_checkpoints_cross_packages(tmp_path, states):
       "opt__v__groups__1__mla_moe_0__ffn__router")),
     ("granite-moe-1b-a400m",
      ("params__groups__0__attn_moe_0__ffn__w_up",
-      "opt__m__groups__0__attn_moe_0__attn__wq"))])
+      "opt__m__groups__0__attn_moe_0__attn__wq")),
+    ("xlstm-1.3b",
+     ("params__groups__0__mlstm_0__norm__scale",
+      "params__groups__0__mlstm_0__out_norm__scale",
+      "params__groups__0__mlstm_0__b_f",
+      "params__groups__0__slstm_1__r",
+      "opt__v__groups__0__slstm_1__b")),
+    ("recurrentgemma-9b",
+     ("params__groups__0__rglru_0__lam",
+      "params__groups__0__rglru_1__ffn__w_up",
+      "params__groups__0__local_attn_2__attn__wq",
+      "opt__m__groups__0__rglru_0__w_a"))])
 def test_moe_mla_checkpoints_cross_packages(tmp_path, arch, names):
-    """A train state of a reduced MoE/MLA model after one step: the
+    """A train state of a reduced MoE/MLA or recurrent model after one
+    step: the
     port's arrays equal the reference's, each package's checkpoint
     restores in the other bit for bit, the manifests agree, and a restore
     into a live state goes through the shapes-only template."""

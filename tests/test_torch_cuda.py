@@ -780,6 +780,59 @@ def test_reduced_train_step_card_matches_cpu(dev, arch):
     assert float(d.max()) <= 2 * float(hm["lr"]) * (1 + 1e-3)
 
 
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "recurrentgemma-9b"])
+def test_reduced_recurrent_forward_card_matches_cpu(dev, arch):
+    """The recurrent models reduced (float32, TF32 off) on the card and on
+    the CPU from the same weights, 2 x 64 tokens: logits within
+    ``1e-4 · max(1, max |logits|)``, and one flash launch a ``local_attn``
+    layer on the card (none for xlstm)."""
+    from repro_torch.models.transformer import is_attention, layer_slots
+
+    cfg = get_config(arch, reduced=True)
+    host = init_params(cfg, seed=0, device="cpu")
+    card = init_params(cfg, seed=0, device="cpu").to(dev)
+    toks = torch.as_tensor(np.random.default_rng(11).integers(
+        0, cfg.vocab_size, (2, 64)), dtype=torch.int32)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        got, _ = forward(card, {"tokens": toks.to(dev)})
+        want, _ = forward(host, {"tokens": toks})
+    torch.cuda.synchronize()
+    n_attn = sum(is_attention(s.kind) for s in layer_slots(cfg))
+    assert flash_attention.launches == before + n_attn
+    atol = 1e-4 * max(1.0, float(want.abs().max()))
+    torch.testing.assert_close(got.cpu(), want, rtol=0, atol=atol)
+
+
+def test_griffin_prefill_launches_flash_per_local_attn_layer(dev):
+    """recurrentgemma at 5 layers (a ``griffin`` superblock and the
+    ``griffin_rem`` pair), bf16 compute: a prefill launches the bf16
+    kernel once, for its one ``local_attn`` layer, at the layer's window;
+    the decode steps after it launch none."""
+    import dataclasses
+
+    from repro_torch.serve.steps import (extend_cache, make_decode_step,
+                                         make_prefill_step)
+
+    cfg = dataclasses.replace(get_config("recurrentgemma-9b", reduced=True),
+                              n_layers=5, compute_dtype="bfloat16")
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.as_tensor(np.random.default_rng(12).integers(
+        0, cfg.vocab_size, (2, 40)), dtype=torch.int32, device=dev)
+    before = flash_attention.launches
+    with torch.inference_mode():
+        logits, cache = make_prefill_step(cfg)(model, {"tokens": toks})
+        assert flash_attention.launches == before + 1
+        cache = extend_cache(cfg, cache, 40, 44)
+        decode = make_decode_step(cfg)
+        for i in range(40, 43):
+            logits, cache = decode(model, cache, {"tokens": toks[:, :1],
+                                                  "cache_pos": i})
+    torch.cuda.synchronize()
+    assert flash_attention.launches == before + 1
+    assert torch.isfinite(logits).all()
+
+
 @pytest.mark.parametrize("capacity_factor", [1.25, 16.0])
 def test_moe_apply_card_matches_cpu(dev, capacity_factor):
     """The MoE FFN (reduced deepseek, float32, TF32 off) on the card and

@@ -34,7 +34,7 @@ from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.steps import extend_cache as jax_extend_cache
 from repro_torch.configs import PORTED, get_config
 from repro_torch.models import transformer as ttf
-from repro_torch.models.config import MoEConfig, RGLRUConfig, XLSTMConfig
+from repro_torch.models.config import MoEConfig
 from repro_torch.serve import steps as tsteps
 from repro_torch.serve.engine import Request, ServeEngine
 
@@ -91,7 +91,7 @@ def test_get_config_loads_the_ports_modules():
     assert type(cfg).__module__ == "repro_torch.models.config"
     assert sys.modules["repro_torch.configs.qwen3_0_6b"].CONFIG is cfg
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("xlstm-1.3b")
+        get_config("whisper-small")
 
 
 def test_port_serves_with_jax_and_repro_blocked():
@@ -238,10 +238,8 @@ def test_serve_engine_rejects_params_on_another_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(xlstm=XLSTMConfig(slstm_every=2, chunk=8)),
     dict(enc_dec=True), dict(rope_kind="mrope"),
-    dict(input_kind="embeddings"),
-    dict(rglru=RGLRUConfig(d_rnn=64, attn_window=16))])
+    dict(input_kind="embeddings")])
 def test_unported_configs_raise(change):
     import dataclasses
     cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),

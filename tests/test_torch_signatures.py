@@ -582,3 +582,45 @@ def test_sample_temperature_signature_is_the_references():
     got = _params(port_steps.sample_temperature)
     assert [(p.name, p.kind, p.default) for p in got] == \
         [(p.name, p.kind, p.default) for p in want]
+
+
+# ---------------------------------------------------------------------------
+# the recurrent blocks (models/ssm.py)
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("name", ["_causal_conv", "_mlstm_chunk",
+                                  "mlstm_apply", "_slstm_cell",
+                                  "slstm_apply", "rglru_apply"])
+def test_ssm_apply_signature_is_the_references(name):
+    """The blocks' functions compute on what they are given: exactly the
+    reference's parameters."""
+    from repro.models import ssm as ref_ssm
+    from repro_torch.models import ssm as port_ssm
+
+    want = _params(getattr(ref_ssm, name))
+    got = _params(getattr(port_ssm, name))
+    assert [(p.name, p.kind, p.default) for p in got] == \
+        [(p.name, p.kind, p.default) for p in want]
+
+
+@pytest.mark.parametrize("kind", ["mlstm", "slstm", "rglru"])
+def test_ssm_allocating_signatures_add_device(kind):
+    """``*_init_cache`` allocates: the reference's parameters, then
+    ``device``.  ``*_params`` takes ``attn_params``'s convention in the
+    port, ``(cfg, gen, device)``, where the reference takes a jax key
+    first."""
+    from repro.models import ssm as ref_ssm
+    from repro_torch.models import attention as port_attn
+    from repro_torch.models import ssm as port_ssm
+
+    want = _params(getattr(ref_ssm, f"{kind}_init_cache"))
+    got = _params(getattr(port_ssm, f"{kind}_init_cache"))
+    assert [p.name for p in got] == [p.name for p in want] + ["device"]
+    assert got[-1].default is None
+    assert [p.name for p in _params(getattr(ref_ssm, f"{kind}_params"))] \
+        == ["key", "cfg"]
+    assert [(p.name, p.default)
+            for p in _params(getattr(port_ssm, f"{kind}_params"))] == \
+        [(p.name, p.default) for p in _params(port_attn.attn_params)] == \
+        [("cfg", inspect.Parameter.empty), ("gen", inspect.Parameter.empty),
+         ("device", None)]

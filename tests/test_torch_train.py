@@ -303,9 +303,11 @@ def test_train_steps_match_reference(arch, n_micro):
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
                                   "deepseek-v2-lite-16b", "glm4-9b",
-                                  "granite-34b"])
+                                  "granite-34b", "xlstm-1.3b",
+                                  "recurrentgemma-9b"])
 def test_one_train_step_matches_reference_new_archs(arch):
-    """One step of the MoE, MLA and larger dense models, in 2
+    """One step of the MoE, MLA, larger dense and recurrent models (16
+    positions a row: two chunks of reduced xlstm's mLSTM), in 2
     microbatches: loss, the MoE aux loss (> 0 with experts), gradient
     norm and lr rtol 1e-4; the weights and first moments as
     :func:`_hold_weights` holds them."""
@@ -553,10 +555,11 @@ def test_cli_prints_the_reference_lines():
 
 @pytest.mark.parametrize("arch", ["granite-moe-1b-a400m",
                                   "deepseek-v2-lite-16b", "glm4-9b",
-                                  "granite-34b"])
+                                  "granite-34b", "xlstm-1.3b",
+                                  "recurrentgemma-9b"])
 def test_cli_trains_the_new_archs(arch):
-    """``--arch`` takes the four architectures of the MoE/MLA slice; the
-    MoE models log a positive aux loss."""
+    """``--arch`` takes the four architectures of the MoE/MLA slice and
+    the two recurrent ones; the MoE models log a positive aux loss."""
     argv = ["--arch", arch, "--reduced", "--steps", "3", "--batch", "4",
             "--seq", "16", "--n-micro", "2", "--device", "cpu"]
     _, out = _quiet(tlaunch.main, argv)
