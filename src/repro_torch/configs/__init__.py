@@ -3,11 +3,8 @@
 Port of ``src/repro/configs/__init__.py``.  ``get_config(name)`` returns
 the full published config; ``get_config(name, reduced=True)`` the CPU
 smoke-test variant.  Modules load from this package
-(``repro_torch.configs.<name>``), never the reference's.  Only the archs
-the port's model runs have a module here (the dense decoders, the MoE and
-MLA models, and the recurrent xlstm-1.3b and hybrid recurrentgemma-9b);
-the others raise ``NotImplementedError`` (ROADMAP.md §1, item 10: the rest
-of the LM substrate).
+(``repro_torch.configs.<name>``), never the reference's; every one of the
+reference's ``ARCHS`` has one.
 """
 from __future__ import annotations
 
@@ -22,9 +19,6 @@ ARCHS = (
     "granite_moe_1b_a400m", "recurrentgemma_9b",
 )
 
-PORTED = ("qwen3_0_6b", "gemma3_1b", "glm4_9b", "granite_34b",
-          "granite_moe_1b_a400m", "deepseek_v2_lite_16b", "xlstm_1_3b",
-          "recurrentgemma_9b")
 
 ALIASES = {
     "qwen3-0.6b": "qwen3_0_6b", "gemma3-1b": "gemma3_1b",
@@ -49,11 +43,6 @@ def canonical(name: str) -> str:
 
 
 def get_config(name: str, reduced: bool = False) -> ModelConfig:
-    arch = canonical(name)
-    if arch in ARCHS and arch not in PORTED:
-        raise NotImplementedError(
-            f"{name}: not ported yet (ROADMAP.md §1, item 10, LM "
-            f"substrate); the port has {', '.join(PORTED)}")
-    mod = importlib.import_module(f"repro_torch.configs.{arch}")
+    mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     cfg: ModelConfig = mod.CONFIG
     return cfg.reduced() if reduced else cfg

@@ -1,9 +1,9 @@
-"""Attention blocks: GQA/MQA with qk-norm + RoPE, sliding windows,
-DeepSeek-style MLA (compressed KV), and the prefill/decode cache paths.
+"""Attention blocks: GQA/MQA with qk-norm + RoPE/M-RoPE, sliding windows,
+DeepSeek-style MLA (compressed KV), cross-attention, and the
+prefill/decode cache paths.
 
-Port of ``src/repro/models/attention.py`` (M-RoPE and cross-attention
-wait: ROADMAP.md §1, item 10).  Masking is data-driven (per-layer window
-int; -1 = global).
+Port of ``src/repro/models/attention.py``.  Masking is data-driven
+(per-layer window int; -1 = global).
 
 **The prefill route.**  The reference's own attention is jnp, and its
 docstring notes that the Pallas flash kernel handles the same masks on the
@@ -17,7 +17,13 @@ card.  Its masks are then exactly the kernel's: causal, a window of -1 or
 copied to (B·H, S, D): on the card these copies are the next cost beside
 the kernel (PERF.md).  Every other case (explicit positions, decode
 against the cache, and ``window == 0``, which means "self only" here but
-"global" in the kernel) takes :func:`_sdpa_masked`.  The route is forward
+"global" in the kernel) takes :func:`_sdpa_masked`.  M-RoPE rotates by
+its three position grids, but its mask is the 1-D ``positions``': a
+qwen2-vl prefill without ``positions`` takes the kernel whatever its
+image grid.  Cross-attention (:func:`cross_attention_apply`) attends
+S_dec queries to S_enc keys, while the kernel takes one length for both,
+as the Pallas kernel does: it always takes :func:`_sdpa_masked`, as the
+reference keeps it off the Pallas kernel.  The route is forward
 only: where autograd records and q, k or v requires grad it raises, and
 the training forward passes explicit positions.  In arithmetic the
 routes differ in summation order and in one rounding on the CPU: the
@@ -49,7 +55,7 @@ from torch import nn
 from repro_torch.kernels import ops
 
 from .config import ModelConfig
-from .layers import _param, apply_rope, dense_init, rmsnorm
+from .layers import _param, apply_mrope, apply_rope, dense_init, rmsnorm
 
 NEG_INF = -2.0e38
 
@@ -209,9 +215,14 @@ def attention_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
                     x: torch.Tensor, positions: Optional[torch.Tensor],
                     window: int,
                     cache: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
-                    cache_pos: Optional[int] = None, causal: bool = True):
+                    cache_pos: Optional[int] = None,
+                    positions3: Optional[torch.Tensor] = None,
+                    causal: bool = True):
     """Standard GQA attention over ``p`` (``wq``, ``wk``, ``wv``, ``wo``,
-    and ``q_norm`` / ``k_norm`` scales with qk-norm).
+    and ``q_norm`` / ``k_norm`` scales with qk-norm).  With
+    ``cfg.rope_kind == "mrope"``, q and k rotate by ``positions3`` (3, B,
+    S) and ``positions`` only masks; ``causal=False`` is the encoder's
+    self-attention.
 
     ``cache=(K, V)`` (capacity S_max): a decode step, x is (B, 1, d), the
     new K/V are written at ``cache_pos``.  Otherwise a prefill;
@@ -236,6 +247,9 @@ def attention_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     if cfg.rope_kind == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        q = apply_mrope(q, positions3, cfg.mrope_sections, cfg.rope_theta)
+        k = apply_mrope(k, positions3, cfg.mrope_sections, cfg.rope_theta)
 
     if cache is None:
         if flash:
@@ -337,6 +351,50 @@ def mla_apply(p: Mapping[str, torch.Tensor], cfg: ModelConfig,
     return out @ p["wo"].to(cdt), (c_kv, k_rope[:, :, 0])
 
 
+def cross_attn_params(cfg: ModelConfig, gen: torch.Generator,
+                      device=None) -> dict:
+    """Seeded init in the reference's layout: ``wq``, ``wk``, ``wv`` (d,
+    h·hd) and ``wo`` (h·hd, d); K and V have all ``n_heads`` heads."""
+    d, h, hd = cfg.d_model, cfg.n_heads, cfg.head_dim_
+    kw = dict(dtype=cfg.pdtype, device=device)
+    return {
+        "wq": dense_init(gen, (d, h * hd), **kw),
+        "wk": dense_init(gen, (d, h * hd), **kw),
+        "wv": dense_init(gen, (d, h * hd), **kw),
+        "wo": dense_init(gen, (h * hd, d), fan_in=h * hd, **kw),
+    }
+
+
+def cross_attention_apply(params: Mapping[str, torch.Tensor],
+                          cfg: ModelConfig, x: torch.Tensor,
+                          enc_out: Optional[torch.Tensor],
+                          kv_cache: Optional[Tuple[torch.Tensor,
+                                                   torch.Tensor]] = None):
+    """Decoder-to-encoder attention (whisper): x (B, S, d) attends to every
+    encoder position, unmasked.  K and V come from ``enc_out`` (B, Se, d)
+    at prefill and are returned; ``kv_cache=(xk, xv)`` (decode) reuses
+    them and ``enc_out`` is not read.  Always :func:`_sdpa_masked`, with
+    zero positions, ``causal=False`` and window -1: S != Se, and the flash
+    kernel takes one length for q and k.  Returns (out, (xk, xv))."""
+    cdt = cfg.cdtype
+    b, s, _ = x.shape
+    h, hd = cfg.n_heads, cfg.head_dim_
+    x = x.to(cdt)
+    q = (x @ params["wq"].to(cdt)).reshape(b, s, h, hd)
+    if kv_cache is not None:
+        k, v = (t.to(cdt) for t in kv_cache)
+    else:
+        e = enc_out.to(cdt)
+        se = e.shape[1]
+        k = (e @ params["wk"].to(cdt)).reshape(b, se, h, hd)
+        v = (e @ params["wv"].to(cdt)).reshape(b, se, h, hd)
+    q_pos = torch.zeros((b, s), dtype=torch.int64, device=x.device)
+    k_pos = torch.zeros((k.shape[1],), dtype=torch.int64, device=x.device)
+    out = _sdpa_masked(q, k, v, q_pos, k_pos, -1, causal=False)
+    out = out.reshape(b, s, h * hd).to(cdt)
+    return out @ params["wo"].to(cdt), (k, v)
+
+
 class Attention(nn.Module):
     """Holds one layer's attention weights (the :func:`attn_params`
     layout) and applies :func:`attention_apply`."""
@@ -346,9 +404,11 @@ class Attention(nn.Module):
         self.cfg = cfg
         self.p = nn.ParameterDict({name: _param(t) for name, t in p.items()})
 
-    def forward(self, x, positions, window, cache=None, cache_pos=None):
+    def forward(self, x, positions, window, cache=None, cache_pos=None,
+                causal=True, positions3=None):
         return attention_apply(self.p, self.cfg, x, positions, window,
-                               cache=cache, cache_pos=cache_pos)
+                               cache=cache, cache_pos=cache_pos,
+                               positions3=positions3, causal=causal)
 
 
 class MLA(nn.Module):
@@ -363,3 +423,18 @@ class MLA(nn.Module):
     def forward(self, x, positions, window, cache=None, cache_pos=None):
         return mla_apply(self.p, self.cfg, x, positions, window,
                          cache=cache, cache_pos=cache_pos)
+
+
+class CrossAttention(nn.Module):
+    """Holds one decoder layer's cross-attention weights (the
+    :func:`cross_attn_params` layout) and applies
+    :func:`cross_attention_apply`."""
+
+    def __init__(self, cfg: ModelConfig, p: Mapping[str, torch.Tensor]):
+        super().__init__()
+        self.cfg = cfg
+        self.p = nn.ParameterDict({name: _param(t) for name, t in p.items()})
+
+    def forward(self, x, enc_out, kv_cache=None):
+        return cross_attention_apply(self.p, self.cfg, x, enc_out,
+                                     kv_cache=kv_cache)

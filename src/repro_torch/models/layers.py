@@ -5,12 +5,11 @@ Port of ``src/repro/models/layers.py``.  Weights keep the reference's
 parameter tree across is a copy, not a transpose.  The functions take
 plain tensors; :class:`RMSNorm` and :class:`MLP` are the ``nn.Module``
 holders the transformer is built from.  ``constrain`` is dropped: without
-a mesh it is a no-op.  ``apply_mrope`` and ``sinusoidal_positions`` wait
-for the archs that use them (ROADMAP.md §1, item 10).
+a mesh it is a no-op.
 """
 from __future__ import annotations
 
-from typing import Mapping, Optional, Sequence
+from typing import Mapping, Optional, Sequence, Tuple
 
 import torch
 from torch import nn
@@ -83,6 +82,52 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
+
+
+def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
+                sections: Tuple[int, int, int],
+                theta: float = 1e6) -> torch.Tensor:
+    """Multimodal RoPE (qwen2-vl): x (B, S, H, D); positions3 (3, B, S).
+
+    The D/2 frequency lanes are split into (temporal, height, width)
+    sections; lane ``l`` rotates by ``positions3[sec[l]]``.  With the three
+    grids equal it is :func:`apply_rope`.
+    """
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)          # (D/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+                     for i, s in enumerate(sections)])
+    assert sec.shape[0] == d // 2, (sections, d)
+    lane_pos = positions3.float()[sec]                      # (D/2, B, S)
+    ang = torch.movedim(lane_pos, 0, -1) * freqs            # (B, S, D/2)
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def sinusoidal_positions(seq: int, d_model: int,
+                         device=None) -> torch.Tensor:
+    """(seq, d_model) float32: sin at the even columns, cos at the odd,
+    of ``pos · exp(-2i·ln(10000)/d_model)``."""
+    pos = torch.arange(seq, dtype=torch.float32, device=device)[:, None]
+    div = torch.exp(torch.arange(0, d_model, 2, dtype=torch.float32,
+                                 device=device)
+                    * neg_log_10000_over(d_model, device))
+    pe = torch.zeros((seq, d_model), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe
+
+
+def neg_log_10000_over(d_model: int, device=None) -> torch.Tensor:
+    """``-ln(10000) / d_model`` as a 0-d float32 tensor, each step
+    rounded to float32 as the reference's ``-jnp.log(10000.0) / d_model``:
+    the frequencies it scales are then the reference's to the last bit
+    before ``exp``."""
+    return -torch.log(torch.tensor(10000.0, dtype=torch.float32,
+                                   device=device)) / d_model
 
 
 # ---------------------------------------------------------------------------

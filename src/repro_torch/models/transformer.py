@@ -1,10 +1,14 @@
 """Model assembly: the layer plan, the ``Transformer`` module, forward and
 decode.
 
-Port of ``src/repro/models/transformer.py`` for the decoder-only families:
-dense, MoE (``models/moe.py``), MLA (``mla_apply``) and the recurrent and
-hybrid ones (``models/ssm.py``: xLSTM's mLSTM and sLSTM, Griffin's RG-LRU
-beside windowed ``local_attn``).  Where the reference scans each stacked
+Port of ``src/repro/models/transformer.py`` for every family: dense, MoE
+(``models/moe.py``), MLA (``mla_apply``), the recurrent and hybrid ones
+(``models/ssm.py``: xLSTM's mLSTM and sLSTM, Griffin's RG-LRU beside
+windowed ``local_attn``), the vision-language decoder (qwen2-vl: M-RoPE
+over three position grids, embedding inputs) and the encoder-decoder
+(whisper: an ``encoder`` group of ``enc_attn_mlp`` layers, then a
+``decoder`` group of ``dec_attn_mlp`` layers with cross-attention,
+sinusoidal positions on both sides).  Where the reference scans each stacked
 parameter group of its plan over its repeats (deepseek-v2-lite: a
 ``dense_head`` group of one ``mla_mlp`` layer, then ``blocks`` of
 ``mla_moe``; xlstm-1.3b: ``xlstm``, a superblock of ``mlstm_0`` ...
@@ -22,19 +26,19 @@ says where each sits in the reference's groups.  Entry points:
   :func:`named_from_arrays` for any tree that mirrors the parameters (the
   optimizer's moments, gradients) and :func:`load_arrays_` to copy such a
   tree into tensors in place;
-* :func:`forward` — tokens -> float32 logits and the summed MoE auxiliary
-  loss (+ per-layer caches with ``return_caches``), the training forward
-  too, with ``cfg.remat``'s activation checkpointing per block under
-  autograd;
+* :func:`forward` — tokens or embeddings -> float32 logits and the summed
+  MoE auxiliary loss (+ per-layer caches with ``return_caches``), the
+  training forward too, with ``cfg.remat``'s activation checkpointing per
+  block under autograd;
 * :func:`decode_step` — one token against the fixed-capacity cache.
 
 A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
-MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h) and
-RG-LRU's (h, conv).  Enc-dec, M-RoPE and embedding inputs raise
-``NotImplementedError`` (ROADMAP.md §1, item 10).  The trainer
-(``repro_torch.train``) differentiates :func:`forward` with explicit
-positions, which take ``_sdpa_masked`` as the reference's training forward
-does.
+MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's
+(h, conv), a decoder layer's (K, V, xK, xV) with the cross-attention's K
+and V at the encoder's length, and ``()`` for an encoder layer, which has
+none (the reference's ``{}`` group).  The trainer (``repro_torch.train``)
+differentiates :func:`forward` with explicit positions, which take
+``_sdpa_masked`` as the reference's training forward does.
 """
 from __future__ import annotations
 
@@ -47,13 +51,13 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device, to_host
 
-from .attention import MLA, Attention, attn_params, mla_params
+from .attention import (MLA, Attention, CrossAttention, attn_params,
+                        cross_attn_params, mla_params)
 from .config import ModelConfig
-from .layers import MLP, RMSNorm, _param, dense_init, embed, unembed
+from .layers import (MLP, RMSNorm, _param, dense_init, embed,
+                     neg_log_10000_over, sinusoidal_positions, unembed)
 from .moe import MoE, moe_params
 from . import ssm
-
-_NOT_PORTED = "not ported yet (ROADMAP.md §1, item 10, LM substrate)"
 
 # The recurrent block kinds: (module, params, zero cache) of models/ssm.py.
 RECURRENT = {"mlstm": (ssm.MLSTM, ssm.mlstm_params, ssm.mlstm_init_cache),
@@ -63,7 +67,8 @@ RECURRENT = {"mlstm": (ssm.MLSTM, ssm.mlstm_params, ssm.mlstm_init_cache),
 
 def is_attention(kind: str) -> bool:
     """The block kinds whose cache has a sequence axis: self-attention
-    (GQA, MLA) and ``local_attn``."""
+    (GQA, MLA), ``local_attn`` and the encoder-decoder's layers (an
+    encoder layer's cache is empty)."""
     return kind not in RECURRENT
 
 
@@ -92,33 +97,23 @@ class LayerSlot:
     key: str                # "<kind>_<instance>", e.g. "mla_moe_0"
     repeat: int
     kind: str               # "<mixer>_<ffn>" (attn|mla x mlp|moe), or
-                            # local_attn, mlstm, slstm, rglru
+                            # local_attn, mlstm, slstm, rglru,
+                            # enc_attn_mlp, dec_attn_mlp
     window: int
     d_ff: int               # the dense MLP's hidden width
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` for what the port's model lacks."""
-    missing = [what for what, has in (
-        ("enc_dec", cfg.enc_dec), ('rope_kind="mrope"',
-                                   cfg.rope_kind == "mrope"),
-        ('input_kind="embeddings"', cfg.input_kind != "tokens")) if has]
-    if missing:
-        raise NotImplementedError(f"{cfg.name}: {', '.join(missing)} "
-                                  f"{_NOT_PORTED}")
-
-
 def build_plan(cfg: ModelConfig) -> List[GroupSpec]:
-    """The reference's plan for the decoder-only families.  xLSTM: one
-    group ``xlstm`` of ``slstm_every - 1`` mLSTM blocks and one sLSTM,
-    ``n_layers // slstm_every`` times.  Griffin: ``griffin``, the block
+    """The reference's plan.  xLSTM: one group ``xlstm`` of ``slstm_every
+    - 1`` mLSTM blocks and one sLSTM, ``n_layers // slstm_every`` times.  Griffin: ``griffin``, the block
     pattern (RG-LRU, RG-LRU, ``local_attn`` at ``attn_window``) repeated,
     then ``griffin_rem`` with the pattern's first blocks for the layers
-    left over.  Otherwise, with MoE's ``first_dense_layers``, a
+    left over.  Enc-dec: ``encoder``, ``n_enc_layers`` of
+    ``enc_attn_mlp``, then ``decoder``, ``n_layers`` of ``dec_attn_mlp``,
+    both global.  Otherwise, with MoE's ``first_dense_layers``, a
     ``dense_head`` group of ``{mixer}_mlp`` layers at ``d_ff_override =
     dense_d_ff``; then ``blocks`` of ``{mixer}_{ffn}`` (mixer ``attn`` or
     ``mla``, ffn ``mlp`` or ``moe``) with per-layer windows."""
-    check_supported(cfg)
     if cfg.xlstm is not None:
         se = cfg.xlstm.slstm_every
         reps = cfg.n_layers // se
@@ -139,6 +134,10 @@ def build_plan(cfg: ModelConfig) -> List[GroupSpec]:
                 "griffin_rem", tuple((pat[i], 1) for i in range(rem)), 1,
                 windows=np.full((1, rem), -1, dtype=np.int32)))
         return groups
+    if cfg.enc_dec:
+        return [GroupSpec("encoder", (("enc_attn_mlp", 1),),
+                          cfg.n_enc_layers),
+                GroupSpec("decoder", (("dec_attn_mlp", 1),), cfg.n_layers)]
     mixer = "mla" if cfg.mla is not None else "attn"
     ffn = "moe" if cfg.moe is not None else "mlp"
     groups = []
@@ -172,7 +171,9 @@ def layer_slots(cfg: ModelConfig) -> List[LayerSlot]:
 
 class Block(nn.Module):
     """One layer of the plan, with this layer's window.  Attention kinds
-    (GQA, MLA, ``local_attn``): pre-norm attention, then, where the layer
+    (GQA, MLA, ``local_attn``, ``enc_attn_mlp``, ``dec_attn_mlp``):
+    pre-norm self-attention (not causal in the encoder), for a decoder
+    layer pre-norm cross-attention to ``enc_out``, then, where the layer
     has one, a pre-norm FFN (MLP or MoE).  Recurrent kinds (``mlstm``,
     ``slstm``, ``rglru``): the block of ``models/ssm.py`` (its own norms
     and residual), then for RG-LRU the pre-norm MLP where the config has a
@@ -184,6 +185,7 @@ class Block(nn.Module):
         super().__init__()
         self.kind = slot.kind
         self.window = int(slot.window)
+        self.causal = slot.kind != "enc_attn_mlp"
         self.cdtype = cfg.cdtype
         self.moe = slot.kind.endswith("_moe")
         if slot.kind in RECURRENT:
@@ -193,6 +195,10 @@ class Block(nn.Module):
             self.ln1 = RMSNorm(p["ln1"], cfg.norm_eps)
             self.attn = (MLA if slot.kind.startswith("mla")
                          else Attention)(cfg, p["attn"])
+        self.cross = None
+        if slot.kind == "dec_attn_mlp":
+            self.ln_cross = RMSNorm(p["ln_cross"], cfg.norm_eps)
+            self.cross = CrossAttention(cfg, p["cross"])
         if "ffn" in p:
             self.ln2 = RMSNorm(p["ln2"], cfg.norm_eps)
             self.ffn = MoE(cfg, p["ffn"]) if self.moe \
@@ -200,14 +206,26 @@ class Block(nn.Module):
         else:
             self.ffn = None
 
-    def forward(self, x, positions, cache=None, cache_pos=None):
+    def forward(self, x, positions, cache=None, cache_pos=None,
+                positions3=None, enc_out=None):
         if self.ssm is not None:
             x, new_cache = self.ssm(x, cache)
         else:
+            cross_cache = None
+            if self.cross is not None and cache is not None:
+                cache, cross_cache = cache[:2], cache[2:]
             h = self.ln1(x.to(self.cdtype))
+            kw = {} if self.kind.startswith("mla") else dict(
+                causal=self.causal, positions3=positions3)
             a_out, new_cache = self.attn(h, positions, self.window,
-                                         cache=cache, cache_pos=cache_pos)
+                                         cache=cache, cache_pos=cache_pos,
+                                         **kw)
             x = x + a_out.to(x.dtype)
+            if self.cross is not None:
+                h = self.ln_cross(x.to(self.cdtype))
+                c_out, cross_kv = self.cross(h, enc_out, kv_cache=cross_cache)
+                x = x + c_out.to(x.dtype)
+                new_cache = tuple(new_cache) + tuple(cross_kv)
         if self.ffn is None:
             return x, new_cache, None
         h = self.ln2(x.to(self.cdtype))
@@ -225,6 +243,8 @@ class Transformer(nn.Module):
         self.embed = _param(p["embed"])
         self.final_norm = RMSNorm(p["final_norm"], cfg.norm_eps)
         self.lm_head = _param(p["lm_head"]) if "lm_head" in p else None
+        self.enc_final_norm = RMSNorm(p["enc_final_norm"], cfg.norm_eps) \
+            if "enc_final_norm" in p else None
         self.blocks = nn.ModuleList(
             Block(cfg, bp, slot) for bp, slot in zip(p["blocks"],
                                                      layer_slots(cfg)))
@@ -263,6 +283,9 @@ def _block_init(cfg: ModelConfig, gen: Optional[torch.Generator], device,
     attn = mla_params(cfg, gen, device) if slot.kind.startswith("mla") \
         else attn_params(cfg, gen, device)
     p = {"ln1": ones, "attn": attn}
+    if slot.kind == "dec_attn_mlp":
+        p.update(ln_cross=ones.clone(),
+                 cross=cross_attn_params(cfg, gen, device))
     if ffn is not None:
         p.update(ln2=ones.clone(), ffn=ffn)
     return p
@@ -280,6 +303,8 @@ def _param_tree(cfg: ModelConfig, gen: Optional[torch.Generator],
     }
     if not cfg.tie_embeddings:
         p["lm_head"] = dense_init(gen, (cfg.padded_vocab, cfg.d_model), **kw)
+    if cfg.enc_dec:
+        p["enc_final_norm"] = torch.ones(cfg.d_model, **kw)
     p["blocks"] = [_block_init(cfg, gen, device, slot)
                    for slot in layer_slots(cfg)]
     return p
@@ -289,7 +314,6 @@ def init_params(cfg: ModelConfig, seed: int = 0,
                 device: DeviceLike = None) -> Transformer:
     """Seeded random init (an explicit ``torch.Generator`` on the target
     device; its numbers are not ``jax.random``'s)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     gen = torch.Generator(device=dev)
     gen.manual_seed(seed)
@@ -304,7 +328,6 @@ def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
     (:func:`layer_slots`).  The module is laid out on the meta device,
     allocated on ``device`` uninitialised and then loaded
     (:func:`load_arrays_`)."""
-    check_supported(cfg)
     dev = resolve_device(device)
     model = Transformer(cfg, _param_tree(cfg, None, torch.device("meta")))
     model.to_empty(device=dev)
@@ -328,7 +351,7 @@ def _slot(name: str, slots: Mapping[int, Tuple[int, str, int]]
     parts = name.split(".")
     if parts[0] == "blocks":
         layer, kind, w = int(parts[1]), parts[2], parts[-1]
-        if kind in ("ln1", "ln2"):
+        if kind in ("ln1", "ln2", "ln_cross"):
             path = (kind, "scale")
         elif kind == "attn" and w in ("q_norm", "k_norm", "kv_norm"):
             path = ("attn", w, "scale")      # blocks.i.attn.p.<norm>
@@ -339,8 +362,8 @@ def _slot(name: str, slots: Mapping[int, Tuple[int, str, int]]
         return path, slots[layer]
     if name in ("embed", "lm_head"):
         return (name, "table"), None
-    if name == "final_norm.scale":
-        return ("final_norm", "scale"), None
+    if name in ("final_norm.scale", "enc_final_norm.scale"):
+        return tuple(name.split(".")), None
     raise KeyError(f"no reference slot for parameter {name!r}")
 
 
@@ -430,10 +453,13 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
     """Per-layer zero caches, each its kind's (the reference's
     ``_block_cache``): (K, V) of (batch, s_max, KV, head_dim) for
     attention and ``local_attn``; MLA's latent ``c_kv`` (batch, s_max, r)
-    and rotary key (batch, s_max, rope); in the compute dtype.  The
-    recurrent kinds' states do not grow with ``s_max``: mLSTM's (C, n,
-    conv), sLSTM's (c, n, h), RG-LRU's (h, conv), float32 but for the
-    convs' trailing inputs (``models/ssm.py``)."""
+    and rotary key (batch, s_max, rope); a decoder layer's (K, V) and its
+    cross-attention's (xK, xV) of (batch, s_max, n_heads, head_dim), as
+    the reference allocates them; ``()`` for an encoder layer; in the
+    compute dtype.  The recurrent kinds' states do not grow with
+    ``s_max``: mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's (h,
+    conv), float32 but for the convs' trailing inputs
+    (``models/ssm.py``)."""
     dev = resolve_device(device)
     kw = dict(dtype=cfg.cdtype, device=dev)
     out = []
@@ -444,15 +470,26 @@ def init_cache(cfg: ModelConfig, batch: int, s_max: int,
             m = cfg.mla
             out.append((torch.zeros((batch, s_max, m.kv_lora_rank), **kw),
                         torch.zeros((batch, s_max, m.rope_head_dim), **kw)))
+        elif slot.kind == "enc_attn_mlp":
+            out.append(())
         else:
             shape = (batch, s_max, cfg.n_kv_heads, cfg.head_dim_)
-            out.append((torch.zeros(shape, **kw), torch.zeros(shape, **kw)))
+            kv = (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+            if slot.kind == "dec_attn_mlp":
+                shape = (batch, s_max, cfg.n_heads, cfg.head_dim_)
+                kv += (torch.zeros(shape, **kw), torch.zeros(shape, **kw))
+            out.append(kv)
     return out
 
 
 def make_cache(cfg: ModelConfig, batch: int, s_max: int,
-               device: DeviceLike = None) -> Dict[str, Any]:
-    return {"layers": init_cache(cfg, batch, s_max, device), "enc_out": None}
+               device: DeviceLike = None, *,
+               enc_out: Optional[torch.Tensor] = None) -> Dict[str, Any]:
+    """Zero caches (:func:`init_cache`) on ``device`` and the encoder's
+    output beside them: the reference's ``make_cache``, with ``enc_out``
+    keyword-only."""
+    return {"layers": init_cache(cfg, batch, s_max, device),
+            "enc_out": enc_out}
 
 
 def _head(model: Transformer, x: torch.Tensor) -> torch.Tensor:
@@ -480,66 +517,146 @@ def _dots_saveable():
     return create_selective_checkpoint_contexts(policy)
 
 
-def _run_block(blk: Block, x: torch.Tensor, positions, remat: str):
+def _run_block(blk: Block, x: torch.Tensor, positions, remat: str,
+               positions3=None, enc_out=None):
     """One block, under ``remat``'s activation checkpointing when autograd
-    records: ``"full"`` keeps only the block's input and recomputes the
-    rest in the backward pass, ``"dots"`` keeps the products without batch
+    records: ``"full"`` keeps only the block's inputs (``x``, and
+    ``positions3`` and ``enc_out`` where given) and recomputes the rest in
+    the backward pass, ``"dots"`` keeps the products without batch
     dimensions too (the reference's ``_run_group`` policies).  Returns
     ``(x, cache, aux)``."""
+    kw = dict(positions3=positions3, enc_out=enc_out)
     if remat == "none" or not torch.is_grad_enabled():
-        return blk(x, positions)
+        return blk(x, positions, **kw)
     from torch.utils.checkpoint import checkpoint
 
     if remat == "full":
-        return checkpoint(blk, x, positions, use_reentrant=False)
+        return checkpoint(blk, x, positions, use_reentrant=False, **kw)
     if remat == "dots":
         return checkpoint(blk, x, positions, use_reentrant=False,
-                          context_fn=_dots_saveable)
+                          context_fn=_dots_saveable, **kw)
     raise ValueError(f"unknown remat policy {remat!r}")
+
+
+def _inputs(model: Transformer, batch: Mapping[str, Any]) -> torch.Tensor:
+    """The decoder's input in the compute dtype: the embedded ``tokens``,
+    or ``embeds`` (B, S, d) for an embedding-input model."""
+    cfg = model.cfg
+    if cfg.input_kind == "tokens":
+        return embed(model.embed, batch["tokens"]).to(cfg.cdtype)
+    return batch["embeds"].to(cfg.cdtype)
+
+
+def _encode(model: Transformer, enc_embeds: torch.Tensor,
+            explicit_positions: bool) -> torch.Tensor:
+    """The encoder over ``enc_embeds`` (B, Se, d) plus its sinusoid, then
+    ``enc_final_norm``.  Its positions are ``arange(Se)``: given
+    explicitly when ``explicit_positions`` (the training forward's
+    differentiable route), else ``None``, the flash kernel's route."""
+    cfg = model.cfg
+    e = enc_embeds.to(cfg.cdtype)
+    b, se = e.shape[:2]
+    e = e + sinusoidal_positions(se, cfg.d_model, e.device).to(
+        cfg.cdtype)[None]
+    pos = torch.arange(se, device=e.device).expand(b, se) \
+        if explicit_positions else None
+    for blk in model.blocks:
+        if blk.kind == "enc_attn_mlp":
+            e, _, _ = _run_block(blk, e, pos, cfg.remat)
+    return model.enc_final_norm(e)
 
 
 def forward(model: Transformer, batch: Mapping[str, torch.Tensor],
             return_caches: bool = False):
-    """Prefill forward.  batch: ``tokens`` (B, S), optional ``positions``
-    (B, S); without them the positions are ``arange(S)`` and prefill
-    attention takes the flash-kernel route (``models/attention.py``),
-    which is forward only: a training forward passes explicit positions.
-    Returns ``(logits, aux)``, or ``(logits, aux, {"layers": [cache, ...],
-    "enc_out": None})`` with ``return_caches`` (a layer's cache is its
-    kind's, as :func:`init_cache` lists them).  ``aux`` is the sum over the
-    MoE layers of the router's auxiliary loss, in layer order as the
-    reference sums it; 0 without MoE."""
+    """Prefill forward.  batch: ``tokens`` (B, S), or ``embeds`` (B, S, d)
+    for an embedding-input model; optional ``positions`` (B, S);
+    ``positions3`` (3, B, S) for M-RoPE (default: ``positions`` on all
+    three grids); ``enc_embeds`` (B, Se, d) for the encoder-decoder.
+    Without ``positions`` the positions are ``arange(S)`` (the encoder's
+    ``arange(Se)``) and prefill self-attention takes the flash-kernel
+    route (``models/attention.py``), which is forward only: a training
+    forward passes explicit positions, and the encoder then gets explicit
+    ``arange(Se)`` too.  Returns ``(logits, aux)``, or ``(logits, aux,
+    {"layers": [cache, ...], "enc_out": enc_out})`` with ``return_caches``
+    (a layer's cache is its kind's, as :func:`init_cache` lists them;
+    ``enc_out`` is ``None`` but for the encoder-decoder).  ``aux`` is the
+    sum over the MoE layers of the router's auxiliary loss, in layer order
+    as the reference sums it; 0 without MoE."""
     cfg = model.cfg
-    x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
+    x = _inputs(model, batch)
+    b, s = x.shape[:2]
     positions = batch.get("positions")
+    positions3 = batch.get("positions3")
+    if cfg.rope_kind == "mrope" and positions3 is None:
+        base = positions if positions is not None \
+            else torch.arange(s, device=x.device).expand(b, s)
+        positions3 = base[None].expand(3, b, s)
+    enc_out = None
+    if cfg.enc_dec:
+        enc_out = _encode(model, batch["enc_embeds"], positions is not None)
+        x = x + sinusoidal_positions(s, cfg.d_model, x.device).to(
+            cfg.cdtype)[None]
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     caches = []
     for blk in model.blocks:
-        x, kv, a = _run_block(blk, x, positions, cfg.remat)
+        if blk.kind == "enc_attn_mlp":
+            kv, a = (), None
+        else:
+            x, kv, a = _run_block(blk, x, positions, cfg.remat, positions3,
+                                  enc_out)
         if a is not None:
             aux = aux + a
         if return_caches:
             caches.append(kv)
     logits = _head(model, x)
     if return_caches:
-        return logits, aux, {"layers": caches, "enc_out": None}
+        return logits, aux, {"layers": caches, "enc_out": enc_out}
     return logits, aux
+
+
+def _sinusoidal_at(pos, d_model: int, device=None) -> torch.Tensor:
+    """The sinusoidal embedding at one position, (d_model,) float32, in the
+    reference's decode arithmetic: the frequencies as ``exp(i · (-ln(10000)
+    / d_model) · 2)``, which :func:`sinusoidal_positions` computes in
+    another float32 order."""
+    half = d_model // 2
+    div = torch.exp(torch.arange(half, dtype=torch.float32, device=device)
+                    * neg_log_10000_over(d_model, device) * 2.0)
+    ang = torch.as_tensor(pos, dtype=torch.float32, device=device) * div
+    pe = torch.zeros((d_model,), dtype=torch.float32, device=device)
+    pe[0::2] = torch.sin(ang)
+    pe[1::2] = torch.cos(ang)
+    return pe
 
 
 def decode_step(model: Transformer, cache: Dict[str, Any],
                 batch: Mapping[str, Any]):
-    """One-token serving step.  batch: ``tokens`` (B, 1), ``cache_pos``
-    int.  Attention caches are updated in place; the recurrent layers'
-    states come back new.  Returns (logits, cache); the MoE layers'
-    auxiliary loss is dropped, as the reference's decode step drops it."""
+    """One-token serving step.  batch: ``tokens`` (B, 1) or ``embeds`` (B,
+    1, d), ``cache_pos`` int, optional ``positions3`` (3, B, 1) (default:
+    ``cache_pos`` on all three grids) and ``enc_out`` (default: the
+    cache's).  A decoder layer attends to the cross K/V its cache holds.
+    Attention caches are updated in place; the recurrent layers' states
+    come back new.  Returns (logits, cache); the MoE layers' auxiliary
+    loss is dropped, as the reference's decode step drops it."""
     cfg = model.cfg
-    x = embed(model.embed, batch["tokens"]).to(cfg.cdtype)
+    x = _inputs(model, batch)
     pos = int(batch["cache_pos"])
     b = x.shape[0]
     positions = torch.full((b, 1), pos, dtype=torch.int64, device=x.device)
+    enc_out = batch.get("enc_out")
+    if enc_out is None:
+        enc_out = cache.get("enc_out")
+    positions3 = batch.get("positions3")
+    if cfg.rope_kind == "mrope" and positions3 is None:
+        positions3 = positions[None].expand(3, b, 1)
+    if cfg.enc_dec:
+        x = x + _sinusoidal_at(pos, cfg.d_model, x.device).to(
+            cfg.cdtype)[None, None]
     new_layers = []
     for blk, kv in zip(model.blocks, cache["layers"]):
-        x, kv, _ = blk(x, positions, cache=kv, cache_pos=pos)
+        if blk.kind != "enc_attn_mlp":
+            x, kv, _ = blk(x, positions, cache=kv, cache_pos=pos,
+                           positions3=positions3, enc_out=enc_out)
         new_layers.append(kv)
     return _head(model, x), {"layers": new_layers,
                              "enc_out": cache.get("enc_out")}

@@ -45,8 +45,11 @@ class ServeEngine:
                  params: Optional[Transformer] = None, max_batch: int = 8,
                  prompt_len: int = 32, s_max: int = 128, seed: int = 0,
                  device: DeviceLike = None):
-        if cfg.input_kind != "tokens":
-            raise NotImplementedError("the engine serves token models")
+        if cfg.input_kind != "tokens" or cfg.enc_dec:
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves token decoders; serve "
+                f"embedding-input and encoder-decoder models through "
+                f"make_prefill_step, extend_cache and make_decode_step")
         # "cuda" resolved to its index, as the params' tensors report it
         self.device = torch.empty(0, device=resolve_device(device)).device
         self.cfg = cfg

@@ -6,7 +6,8 @@ builders return plain closures where the reference returns functions for
 length) into a fixed-capacity decode cache (KV length = ``s_max``) by
 zero-padding the sequence axis of the attention-family layers
 (self-attention's and ``local_attn``'s K/V, MLA's latent ``c_kv`` and
-rotary key); the recurrent layers' states pass through.
+rotary key); the recurrent layers' states, and a decoder layer's
+cross-attention K/V, pass through.
 """
 from __future__ import annotations
 
@@ -15,15 +16,15 @@ from typing import Any, Callable, Dict
 import torch
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (Transformer, check_supported,
-                                            decode_step, forward,
-                                            is_attention, layer_slots)
+from repro_torch.models.transformer import (Transformer, decode_step,
+                                            forward, is_attention,
+                                            layer_slots)
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill_step(model, batch) -> (logits, cache_dict); batch: tokens
-    (B, S), optional positions (B, S)."""
-    check_supported(cfg)
+    (B, S) | embeds (B, S, d), optional positions (B, S) (+ positions3 /
+    enc_embeds)."""
 
     def prefill_step(model: Transformer, batch):
         logits, _aux, caches = forward(model, batch, return_caches=True)
@@ -34,8 +35,7 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """decode_fn(model, cache, batch) -> (logits, new_cache); batch: tokens
-    (B, 1), cache_pos int."""
-    check_supported(cfg)
+    (B, 1) | embeds (B, 1, d), cache_pos int."""
 
     def decode_fn(model: Transformer, cache, batch):
         return decode_step(model, cache, batch)
@@ -50,7 +50,10 @@ def extend_cache(cfg: ModelConfig, prefill_cache: Dict[str, Any],
     (c_kv, k_rope) of (B, prompt_len, r) and (B, prompt_len, d_rope).  The
     layers are chosen by their kind (:func:`layer_slots`), never by shape,
     as the reference chooses them: a recurrent state whose dimension
-    happens to equal ``prompt_len`` passes through."""
+    happens to equal ``prompt_len`` passes through.  So do a decoder
+    layer's slots 2 and 3, its cross-attention K/V, chosen by slot index:
+    they keep the encoder's length even where it equals ``prompt_len``,
+    since zero keys would take softmax mass."""
 
     def pad(t: torch.Tensor) -> torch.Tensor:
         extra = s_max - t.shape[1]
@@ -59,8 +62,13 @@ def extend_cache(cfg: ModelConfig, prefill_cache: Dict[str, Any],
         return torch.cat([t, t.new_zeros((t.shape[0], extra) + t.shape[2:])],
                          dim=1)
 
-    layers = [tuple(pad(t) for t in layer) if is_attention(slot.kind)
-              else layer
+    def grown(layer, kind):
+        if not is_attention(kind):
+            return layer
+        n_self = 2 if kind == "dec_attn_mlp" else len(layer)
+        return tuple(pad(t) for t in layer[:n_self]) + tuple(layer[n_self:])
+
+    layers = [grown(layer, slot.kind)
               for layer, slot in zip(prefill_cache["layers"],
                                      layer_slots(cfg))]
     return {"layers": layers, "enc_out": prefill_cache.get("enc_out")}

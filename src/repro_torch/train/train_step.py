@@ -13,9 +13,9 @@ donates it.
 
 The training forward passes explicit positions ``arange(S)``, which take
 ``_sdpa_masked``, as the reference's training forward does: the flash
-kernel is forward only.  The sharded step (``micro_batch_axes``) and the
-batches of the model families that wait (``positions3``, ``embeds``)
-raise ``NotImplementedError`` (ROADMAP.md §1, item 10).
+kernel is forward only; an encoder-decoder's encoder gets explicit
+``arange(S_enc)`` with them.  The sharded step (``micro_batch_axes``)
+raises ``NotImplementedError`` (ROADMAP.md §1, item 10).
 """
 from __future__ import annotations
 
@@ -58,11 +58,8 @@ def lm_loss(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
 def _shift_batch(batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     """inputs = tokens[:, :-1]; labels = tokens[:, 1:] (token models);
     embedding-input models carry explicit labels."""
-    unported = sorted({"positions3", "embeds"} & set(batch))
-    if cfg.input_kind != "tokens" or unported:
-        raise NotImplementedError(
-            f"{cfg.name}: a batch with {unported or 'embedding inputs'} "
-            f"{_NOT_PORTED}")
+    if cfg.input_kind != "tokens":
+        return batch, batch["labels"]
     toks = batch["tokens"]
     inp = dict(batch, tokens=toks[:, :-1])
     if "positions" in batch:
@@ -75,10 +72,13 @@ def make_loss_fn(cfg: ModelConfig):
         inp, labels = _shift_batch(batch, cfg)
         if "positions" not in inp:
             # explicit arange positions: the differentiable attention route
-            b, s = inp["tokens"].shape
-            inp["positions"] = torch.arange(
-                s, device=inp["tokens"].device).expand(b, s)
+            x = inp["tokens"] if cfg.input_kind == "tokens" else inp["embeds"]
+            b, s = x.shape[:2]
+            inp = dict(inp, positions=torch.arange(
+                s, device=x.device).expand(b, s))
         logits, aux = forward(params, inp)
+        if cfg.input_kind != "tokens":
+            labels = labels[:, :logits.shape[1]]
         loss = lm_loss(logits, labels, cfg.vocab_size, cfg.z_loss)
         return loss + aux, (loss, aux)
     return loss_fn
@@ -106,11 +106,15 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, n_micro: int = 1,
         params = list(named.values())
         micro = {}
         for k, v in batch.items():
-            b = v.shape[0]
+            # positions3 (3, B, S) has the batch on axis 1
+            ax = 1 if k == "positions3" else 0
+            b = v.shape[ax]
             if b % n_micro:
                 raise ValueError(f"batch {b} does not split into {n_micro} "
                                  f"microbatches")
-            micro[k] = v.reshape((n_micro, b // n_micro) + v.shape[1:])
+            m = v.reshape(v.shape[:ax] + (n_micro, b // n_micro)
+                          + v.shape[ax + 1:])
+            micro[k] = m.movedim(ax, 0)
         zero = torch.zeros((), dtype=torch.float32, device=model.device)
         grads = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
                  for p in params]

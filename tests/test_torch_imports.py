@@ -69,7 +69,9 @@ def test_port_imports_with_jax_blocked():
             "repro_torch.configs.granite_moe_1b_a400m, "
             "repro_torch.configs.deepseek_v2_lite_16b, "
             "repro_torch.models.ssm, repro_torch.configs.xlstm_1_3b, "
-            "repro_torch.configs.recurrentgemma_9b; "
+            "repro_torch.configs.recurrentgemma_9b, "
+            "repro_torch.configs.qwen2_vl_2b, "
+            "repro_torch.configs.whisper_small; "
             "print('ok')")
     env = dict(os.environ, PYTHONPATH=os.path.join(_ROOT, "src"))
     out = subprocess.run([sys.executable, "-c", code], capture_output=True,

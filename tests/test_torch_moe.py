@@ -29,7 +29,7 @@ from repro.configs import get_config as jax_get_config
 from repro.models import moe as jmoe
 from repro.models import transformer as jtf
 from repro.serve.steps import extend_cache as jax_extend_cache
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import ARCHS, get_config
 from repro_torch.models import moe as tmoe
 from repro_torch.models import transformer as ttf
 from repro_torch.serve import steps as tsteps
@@ -163,7 +163,7 @@ def _models(arch, seed=0, **moe_changes):
     return jcfg, tcfg, jp, model
 
 
-@pytest.mark.parametrize("arch", sorted(PORTED))
+@pytest.mark.parametrize("arch", sorted(ARCHS))
 def test_layer_slots_follow_the_reference_plan(arch):
     """The module's layers sit in the reference's groups as its plan says:
     the plan's groups, the layers' windows, and the parameter tree the

@@ -32,7 +32,8 @@ from repro.models import transformer as jtf
 from repro.serve.engine import Request as JRequest
 from repro.serve.engine import ServeEngine as JServeEngine
 from repro.serve.steps import extend_cache as jax_extend_cache
-from repro_torch.configs import PORTED, get_config
+from repro_torch.configs import ARCHS as PORT_ARCHS
+from repro_torch.configs import get_config
 from repro_torch.models import transformer as ttf
 from repro_torch.models.config import MoEConfig
 from repro_torch.serve import steps as tsteps
@@ -57,7 +58,7 @@ def test_configs_equal_reference():
     field (``dataclasses.asdict``, the MoE and MLA sub-configs too)."""
     import dataclasses
 
-    for arch in PORTED:
+    for arch in PORT_ARCHS:
         for reduced in (False, True):
             j = jax_get_config(arch, reduced=reduced)
             t = get_config(arch, reduced=reduced)
@@ -87,11 +88,15 @@ def test_serve_package_exports(name):
 
 
 def test_get_config_loads_the_ports_modules():
-    cfg = get_config("qwen3-0.6b")
-    assert type(cfg).__module__ == "repro_torch.models.config"
-    assert sys.modules["repro_torch.configs.qwen3_0_6b"].CONFIG is cfg
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_config("whisper-small")
+    """Every one of the reference's ten archs loads the port's own module,
+    whisper-small and qwen2-vl-2b among them."""
+    from repro.configs import ARCHS as REF_ARCHS
+
+    assert PORT_ARCHS == REF_ARCHS
+    for arch in PORT_ARCHS:
+        cfg = get_config(arch)
+        assert type(cfg).__module__ == "repro_torch.models.config"
+        assert sys.modules[f"repro_torch.configs.{arch}"].CONFIG is cfg
 
 
 def test_port_serves_with_jax_and_repro_blocked():
@@ -238,16 +243,49 @@ def test_serve_engine_rejects_params_on_another_device():
 
 
 @pytest.mark.parametrize("change", [
-    dict(enc_dec=True), dict(rope_kind="mrope"),
+    dict(enc_dec=True, n_enc_layers=2),
+    dict(rope_kind="mrope", mrope_sections=(2, 3, 3)),
     dict(input_kind="embeddings")])
 def test_unported_configs_raise(change):
+    """The three changes to qwen3's reduced config that were refused until
+    the encoder-decoder, M-RoPE and embedding inputs were ported now build
+    in both packages, and the port's prefill logits and caches match the
+    reference's forward within 2e-4."""
     import dataclasses
-    cfg = dataclasses.replace(get_config("qwen3-0.6b", reduced=True),
-                              **change)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ttf.init_params(cfg, 0, "cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tsteps.make_prefill_step(cfg)
+
+    jcfg, tcfg = (dataclasses.replace(get(
+        "qwen3-0.6b", reduced=True), **change)
+        for get in (jax_get_config, get_config))
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(4))
+    model = ttf.params_from_arrays(tcfg, jax.tree.map(np.asarray, jp),
+                                   "cpu")
+    assert ttf.count_params(model) == jtf.count_params(jp)
+    rng = np.random.default_rng(4)
+    batch = {"tokens": rng.integers(0, tcfg.vocab_size, (2, 10)).astype(
+        np.int32)}
+    if tcfg.input_kind == "embeddings":
+        batch = {"embeds": rng.normal(size=(2, 10, tcfg.d_model)).astype(
+            np.float32)}
+    if tcfg.enc_dec:
+        batch["enc_embeds"] = rng.normal(size=(2, 7, tcfg.d_model)).astype(
+            np.float32)
+    if tcfg.rope_kind == "mrope":
+        p3 = np.broadcast_to(np.arange(10, dtype=np.int32), (3, 2, 10))
+        batch["positions3"] = p3 + np.arange(3, dtype=np.int32)[:, None,
+                                                                None]
+    want, _, jc = jtf.forward(jp, jcfg, {k: jnp.asarray(v)
+                                         for k, v in batch.items()},
+                              return_caches=True)
+    got, tc = tsteps.make_prefill_step(tcfg)(
+        model, {k: torch.from_numpy(v) for k, v in batch.items()})
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    for layer, slot in zip(tc["layers"], ttf.layer_slots(tcfg)):
+        ref = jc["layers"][slot.group]
+        ref = ref[slot.key] if ref else ()
+        assert len(layer) == len(ref)
+        for a, b in zip(layer, ref):
+            np.testing.assert_allclose(a.numpy(), np.asarray(b[slot.repeat]),
+                                       **TOL)
 
 
 def test_moe_on_a_dense_config_builds_and_matches_jax():

@@ -502,6 +502,39 @@ def test_init_train_state_takes_seed_and_device():
     assert got[-1].default is None
 
 
+def _lm_entry_points():
+    from repro.models import attention as ref_attention
+    from repro.models import layers as ref_layers
+    from repro.models import transformer as ref_transformer
+    from repro_torch.models import attention, layers, transformer
+
+    return [
+        (ref_layers.apply_mrope, layers.apply_mrope, 0, []),
+        (ref_layers.sinusoidal_positions, layers.sinusoidal_positions, 0,
+         ["device"]),
+        (ref_attention.cross_attention_apply, attention.cross_attention_apply,
+         0, []),
+        # the port names the parameter dict ``p``
+        (ref_attention.attention_apply, attention.attention_apply, 1, []),
+        (ref_transformer._sinusoidal_at, transformer._sinusoidal_at, 0,
+         ["device"]),
+    ]
+
+
+@pytest.mark.parametrize("i", range(5))
+def test_lm_entry_points_take_the_references_parameters(i):
+    """The M-RoPE, sinusoid and cross-attention entry points (and
+    ``attention_apply`` with ``positions3`` before ``causal``) take the
+    reference's parameters in its order, defaults and kinds included, with
+    a trailing ``device`` where they allocate."""
+    ref, port, skip, added = _lm_entry_points()[i]
+    want, got = _params(ref)[skip:], _params(port)[skip:]
+    assert [p.name for p in got] == [p.name for p in want] + added
+    for a, b in zip(want, got):
+        assert a.kind == b.kind and _same_default(a, b), a.name
+    assert all(p.default is None for p in got[len(want):])
+
+
 def test_trainer_packages_export_the_reference_names():
     assert port_train.__all__ == ref_train.__all__
     assert port_checkpoint.__all__ == ref_checkpoint.__all__
@@ -520,20 +553,56 @@ def _trainer_refusal(case, tmp_path):
             cfg=cfg, mesh_shape=(2, 2), device="cpu"))
     elif case == "micro_batch_axes":
         port_train.make_train_step(cfg, opt, micro_batch_axes=("data",))
-    elif case in ("restore", "restore_latest_valid"):
+    else:
         ckpt = port_checkpoint.Checkpointer(str(tmp_path))
         tree = {"w": np.zeros(3, dtype=np.float32)}
         ckpt.save(0, tree)
         getattr(ckpt, case)(tree, shardings={"w": None})
-    else:
-        import torch
 
-        state = port_train.init_train_state(cfg, opt, seed=0, device="cpu")
-        toks = torch.zeros((2, 9), dtype=torch.int32)
-        extra = (torch.zeros((3, 2, 9), dtype=torch.int32)
-                 if case == "positions3" else torch.zeros((2, 9, 64)))
-        port_train.make_train_step(cfg, opt)(state, {"tokens": toks,
-                                                     case: extra})
+
+def _embedding_batch_step(case):
+    """One train step of reduced qwen2-vl-2b in 2 microbatches on an
+    ``embeds`` + ``labels`` batch (with an image-grid ``positions3`` in
+    the ``positions3`` case), in both packages from the reference's
+    weights; returns both metrics."""
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.configs import get_config as jax_get_config
+    from repro.models import transformer as jtf
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jts
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as ttf
+
+    jcfg = jax_get_config("qwen2-vl-2b", reduced=True)
+    tcfg = get_config("qwen2-vl-2b", reduced=True)
+    rng = np.random.default_rng(7)
+    b, s = 4, 12
+    batch = {"embeds": rng.normal(size=(b, s, tcfg.d_model)).astype(
+                 np.float32),
+             "labels": rng.integers(0, tcfg.vocab_size, (b, s)).astype(
+                 np.int32)}
+    if case == "positions3":
+        p3 = np.broadcast_to(np.arange(s, dtype=np.int32), (3, b, s)).copy()
+        p3[1, :, 2:8] = 2 + np.arange(6) // 3       # a 2 x 3 image grid
+        p3[2, :, 2:8] = 2 + np.arange(6) % 3
+        p3[:, :, 8:] -= 3
+        batch["positions3"] = p3
+    jp = jtf.init_params(jcfg, jax.random.PRNGKey(3))
+    jo = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    _, jm = jax.jit(jts.make_train_step(jcfg, jo, n_micro=2))(
+        jts.TrainState(params=jp, opt=jo.init(jp)),
+        {k: jnp.asarray(v) for k, v in batch.items()})
+    model = ttf.params_from_arrays(tcfg, jax.tree.map(np.asarray, jp),
+                                   "cpu").requires_grad_(True)
+    to = port_train.AdamW(lr=port_train.warmup_cosine(1e-3, 2, 10))
+    _, tm = port_train.make_train_step(tcfg, to, n_micro=2)(
+        port_train.TrainState(params=model,
+                              opt=to.init(dict(model.named_parameters()))),
+        {k: torch.from_numpy(v) for k, v in batch.items()})
+    return jm, tm
 
 
 @pytest.mark.parametrize("case", ["mesh_shape", "micro_batch_axes",
@@ -541,8 +610,16 @@ def _trainer_refusal(case, tmp_path):
                                   "positions3", "embeds"])
 def test_trainer_refusals_name_item_10(case, tmp_path):
     """The sharded trainer (a mesh, pinned microbatch axes, restoring onto
-    shardings) and the batches of the model families that wait raise
-    ``NotImplementedError`` naming ROADMAP.md §1 item 10."""
+    shardings) raises ``NotImplementedError`` naming ROADMAP.md §1 item
+    10.  The batches refused until qwen2-vl was ported, ``embeds`` and
+    ``positions3``, now train: one step's loss and gradient norm equal
+    the reference's within 1e-5 relative."""
+    if case in ("positions3", "embeds"):
+        jm, tm = _embedding_batch_step(case)
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-5, err_msg=k)
+        return
     with pytest.raises(NotImplementedError, match=r"item 10\b"):
         _trainer_refusal(case, tmp_path)
 

@@ -352,17 +352,31 @@ def test_grad_accum_is_a_rebracketing():
 
 
 def test_train_step_refusals_name_item_10():
-    cfg = get_config("qwen3_0_6b", reduced=True)
+    """The sharded step (``micro_batch_axes``) raises naming item 10.  A
+    token model's batch carrying ``positions3`` or ``embeds``, refused
+    until qwen2-vl was ported, now trains as the reference's does, which
+    reads neither for a token model: loss and gradient norm rtol 1e-5."""
+    jcfg, cfg, jp, _ = _carried("qwen3-0.6b")
     opt = topt.AdamW(lr=topt.warmup_cosine(1e-3, 2, 10))
     with pytest.raises(NotImplementedError, match="item 10"):
         tts.make_train_step(cfg, opt, micro_batch_axes=("data",))
+    jo = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    jstep = jts.make_train_step(jcfg, jo)
     step = tts.make_train_step(cfg, opt)
-    state = tts.init_train_state(cfg, opt, seed=0, device="cpu")
-    toks = torch.from_numpy(_tokens(cfg, 2, 9, 0))
-    for extra in ({"positions3": torch.zeros((3, 2, 9), dtype=torch.int32)},
-                  {"embeds": torch.zeros((2, 9, cfg.d_model))}):
-        with pytest.raises(NotImplementedError, match="item 10"):
-            step(state, dict(extra, tokens=toks))
+    toks = _tokens(cfg, 2, 9, 0)
+    rng = np.random.default_rng(0)
+    for extra in ({"positions3": rng.integers(0, 9, (3, 2, 9)).astype(
+                      np.int32)},
+                  {"embeds": rng.normal(size=(2, 9, cfg.d_model)).astype(
+                      np.float32)}):
+        batch = dict(extra, tokens=toks)
+        _, jm = jstep(jts.TrainState(params=jp, opt=jo.init(jp)),
+                      {k: jnp.asarray(v) for k, v in batch.items()})
+        _, tm = step(_port_state(cfg, jp, opt),
+                     {k: torch.from_numpy(v) for k, v in batch.items()})
+        for k in ("loss", "grad_norm"):
+            np.testing.assert_allclose(float(tm[k]), float(jm[k]),
+                                       rtol=1e-5, err_msg=f"{k} {extra}")
 
 
 def test_init_train_state_is_seeded_and_trainable():
