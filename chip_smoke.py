@@ -67,13 +67,14 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    thread writes, a verified ``restore`` of that checkpoint, every leaf
    equal to what was saved bit for bit, the seconds and bytes of each
    part (``train_checkpoint``).
-   One step of the same model in float32 compute (TF32 off) on 1 x 65
+   One step of the same model cut to 4 of its 28 layers
+   (``TRAIN_VS_CPU_LAYERS``) in float32 compute (TF32 off) on 1 x 65
    tokens on the card and on the CPU from the card's weights: loss and
    gradient norm within 1e-4 relative, the updated weights as
    ``TRAIN_*_TOL`` states (``train_card_vs_cpu``).  Then
-   ``examples/train_lm.py``'s run (reduced qwen3, 300 steps of 16 x 64,
-   checkpoints every 100): its gate ``final < first - 0.5``, and
-   ``run(restore=True)`` to 310 steps resuming at step 300
+   ``examples/train_lm.py``'s run cut from 300 steps to 100 (reduced
+   qwen3, 16 x 64, checkpoints every 50): its gate ``final < first -
+   0.5``, and ``run(restore=True)`` to 110 steps resuming at step 100
    (``train_learning``).  The phase frees its memory before the PH
    phases.
 6b. ``lm_archs`` — the four architectures of the MoE/MLA slice at their
@@ -106,6 +107,25 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    Then one step of its reduced copy (float32, 4 x 65 tokens, 2 microbatches)
    on the card and on the CPU under ``train_card_vs_cpu``'s gates
    (``train_moe_card_vs_cpu``).
+6f. ``train_mesh`` — the sharded trainer over the port's ``Mesh``
+   (``MESH_*``), run after ``train_moe``: full-width qwen3-0.6b (float32
+   parameters, bf16 compute) with ``TrainJob(mesh_shape=(4, 2))`` over
+   ``["cuda:0"] * 8``, 3 steps of 8 x 512 tokens in 2 microbatches (one
+   sequence a data entry, heads and MLP split in two), a checkpoint at
+   every step (``save_async``), ``tda_monitor`` at step 0 (the counts set
+   to 0 just before ``run``: one bf16 flash launch a layer and the PH
+   kernels); then ``run(restore=True)`` on a (2, 2) mesh for 2 more steps.
+   Beside it the unmeshed step at the same shape from the same seed.
+   Printed: step s, tokens/s, peak bytes, the largest entry's bytes of
+   parameters and moments, each collective's count and bytes a step, the
+   restore's seconds, each number beside the card's name and power limit.
+   Gates: finite losses, the first meshed loss within 1e-2 of the
+   unmeshed one, the restored run resuming at step 3, the peak under 60
+   GB.  Then full-width granite-moe-1b-a400m on (4, 2), 2 steps
+   (``train_mesh_moe``: aux loss > 0, ``_moe_a2a`` on every MoE layer of
+   every microbatch); and each reduced copy (qwen3, gemma3, granite-moe)
+   meshed on the card against meshed on the CPU in float32 under
+   ``train_card_vs_cpu``'s gates (``train_mesh_card_vs_cpu``).
 6d. ``ssm_archs`` — the recurrent blocks (``repro_torch.models.ssm``):
    xlstm-1.3b (42 mLSTM, 6 sLSTM; 8 slots of 1,024-2,048 tokens
    left-padded to 2,048) and recurrentgemma-9b (26 RG-LRU, 12
@@ -300,7 +320,8 @@ are timed beside it.
 Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
 ``mesh_path``, ``serve_ph``, ``resilience``, the training run, each
-``lm_archs`` architecture, ``train_moe``, each ``ssm_archs`` and each
+``lm_archs`` architecture, ``train_moe``, ``train_mesh``'s qwen3 run,
+each ``ssm_archs`` and each
 ``vlm_audio`` architecture) and, last, ``{"ok": true,
 "device": ...}``.  Any failed
 check raises and the script exits non-zero; without a card it exits 2,
@@ -2902,8 +2923,16 @@ TRAIN_MAX_PEAK = 60e9
 TRAIN_REL_TOL = 1e-4
 TRAIN_P999_TOL = 1e-6
 TRAIN_MEDIAN_TOL = 1e-7
-# examples/train_lm.py's learning run and its gate
-LEARN_STEPS, LEARN_BATCH, LEARN_SEQ, LEARN_RESUME_TO = 300, 16, 64, 310
+# examples/train_lm.py's learning run and its gate, cut from 300 steps to
+# 100 (and its resume from 310 to 110) to leave the script room for
+# train_mesh: on an H100 the loss fell from 9.24 to 1.04 in 300 steps and
+# to 1.02 in 100, against the gate's drop of 0.5
+LEARN_STEPS, LEARN_BATCH, LEARN_SEQ, LEARN_RESUME_TO = 100, 16, 64, 110
+LEARN_CKPT_EVERY = 50
+# The full-width card-against-CPU step, cut in depth from 28 layers to 4
+# to leave the script room for train_mesh (the host CPU of an H100 machine
+# took 15.5 s for the step of 28 layers, 3.2 s for 4)
+TRAIN_VS_CPU_LAYERS = 4
 
 
 def op_group(name: str) -> str:
@@ -3205,10 +3234,11 @@ def train_card_vs_cpu(dev, cfg, tokens=(1, 65), n_micro: int = 1,
 
 def train_learning(dev) -> dict:
     """``examples/train_lm.py``'s run on the card (reduced qwen3: 4 layers,
-    d_model 256, 8 heads, d_ff 1,024, vocab 512; 300 steps of 16 x 64,
-    n_micro 2, lr 1e-3, warmup 30), checkpointing every 100 steps; its gate
-    ``final < first - 0.5``; then ``run(restore=True)`` to 310 steps must
-    resume at step 300."""
+    d_model 256, 8 heads, d_ff 1,024, vocab 512; ``LEARN_STEPS`` steps of
+    16 x 64, n_micro 2, lr 1e-3, warmup 30), checkpointing every
+    ``LEARN_CKPT_EVERY`` steps; its gate ``final < first - 0.5``; then
+    ``run(restore=True)`` to ``LEARN_RESUME_TO`` steps must resume at step
+    ``LEARN_STEPS``."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -3219,7 +3249,8 @@ def train_learning(dev) -> dict:
     with tempfile.TemporaryDirectory() as tmp:
         job = TrainJob(cfg=cfg, steps=LEARN_STEPS, global_batch=LEARN_BATCH,
                        seq_len=LEARN_SEQ, n_micro=2, lr=1e-3, warmup=30,
-                       ckpt_dir=tmp, ckpt_every=100, log_every=20,
+                       ckpt_dir=tmp, ckpt_every=LEARN_CKPT_EVERY,
+                       log_every=20,
                        device=dev)
         with contextlib.redirect_stdout(io.StringIO()):
             out = run(job)
@@ -3252,7 +3283,8 @@ def train(dev) -> dict:
     t2 = time.perf_counter()
     del state, step_fn
     torch.cuda.empty_cache()
-    versus = train_card_vs_cpu(dev, cfg)
+    versus = train_card_vs_cpu(dev, dataclasses.replace(
+        cfg, n_layers=TRAIN_VS_CPU_LAYERS))
     t3 = time.perf_counter()
     torch.cuda.empty_cache()
     learn = train_learning(dev)
@@ -4114,6 +4146,298 @@ def train_moe(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6f: the sharded trainer over the port's Mesh
+# ---------------------------------------------------------------------------
+
+# (a) full-width qwen3-0.6b on a (data 4, model 2) mesh of one card's
+# entries: 8 x 512 tokens a step in 2 microbatches, so each microbatch is 4
+# sequences, one a data entry, with heads and MLP split in two; a
+# checkpoint at every step; then restored onto (2, 2) for 2 more steps.
+# (b) full-width granite-moe-1b-a400m on (4, 2), _moe_a2a on every MoE
+# layer.  (c) the reduced copies, meshed, card against CPU in float32.
+MESH_ARCH, MESH_MOE_ARCH = "qwen3-0.6b", "granite-moe-1b-a400m"
+MESH_SHAPE, MESH_REMESH = (4, 2), (2, 2)
+MESH_BATCH, MESH_SEQ, MESH_MICRO = 8, 512, 2
+MESH_STEPS, MESH_MORE, MESH_MOE_STEPS = 3, 2, 2
+MESH_UNMESHED_REL = 1e-2   # first meshed loss against the unmeshed one
+MESH_REDUCED = ("qwen3-0.6b", "gemma3-1b", "granite-moe-1b-a400m")
+
+
+class CollectiveCount:
+    """The mesh's collective hook: each collective's count and bytes (its
+    rows' bytes, one row an entry)."""
+
+    def __init__(self):
+        self.seen = {}
+
+    def __call__(self, name, mesh, axis, rows):
+        n, b = self.seen.get(name, (0, 0))
+        self.seen[name] = (n + 1, b + sum(r.numel() * r.element_size()
+                                          for r in rows))
+
+    def per_step(self, steps: int) -> dict:
+        return {k: {"count": n / steps, "bytes": b / steps}
+                for k, (n, b) in sorted(self.seen.items())}
+
+
+def entry_state_bytes(state) -> int:
+    """The largest mesh entry's bytes of parameters plus optimizer state:
+    each entry's blocks of every leaf (a block several entries hold counts
+    for each of them)."""
+    from repro_torch.dist.sharding import ShardedTensor, tree_flatten_with_path
+
+    leaves = [x for _, x in tree_flatten_with_path(state)[0]
+              if isinstance(x, ShardedTensor)]
+    n = leaves[0].sharding.mesh.devices.size
+    return max(sum(st.blocks[i].numel() * st.blocks[i].element_size()
+                   for st in leaves) for i in range(n))
+
+
+def unmeshed_reference(dev, cfg, stream) -> dict:
+    """The unmeshed step at the meshed run's shape, from the same seed and
+    on its first batch: its first loss, and the seconds of the next
+    step."""
+    from repro_torch.train import (AdamW, init_train_state, make_train_step,
+                                   warmup_cosine)
+
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, MESH_STEPS))
+    step_fn = make_train_step(cfg, opt, n_micro=MESH_MICRO)
+    state = init_train_state(cfg, opt, seed=0, device=dev)
+    losses, secs = [], []
+    for step in range(2):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(step).items()}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        losses.append(float(m["loss"]))
+        secs.append(time.perf_counter() - t0)
+    del state
+    torch.cuda.empty_cache()
+    return dict(first_loss=losses[0], losses=losses, step_s=secs,
+                timed_step_s=secs[1])
+
+
+def meshed_run(dev, cfg, shape, steps: int, ckpt_dir=None, restore=False,
+               ckpt_every: int = 1, **kw) -> tuple:
+    """``launch.train.run`` with ``mesh_shape=shape`` on the card, traced,
+    every step logged, its collectives counted; returns (its output, its
+    times: the step seconds, the seconds before the first step (the
+    shard or the restore), the rest of the loop (checkpoints,
+    ``tda_monitor``); its peak device bytes, the mesh it printed, the
+    collectives a step)."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.train import run
+    from repro_torch.obs.trace import Tracer, tracing
+
+    job = train_job(cfg, dev, steps=steps, global_batch=MESH_BATCH,
+                    seq_len=MESH_SEQ, n_micro=MESH_MICRO, mesh_shape=shape,
+                    ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    tr = Tracer()
+    printed = io.StringIO()
+    count = CollectiveCount()
+    t0 = time.perf_counter()
+    with tracing(tr), contextlib.redirect_stdout(printed), \
+            mesh_mod.recording(count):
+        out = run(job, restore=restore)
+    torch.cuda.synchronize()
+    total = time.perf_counter() - t0
+    step_s = [sp.dur for sp in tr.spans if sp.name == "train/step"]
+    lines = printed.getvalue().splitlines()
+    if not lines or not lines[0].startswith("Mesh("):
+        raise AssertionError(f"run did not print its mesh: {lines[:1]}")
+    times = dict(step_s=step_s, setup_s=total - out["wall_s"],
+                 loop_other_s=out["wall_s"] - sum(step_s))
+    return (out, times, torch.cuda.max_memory_allocated(), lines[0],
+            count.per_step(max(len(step_s), 1)))
+
+
+def mesh_card_vs_cpu(dev, arch: str, smi: str) -> dict:
+    """One meshed step of reduced ``arch`` on (4, 2) in float32 (TF32 off)
+    on the card and on a CPU mesh from the same weights: loss and gradient
+    norm within ``TRAIN_REL_TOL``, the weights under
+    ``train_card_vs_cpu``'s gates."""
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules,
+                                           tree_flatten_with_path)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (AdamW, init_train_state, make_train_step,
+                                   warmup_cosine)
+    from repro_torch.train.train_step import (shard_train_state,
+                                              train_state_to_arrays)
+
+    cfg = dataclasses.replace(get_config(arch, reduced=True),
+                              compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    n = int(np.prod(MESH_SHAPE))
+    toks = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(8, 65)).astype(np.int32)
+    got = {}
+    for where in (dev, torch.device("cpu")):
+        mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=[where] * n)
+        step_fn = bind_activation_rules(make_train_step(
+            cfg, opt, n_micro=2, micro_batch_axes=("data",)),
+            activation_rules(cfg, mesh))
+        state = shard_train_state(init_train_state(cfg, opt, seed=0,
+                                                   device="cpu"), mesh)
+        t0 = time.perf_counter()
+        state, m = step_fn(state, {"tokens": torch.from_numpy(toks).to(
+            where)})
+        metrics = {k: float(v) for k, v in m.items()}
+        got[where.type] = (metrics, time.perf_counter() - t0,
+                           [np.asarray(a) for _, a in tree_flatten_with_path(
+                               train_state_to_arrays(state).params)[0]])
+    (cm, cs, cw), (hm, hs, hw) = got["cuda"], got["cpu"]
+    d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(cw, hw)])
+    lr = hm["lr"]
+    out = dict(card=smi, arch=cfg.name, mesh=list(MESH_SHAPE),
+               card_step_s=cs,
+               cpu_step_s=hs, loss=(cm["loss"], hm["loss"]),
+               grad_norm=(cm["grad_norm"], hm["grad_norm"]),
+               aux_loss=(cm["aux_loss"], hm["aux_loss"]), lr=lr,
+               weight_diff_median=float(np.median(d)),
+               weight_diff_p999=float(np.quantile(d, 0.999)),
+               weight_diff_max=float(d.max()))
+    out["rel_loss"], out["rel_grad_norm"] = (
+        abs(a - b) / abs(b) for a, b in (out["loss"], out["grad_norm"]))
+    emit("train_mesh_card_vs_cpu", **out)
+    if not (max(out["rel_loss"], out["rel_grad_norm"]) <= TRAIN_REL_TOL
+            and out["weight_diff_max"] <= 2 * lr * (1 + 1e-3)
+            and out["weight_diff_p999"] <= TRAIN_P999_TOL
+            and out["weight_diff_median"] <= TRAIN_MEDIAN_TOL):
+        raise AssertionError(f"meshed card against CPU: {out}")
+    return out
+
+
+def train_mesh(dev) -> dict:
+    """Phase 6f: the sharded trainer (module constants ``MESH_*``).  The
+    counts are set to 0 just before the full-width qwen3 run, whose
+    ``tda_monitor`` (step 0) launches the bf16 flash kernel and the PH
+    kernels, and read just after.  Gates: finite losses; the first meshed
+    loss within ``MESH_UNMESHED_REL`` of the unmeshed step's on the same
+    weights and batch; the run restored onto (2, 2) resumes at step
+    ``MESH_STEPS``; the peak under ``TRAIN_MAX_PEAK``; granite-moe's aux
+    loss > 0 and ``_moe_a2a`` on every MoE layer of every microbatch;
+    the reduced copies card against CPU."""
+    import tempfile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.tokens import ShardedTokenStream
+    from repro_torch.models import moe as moe_mod
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    cfg = get_config(MESH_ARCH)
+    stream = ShardedTokenStream(vocab=cfg.vocab_size, global_batch=MESH_BATCH,
+                                seq=MESH_SEQ + 1)
+    torch.cuda.empty_cache()
+    flat = unmeshed_reference(dev, cfg, stream)
+    counters = reset_counters()
+    with tempfile.TemporaryDirectory() as tmp:
+        out, times, peak, mesh_line, coll = meshed_run(
+            dev, cfg, MESH_SHAPE, MESH_STEPS, ckpt_dir=tmp,
+            tda_every=MESH_STEPS)
+        launches = {k: fn.launches for k, fn in counters.items()}
+        hist = out["history"]
+        state_bytes = entry_state_bytes(out["state"])
+        del out
+        torch.cuda.empty_cache()
+        # its checkpoint: run's own at the end
+        more, more_times, more_peak, _, _ = meshed_run(
+            dev, cfg, MESH_REMESH, MESH_STEPS + MESH_MORE, ckpt_dir=tmp,
+            restore=True, ckpt_every=10_000)
+        more_hist = more["history"]
+        del more
+    torch.cuda.empty_cache()
+    tokens = MESH_BATCH * MESH_SEQ
+    step_s = times["step_s"]
+    median_s = float(np.median(step_s[1:]))
+    dense = dict(
+        card=smi, arch=cfg.name, mesh=list(MESH_SHAPE), mesh_repr=mesh_line,
+        n_layers=cfg.n_layers, d_model=cfg.d_model,
+        param_dtype=cfg.param_dtype, compute_dtype=cfg.compute_dtype,
+        global_batch=MESH_BATCH, seq_len=MESH_SEQ, n_micro=MESH_MICRO,
+        rows_per_data_entry=MESH_BATCH // (MESH_MICRO * MESH_SHAPE[0]),
+        loss=[h["loss"] for h in hist],
+        grad_norm=[h["grad_norm"] for h in hist], times=times,
+        median_step_s=median_s, tokens_per_s=tokens / median_s,
+        peak_device_bytes=peak, entry_state_bytes=state_bytes,
+        collectives_one_step=coll,
+        all_to_all_calls=coll.get("all_to_all", {}).get("count", 0),
+        unmeshed=flat, rel_first_loss=abs(hist[0]["loss"]
+                                          - flat["first_loss"])
+        / abs(flat["first_loss"]),
+        launches=launches,
+        tda={k: v for k, v in hist[0].items() if k.startswith("tda_")},
+        remesh=dict(mesh=list(MESH_REMESH),
+                    steps=[h["step"] for h in more_hist],
+                    loss=[h["loss"] for h in more_hist], times=more_times,
+                    restore_s=more_times["setup_s"],
+                    peak_device_bytes=more_peak))
+    emit("train_mesh", **dense)
+    if not (len(hist) == MESH_STEPS and all(np.isfinite(
+            dense["loss"] + dense["grad_norm"]))):
+        raise AssertionError(f"meshed qwen3: {dense['loss']}, "
+                             f"{dense['grad_norm']}")
+    if dense["rel_first_loss"] > MESH_UNMESHED_REL:
+        raise AssertionError(f"meshed first loss {hist[0]['loss']} against "
+                             f"unmeshed {flat['first_loss']}")
+    if dense["remesh"]["steps"] != list(range(MESH_STEPS,
+                                              MESH_STEPS + MESH_MORE)) \
+            or not all(np.isfinite(dense["remesh"]["loss"])):
+        raise AssertionError(f"the (2, 2) restore: {dense['remesh']}")
+    if max(peak, more_peak) > TRAIN_MAX_PEAK:
+        raise AssertionError(f"meshed training peaked at "
+                             f"{max(peak, more_peak)} bytes")
+    if len(dense["tda"]) != 3 or launches["flash_attention"] != cfg.n_layers:
+        raise AssertionError(f"meshed tda_monitor: {dense['tda']}, "
+                             f"{launches['flash_attention']} flash launches")
+
+    moe_cfg = get_config(MESH_MOE_ARCH)
+    calls = []
+    real_a2a = moe_mod._moe_a2a
+
+    def counted(*a, **k):
+        calls.append(1)
+        return real_a2a(*a, **k)
+
+    moe_mod._moe_a2a = counted
+    try:
+        mo, mo_times, mo_peak, _, mo_coll = meshed_run(
+            dev, moe_cfg, MESH_SHAPE, MESH_MOE_STEPS)
+    finally:
+        moe_mod._moe_a2a = real_a2a
+    mh = mo["history"]
+    del mo
+    torch.cuda.empty_cache()
+    want_calls = moe_cfg.n_layers * MESH_MICRO * MESH_MOE_STEPS
+    moe_res = dict(
+        card=smi, arch=moe_cfg.name, mesh=list(MESH_SHAPE),
+        loss=[h["loss"] for h in mh], aux=[h["aux_loss"] for h in mh],
+        grad_norm=[h["grad_norm"] for h in mh], times=mo_times,
+        median_step_s=float(np.median(mo_times["step_s"][1:])),
+        tokens_per_s=tokens / float(np.median(mo_times["step_s"][1:])),
+        peak_device_bytes=mo_peak, moe_a2a_calls=len(calls),
+        moe_a2a_expected=want_calls, collectives_one_step=mo_coll,
+        all_to_all_calls=mo_coll.get("all_to_all", {}).get("count", 0))
+    emit("train_mesh_moe", **moe_res)
+    if not (all(np.isfinite(moe_res["loss"] + moe_res["grad_norm"]))
+            and all(a > 0 for a in moe_res["aux"])
+            and len(calls) == want_calls and mo_peak <= TRAIN_MAX_PEAK):
+        raise AssertionError(f"meshed granite-moe: {moe_res}")
+
+    versus = {a: mesh_card_vs_cpu(dev, a, smi) for a in MESH_REDUCED}
+    res = dict(dense=dense, moe=moe_res, card_vs_cpu=versus,
+               phase_s=time.perf_counter() - t0)
+    emit("train_mesh_done", card=smi, phase_s=res["phase_s"])
+    torch.cuda.empty_cache()
+    return res
+
+
 def f32_sass_check(_build, ptxas) -> dict:
     """The float32 flash library holds IEEE FFMA products only: its SASS
     (``cuobjdump -sass``) has no matrix-multiply opcode (HMMA, HGMMA, IMMA,
@@ -4178,6 +4502,7 @@ def main() -> int:
     trained = train(dev)
     archs = lm_archs(dev)
     moe_trained = train_moe(dev)
+    mesh_trained = train_mesh(dev)
     ssm = ssm_archs(dev)
     vlm = vlm_audio(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
@@ -4216,6 +4541,7 @@ def main() -> int:
     train_launches = bf16(trained["full_width"]["launches"])
     lm_launches = {a: bf16(r["launches"]) for a, r in archs.items()}
     moe_train_launches = bf16(moe_trained["launches"])
+    mesh_train_launches = bf16(mesh_trained["dense"]["launches"])
     ssm_launches = {a: bf16(r["launches"]) for a, r in ssm.items()}
     vlm_launches = {a: bf16(r["launches"]) for a, r in vlm.items()}
 
@@ -4258,6 +4584,7 @@ def main() -> int:
             train_launches=train_launches[kname],
             lm_archs_launches={a: n[kname] for a, n in lm_launches.items()},
             train_moe_launches=moe_train_launches[kname],
+            train_mesh_launches=mesh_train_launches[kname],
             ssm_archs_launches={a: n[kname] for a, n in ssm_launches.items()},
             vlm_audio_launches={a: n[kname] for a, n in vlm_launches.items()},
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))

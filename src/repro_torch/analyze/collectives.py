@@ -9,10 +9,10 @@ on the data (the reference's data-dependent ``while`` trip count), hangs
 a real mesh — and only at scale, never under a one-process mesh.
 
 The reference traces a jaxpr; the port has none.  Its collectives are the
-two functions of :mod:`repro_torch.launch.mesh`, :func:`~repro_torch.
-launch.mesh.all_gather` and :func:`~repro_torch.launch.mesh.ppermute`,
-and each calls the hook that :func:`~repro_torch.launch.mesh.recording`
-arms first.  So:
+functions of :mod:`repro_torch.launch.mesh` (``all_gather``,
+``ppermute``, ``psum``, ``all_to_all`` and the FSDP ``gather_blocks``,
+recorded as an ``all_gather``), and each calls the hook that
+:func:`~repro_torch.launch.mesh.recording` arms first.  So:
 
 * :func:`collective_schedule` runs ``fn(*args)`` on a port ``Mesh`` with
   that hook armed and records the ordered :class:`CollectiveOp` list.  The
@@ -22,7 +22,8 @@ arms first.  So:
   ``while-collective`` is a schedule that differs between ``args`` and
   ``alt_args``, two inputs of the same shapes with uneven data.
 * :func:`check_repo` runs the registered round functions of
-  ``scale/shard.py`` and ``core/packed_reduce.py`` on a 4-entry data mesh
+  ``scale/shard.py``, ``core/packed_reduce.py`` and
+  ``dist/compression.py`` on a 4-entry data mesh
   (``make_data_mesh(4, devices=[device] * 4)``; ``device`` defaults to
   the card and raises without one, as every entry point of the port does,
   so a CPU run passes ``device="cpu"``),
@@ -31,10 +32,11 @@ arms first.  So:
   and exercises the pivot-exchange wire's replica consistency
   (``wire-shape``, ``wire-roundtrip``) on uneven per-shard payloads.
 
-``dist.compression.compressed_psum_grads`` joins the registry with the
-rest of the LM substrate (ROADMAP.md §1 item 10), and
-:func:`collective_schedule_from_hlo`, which reads compiled HLO through
-``launch/hlo.py``, with the XLA tooling (item 11).
+The registry holds ``dist.compression.compressed_psum_grads`` too, the
+int8 gradient exchange of the sharded trainer, pinned to the reference's
+two ``all_gather``s a leaf.  :func:`collective_schedule_from_hlo`, which
+reads compiled HLO through ``launch/hlo.py``, waits for the XLA tooling
+(ROADMAP.md §1 item 11).
 
 The modules under test are imported inside functions, so importing this
 module stays cheap.
@@ -307,6 +309,27 @@ def repo_programs(device: Any = None) -> List[Program]:
             [np.arange(s, dtype=np.uint32) % 97 for s in (0, 1, 7, 1000)])
         return (fn, (np.zeros_like(buf),), (buf,), mesh)
 
+    def psum_grads():
+        import torch
+
+        from ..dist.compression import compressed_psum_grads
+
+        mesh = data_mesh()
+
+        def fn(grads, errs):
+            return compressed_psum_grads(grads, errs, "data", mesh)
+
+        def trees(scale):
+            rng = np.random.default_rng(2)
+            return [{"w": torch.as_tensor(
+                rng.normal(size=(4, 4)) * scale ** k, dtype=torch.float32,
+                device=dev)} for k in range(REGISTRY_ENTRIES)]
+
+        zeros = [{"w": torch.zeros((4, 4), device=dev)}
+                 for _ in range(REGISTRY_ENTRIES)]
+        # uneven: one entry's gradient zero, the others' scales 1e-3 apart
+        return (fn, (trees(1.0), zeros), (trees(1e-3), trees(0.0)), mesh)
+
     return [
         Program("scale.shard._candidate_round_fn", candidate_round,
                 ("data",), expect=()),
@@ -314,6 +337,10 @@ def repo_programs(device: Any = None) -> List[Program]:
                 ("data",), expect=()),
         Program("core.packed_reduce._exchange_round_fn", exchange_round,
                 ("data",), expect=(("all_gather", ("data",)),)),
+        Program("dist.compression.compressed_psum_grads", psum_grads,
+                ("data",),
+                expect=(("all_gather", ("data",)),
+                        ("all_gather", ("data",)))),
     ]
 
 

@@ -16,9 +16,13 @@ Writes go to ``step_<N>.tmp`` then atomically rename — a crashed save never
 corrupts the latest checkpoint.  ``save_async`` copies the tree to the host,
 then runs the write on a thread so the train loop overlaps I/O with compute.
 ``restore`` gives each leaf the template leaf's type, dtype and, for a
-tensor, device.  The reference's reshard-on-restore (``shardings=``) waits
-for the sharded trainer and raises ``NotImplementedError`` (ROADMAP.md §1,
-item 10).
+tensor, device.  With ``shardings`` (a tree of
+:class:`~repro_torch.dist.sharding.NamedSharding` congruent with the
+template) each leaf is restored to the host, then laid out on its
+placement: a :class:`~repro_torch.dist.sharding.ShardedTensor`.  A tree
+holding sharded tensors is saved whole, so the files on disk are whole
+arrays under the reference's leaf names whatever the mesh, and a
+checkpoint written on one mesh shape restores onto another, or onto none.
 """
 from __future__ import annotations
 
@@ -33,16 +37,17 @@ import numpy as np
 import torch
 
 from repro_torch.device import to_host
-from repro_torch.dist.sharding import (tree_flatten_with_path, tree_path_str,
+from repro_torch.dist.sharding import (NamedSharding, ShardedTensor,
+                                       tree_flatten_with_path, tree_path_str,
                                        tree_unflatten)
 from repro_torch.resilience.faults import CheckpointCorruption
 
-_NO_SHARDINGS = ("{}(shardings=...): restoring onto a mesh is not ported "
-                 "yet (ROADMAP.md §1, item 10, LM substrate)")
-
 
 def _leaf_digest(arr: np.ndarray) -> str:
-    return hashlib.sha256(np.ascontiguousarray(arr).tobytes()).hexdigest()
+    """sha256 of the array's bytes in C order (the reference's
+    ``tobytes()``), hashed in place rather than from a copy."""
+    return hashlib.sha256(
+        np.ascontiguousarray(arr).reshape(-1).view(np.uint8)).hexdigest()
 
 
 def _leaf_files(tree) -> Dict[str, Any]:
@@ -52,7 +57,9 @@ def _leaf_files(tree) -> Dict[str, Any]:
 
 def _host_tree(tree):
     flat, treedef = tree_flatten_with_path(tree)
-    return tree_unflatten(treedef, [to_host(leaf) for _, leaf in flat])
+    return tree_unflatten(treedef, [
+        to_host(leaf.unshard() if isinstance(leaf, ShardedTensor) else leaf)
+        for _, leaf in flat])
 
 
 def _like(arr: np.ndarray, leaf):
@@ -132,8 +139,10 @@ class Checkpointer:
                 shardings=None, verify: bool = True):
         """Restore into the structure of ``template``: each leaf a tensor
         of the template leaf's dtype on its device, or a numpy array of its
-        dtype.  ``shardings`` (the reference's target placements on a mesh)
-        raises ``NotImplementedError`` unless ``None``.
+        dtype.  ``shardings`` (a congruent tree of ``NamedSharding``s, the
+        reference's target placements on a mesh) lays each restored leaf
+        out on its placement (the reshard-on-restore of an elastic
+        re-mesh).
 
         With ``verify`` (the default) every leaf whose manifest entry
         carries a ``sha256`` is re-hashed after load; a mismatch — bit rot,
@@ -141,8 +150,6 @@ class Checkpointer:
         :class:`~repro_torch.resilience.faults.CheckpointCorruption` instead
         of silently restoring wrong weights.  Pre-hash checkpoints (no
         ``sha256`` field) restore unverified for compatibility."""
-        if shardings is not None:
-            raise NotImplementedError(_NO_SHARDINGS.format("restore"))
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
@@ -155,8 +162,17 @@ class Checkpointer:
                 f"unreadable manifest in {d!r}: {e}") from e
 
         flat, treedef = tree_flatten_with_path(template)
+        shard_flat = None
+        if shardings is not None:
+            shard_flat = [s for _, s in tree_flatten_with_path(
+                shardings, lambda x: isinstance(x, NamedSharding))[0]]
+            if len(shard_flat) != len(flat) or not all(
+                    isinstance(s, NamedSharding) for s in shard_flat):
+                raise ValueError(
+                    f"shardings: {len(shard_flat)} leaves for a template of "
+                    f"{len(flat)}; pass one NamedSharding a leaf")
         leaves = []
-        for kp, leaf in flat:
+        for i, (kp, leaf) in enumerate(flat):
             name = tree_path_str(kp).replace("/", "__")
             try:
                 arr = np.load(os.path.join(d, name + ".npy"))
@@ -172,7 +188,9 @@ class Checkpointer:
                     and _leaf_digest(arr) != expect["sha256"]:
                 raise CheckpointCorruption(
                     f"leaf {name!r} failed sha256 verification in {d!r}")
-            leaves.append(_like(arr, leaf))
+            arr = _like(arr, leaf)
+            leaves.append(arr if shard_flat is None
+                          else shard_flat[i].shard(arr))
         return tree_unflatten(treedef, leaves), manifest["metadata"]
 
     def restore_latest_valid(self, template, shardings=None):
@@ -181,16 +199,14 @@ class Checkpointer:
         when the latest save is corrupt.  Returns ``(tree, metadata,
         step)``; raises :class:`CheckpointCorruption` when every step is
         bad and ``FileNotFoundError`` when there are none."""
-        if shardings is not None:
-            raise NotImplementedError(
-                _NO_SHARDINGS.format("restore_latest_valid"))
         steps = self.all_steps()
         if not steps:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")
         last_err: Optional[Exception] = None
         for step in reversed(steps):
             try:
-                tree, meta = self.restore(template, step=step)
+                tree, meta = self.restore(template, step=step,
+                                          shardings=shardings)
                 return tree, meta, step
             except CheckpointCorruption as e:
                 last_err = e

@@ -1,17 +1,32 @@
-"""Lossless Elias–Fano transport for the pivot exchange.
+"""Compressed transport for the distributed paths (port of
+``src/repro/dist/compression.py``): one lossy codec and one lossless, for
+two different wires.
 
-Port of the lossless half of ``src/repro/dist/compression.py`` (host numpy,
-word for word the reference's wire format, so either package decodes the
-other's payloads).  The int8 error-feedback gradient codec
-(``ef_compress``, ``compressed_psum_grads``) serves training and comes with
-the rest of the LM substrate (ROADMAP.md §1 item 10).
+**int8 error-feedback (lossy, gradients).**  The slow axis of a multi-pod
+mesh moves gradients, and gradients tolerate lossy transport when the
+quantization error is *fed back*: each step quantizes ``g + err`` instead of
+``g`` and carries the residual to the next step, so the accumulated signal
+is unbiased (1-bit/int8 SGD with error feedback; Seide et al., Karimireddy
+et al.).  :func:`ef_compress` quantizes to symmetric int8 with a
+per-tensor scale, ``scale = max|g + err| / 127``, ``q = round((g + err) /
+scale)``, so the per-element residual is at most half a quantization step.
+:func:`compressed_psum_grads` is the wire format over a mesh axis: each
+entry quantizes its own gradients, the int8 payloads and float32 scales
+go through :func:`~repro_torch.launch.mesh.all_gather`, and the mean is
+rebuilt from the dequantized rows.  The arithmetic is the reference's in
+float32, with one addition: XLA's CPU backend flushes denormal inputs and
+results to zero, and so does the port here, step by step, on every device,
+so that the two packages agree bit for bit (a denormal ``scale`` degrades
+to 1 with ``q = 0``, a denormal signal to 0).
 
-The distributed packed reduction (:mod:`repro_torch.core.packed_reduce`)
-ships committed pivot columns between shards once per exchange round, and
-GF(2) pivot data tolerates *zero* loss — one flipped key breaks bit-identity
-of the diagrams.  Pivot columns are strictly-increasing int64 key arrays,
-the textbook Elias–Fano case: ``n`` values below universe ``U`` cost
-``n * (2 + ceil(log2(U/n)))`` bits — each key stores its low
+**Elias–Fano (lossless, pivot exchange).**  The distributed packed
+reduction (:mod:`repro_torch.core.packed_reduce`) ships committed pivot
+columns between shards once per exchange round, and GF(2) pivot data
+tolerates *zero* loss — one flipped key breaks bit-identity of the
+diagrams.  Host numpy, word for word the reference's wire format, so either
+package decodes the other's payloads.  Pivot columns are strictly-increasing
+int64 key arrays, the textbook Elias–Fano case: ``n`` values below universe
+``U`` cost ``n * (2 + ceil(log2(U/n)))`` bits — each key stores its low
 ``l = floor(log2(U/n))`` bits verbatim and its high bits unary in a
 bitvector with exactly one set bit per value (``high + index``), so both
 streams decode vectorized (``np.unpackbits`` + ``flatnonzero``).
@@ -23,12 +38,95 @@ covers the whole delta.
 """
 from __future__ import annotations
 
-from typing import List, Optional, Sequence
+from typing import Any, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
-__all__ = ["ef_encode_sorted", "ef_decode_sorted",
+from ..launch.mesh import Mesh, all_gather
+from .sharding import tree_flatten_with_path, tree_unflatten
+
+__all__ = ["compressed_psum_grads", "dequantize_int8", "ef_compress",
+           "ef_encode_sorted", "ef_decode_sorted",
            "pack_column_payload", "unpack_column_payload"]
+
+# The smallest normal float32: below it XLA's CPU backend reads and writes 0.
+_F32_TINY = float(np.finfo(np.float32).tiny)
+
+
+def _ftz(t: torch.Tensor) -> torch.Tensor:
+    """Denormals flushed to zero, keeping the sign (XLA's CPU arithmetic)."""
+    return torch.where(t.abs() < _F32_TINY, t * 0.0, t)
+
+
+def ef_compress(x, err) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Quantize ``x + err`` to int8. Returns ``(q, scale, new_err)``.
+
+    ``|new_err| <= scale / 2`` elementwise, and ``dequantize_int8(q, scale)
+    + new_err == x + err`` exactly (the feedback identity).  A zero or
+    denormal-underflow scale degrades to q=0 with the full signal carried in
+    ``new_err`` — never a NaN/inf.
+    """
+    y = _ftz(_ftz(x.float()) + _ftz(err.float()))
+    scale = _ftz(torch.max(torch.abs(y)) / 127.0)
+    scale = torch.where(scale > 0, scale, torch.ones_like(scale))
+    q = torch.clamp(torch.round(y / scale), -127.0, 127.0).to(torch.int8)
+    new_err = _ftz(y - _ftz(q.float() * scale))
+    return q, scale, new_err
+
+
+def dequantize_int8(q, scale) -> torch.Tensor:
+    return _ftz(q.float() * scale)
+
+
+def compressed_psum_grads(grads: Sequence[Any], errs: Sequence[Any],
+                          axis_name: str, mesh: Mesh
+                          ) -> Tuple[List[Any], List[Any]]:
+    """Mean of ``grads`` over ``axis_name`` of ``mesh`` with int8-EF
+    transport.
+
+    ``grads`` and ``errs`` have one pytree an entry of the axis (entry
+    ``k``'s own gradients and carried errors), all congruent; returns
+    ``(means, new_errs)``, one pytree an entry again.  Each leaf moves as
+    (int8 payload, f32 scale) through two ``all_gather``s — 8/N the
+    collective bytes of an f32 psum, so 4x fewer on the N=2 pod axis this
+    is built for — and each entry rebuilds the mean from the dequantized
+    rows, so the result differs from the exact mean by at most one
+    quantization step (and the difference is what ``new_errs`` feeds
+    back).  Every entry's mean is the same tensor, on entry 0's device.
+    """
+    n = mesh.shape[axis_name]
+    if len(grads) != n or len(errs) != n:
+        raise ValueError(f"compressed_psum_grads over {axis_name!r} takes one "
+                         f"tree an entry ({n}), got {len(grads)} gradient "
+                         f"and {len(errs)} error trees")
+    flat = [tree_flatten_with_path(g) for g in grads]
+    treedef = flat[0][1]
+    leaves_g = [[leaf for _, leaf in f] for f, _ in flat]
+    leaves_e = [[leaf for _, leaf in tree_flatten_with_path(e)[0]]
+                for e in errs]
+    if any(len(lg) != len(leaves_g[0]) for lg in leaves_g) or \
+            any(len(le) != len(leaves_g[0]) for le in leaves_e):
+        raise ValueError("compressed_psum_grads: gradient and error trees "
+                         "are not congruent")
+    means: List[torch.Tensor] = []
+    new_errs: List[List[torch.Tensor]] = [[] for _ in range(n)]
+    for i in range(len(leaves_g[0])):
+        coded = [ef_compress(leaves_g[k][i], leaves_e[k][i])
+                 for k in range(n)]
+        qg = all_gather(mesh, axis_name, [c[0] for c in coded])
+        sg = all_gather(mesh, axis_name, [c[1] for c in coded])
+        g = leaves_g[0][i]
+        deq = _ftz(qg.float() * sg.reshape((-1,) + (1,) * g.dim()))
+        total = deq[0]
+        for row in deq[1:]:         # in entry order, the same on any device
+            total = _ftz(total + row)
+        means.append(_ftz(total / n))
+        for k in range(n):
+            new_errs[k].append(coded[k][2])
+    mean_tree = tree_unflatten(treedef, means)
+    return ([mean_tree] * n,
+            [tree_unflatten(treedef, e) for e in new_errs])
 
 _EF_MAGIC = np.uint32(0xEF50)
 

@@ -10,11 +10,21 @@ builds a 4-entry data mesh as ``["cuda:0"] * 4``, and the CPU tests build
 (created at first use), so the entries of one round run at once on one
 card: the kernels launch on the current stream.
 
-The collectives the port's mesh programs run are the two functions
-below, :func:`all_gather` and :func:`ppermute` (``jax.lax``'s over a
-``shard_map`` axis): each calls the hook that :func:`recording` arms
-first, which is how ``repro_torch.analyze.collectives`` records a
-program's ordered schedule.
+The collectives the port's mesh programs run are the functions below,
+``jax.lax``'s over a ``shard_map`` axis: :func:`all_gather`,
+:func:`ppermute`, :func:`psum` (all-reduce), :func:`all_to_all` and
+:func:`gather_blocks` (the FSDP gather of a parameter's blocks along one
+dimension).  Each calls the hook that :func:`recording` arms first, which
+is how ``repro_torch.analyze.collectives`` records a program's ordered
+schedule.  The last three are plain differentiable torch functions, so
+one autograd graph spans every entry of a meshed train step: the backward
+of :func:`psum` hands each entry the output's gradient, that of
+:func:`all_to_all` sends each block's gradient back to its source, and
+that of :func:`gather_blocks` splits the gathered gradient into the
+blocks' gradients (the reduce-scatter, summed over the entries that used
+the gathered tensor).  A value that every entry of an axis holds alike
+(a :func:`psum`'s result, a gathered weight) is one tensor, on the
+axis's first entry's device, as :func:`all_gather` returns it.
 
 ``make_production_mesh`` (the reference's TPU pod shapes) has no
 counterpart on one card and refuses; a ``torch.distributed`` transport
@@ -30,8 +40,9 @@ import torch
 
 DeviceSpec = Union[str, torch.device]
 
-__all__ = ["Mesh", "all_gather", "make_data_mesh", "make_mesh",
-           "make_production_mesh", "mesh_device", "ppermute", "recording"]
+__all__ = ["Mesh", "all_gather", "all_to_all", "gather_blocks",
+           "make_data_mesh", "make_mesh", "make_production_mesh",
+           "mesh_device", "ppermute", "psum", "recording"]
 
 CollectiveHook = Callable[[str, "Mesh", str, list], None]
 
@@ -229,3 +240,61 @@ def ppermute(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
     for src, dst in perm:
         out[dst] = xs[src].to(xs[dst].device)
     return out
+
+
+def psum(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]
+         ) -> torch.Tensor:
+    """``jax.lax.psum`` over ``axis``: ``parts`` has one tensor an entry,
+    and their sum comes back once, on entry 0's device (every entry holds
+    the same value)."""
+    parts = list(parts)
+    if _hook is not None:
+        _hook("psum", mesh, axis, parts)
+    if len(parts) != mesh.shape[axis]:
+        raise ValueError(f"psum over {axis!r} takes one tensor an entry "
+                         f"({mesh.shape[axis]}), got {len(parts)}")
+    dev = parts[0].device
+    out = parts[0]
+    for p in parts[1:]:
+        out = out + p.to(dev)
+    return out
+
+
+def all_to_all(mesh: Mesh, axis: str, xs: Sequence[torch.Tensor],
+               split_axis: int = 0, concat_axis: int = 0
+               ) -> List[torch.Tensor]:
+    """``jax.lax.all_to_all`` over ``axis``: entry ``j``'s tensor is split
+    into ``size`` chunks along ``split_axis``; entry ``i`` receives chunk
+    ``i`` of every entry, concatenated along ``concat_axis`` in entry
+    order, on its own device (``xs[i]``'s)."""
+    xs = list(xs)
+    if _hook is not None:
+        _hook("all_to_all", mesh, axis, xs)
+    size = mesh.shape[axis]
+    if len(xs) != size:
+        raise ValueError(f"all_to_all over {axis!r} takes one tensor an "
+                         f"entry ({size}), got {len(xs)}")
+    if xs[0].shape[split_axis] % size:
+        raise ValueError(f"all_to_all over {axis!r}: dimension {split_axis} "
+                         f"of {tuple(xs[0].shape)} does not split into "
+                         f"{size} chunks")
+    chunks = [torch.chunk(x, size, dim=split_axis) for x in xs]
+    return [torch.cat([chunks[src][i].to(xs[i].device)
+                       for src in range(size)], dim=concat_axis)
+            for i in range(size)]
+
+
+def gather_blocks(mesh: Mesh, axis: str, blocks: Sequence[torch.Tensor],
+                  dim: int) -> torch.Tensor:
+    """The FSDP gather: ``blocks`` has one tensor an entry of ``axis`` (the
+    entry's block of a parameter split along ``dim``), concatenated in
+    entry order on entry 0's device.  Its backward splits the gradient of
+    the whole into the blocks' gradients: the reduce-scatter."""
+    blocks = list(blocks)
+    if _hook is not None:
+        _hook("all_gather", mesh, axis, blocks)
+    if len(blocks) != mesh.shape[axis]:
+        raise ValueError(f"gather_blocks over {axis!r} takes one block an "
+                         f"entry ({mesh.shape[axis]}), got {len(blocks)}")
+    dev = blocks[0].device
+    return torch.cat([b.to(dev) for b in blocks], dim=dim)

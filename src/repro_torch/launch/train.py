@@ -8,9 +8,18 @@ the final-layer activation point cloud, logged every ``--tda-every``
 steps).  It prints the reference's JSON lines and ``done:`` line; each
 step is a ``train/step`` span when tracing is on.
 
-It runs on the card unless ``--device cpu`` (``TrainJob.device``).  The
-meshed trainer (``TrainJob.mesh_shape``) raises ``NotImplementedError``
-(ROADMAP.md §1, item 10).
+It runs on the card unless ``--device cpu`` (``TrainJob.device``).
+
+``TrainJob.mesh_shape`` trains over a mesh, as the reference's does: axes
+``("data", "model")`` for two dimensions, ``("pod", "data", "model")`` for
+three, every entry on the job's device (``make_mesh(mesh_shape, axes,
+devices=[device] * n)``; entries on distinct cards wait for the transport
+between them, ROADMAP.md §1 item 5).  ``run`` prints the mesh once, shards
+the state as ``shard_params(..., fsdp=True)`` says, binds the step to
+``activation_rules(cfg, mesh)`` with the data axes as its microbatch axes,
+restores a checkpoint of any mesh shape onto this one, and saves whole
+arrays.  The decoder-only dense and MoE models train on a mesh; the others
+raise ``NotImplementedError`` (ROADMAP.md §1 item 10.8).
 
 Usage::
 
@@ -31,11 +40,19 @@ from repro_torch.checkpoint import Checkpointer
 from repro_torch.configs import get_config
 from repro_torch.data.tokens import ShardedTokenStream
 from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.dist.sharding import (activation_rules,
+                                       bind_activation_rules,
+                                       shardings_from_specs)
+from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.config import ModelConfig
+from repro_torch.models.transformer import meshed_refusal
 from repro_torch.obs.trace import active_tracer, span, stopwatch
 from repro_torch.train.optimizer import AdamW, warmup_cosine
-from repro_torch.train.train_step import (init_train_state,
+from repro_torch.train.train_step import (gathered_model, init_train_state,
                                           load_train_state_, make_train_step,
+                                          shard_train_state,
+                                          train_state_specs,
+                                          train_state_template,
                                           train_state_to_arrays)
 
 
@@ -52,7 +69,7 @@ class TrainJob:
     ckpt_dir: Optional[str] = None
     ckpt_every: int = 50
     tda_every: int = 0
-    mesh_shape: Optional[tuple] = None       # the meshed trainer: item 10
+    mesh_shape: Optional[tuple] = None       # e.g. (4, 2): (data, model)
     log_every: int = 10
     device: DeviceLike = None
 
@@ -62,7 +79,8 @@ def tda_monitor(params, cfg: ModelConfig, batch: Dict[str, np.ndarray]
     """PH of the final hidden-state point cloud (Dory engine on the model's
     own representations) — H0/H1 Betti summary at the median pairwise scale.
 
-    ``params`` is the model.  The forward runs under ``torch.no_grad()`` with
+    ``params`` is the model (a meshed run passes its gathered parameters,
+    ``gathered_model``).  The forward runs under ``torch.no_grad()`` with
     positions ``arange(S)``: on the card, the flash kernel's route."""
     from repro_torch.models.transformer import forward
 
@@ -95,32 +113,67 @@ def _tda_summary(x: np.ndarray, device) -> Dict[str, float]:
             "tda_b0": float(b.get(0, 0))}
 
 
+def _mesh_axes(shape) -> tuple:
+    """The reference launcher's axes for a mesh shape."""
+    if len(shape) == 2:
+        return ("data", "model")
+    if len(shape) == 3:
+        return ("pod", "data", "model")
+    raise ValueError(f"mesh_shape {tuple(shape)}: the trainer's meshes are "
+                     f"(data, model) or (pod, data, model)")
+
+
 def run(job: TrainJob, restore: bool = False) -> Dict[str, Any]:
     cfg = job.cfg
-    if job.mesh_shape is not None:
-        raise NotImplementedError(
-            f"TrainJob(mesh_shape={job.mesh_shape!r}): the meshed trainer is "
-            f"not ported yet (ROADMAP.md §1, item 10, LM substrate)")
     dev = resolve_device(job.device)
     opt = AdamW(lr=warmup_cosine(job.lr, job.warmup, max(job.steps, 2)))
-    step_fn = make_train_step(cfg, opt, n_micro=job.n_micro)
+
+    mesh = None
+    if job.mesh_shape is not None:
+        why = meshed_refusal(cfg)
+        if why:
+            raise NotImplementedError(
+                f"TrainJob(mesh_shape={job.mesh_shape!r}): {why}")
+        shape = tuple(int(n) for n in job.mesh_shape)
+        mesh = make_mesh(shape, _mesh_axes(shape),
+                         devices=[dev] * int(np.prod(shape)))
+        print(repr(mesh))
+
+    step_fn = make_train_step(
+        cfg, opt, n_micro=job.n_micro,
+        micro_batch_axes=(tuple(a for a in ("pod", "data")
+                                if a in mesh.axis_names) if mesh else None))
 
     ckpt = Checkpointer(job.ckpt_dir) if job.ckpt_dir else None
     start_step = 0
-    state = init_train_state(cfg, opt, job.seed, dev)
-    if restore and ckpt is not None and ckpt.latest_step() is not None:
-        # a template of shapes alone, and the restored arrays copied into
-        # the live state: one model on the device, no host copy of it
-        tree, meta = ckpt.restore(train_state_to_arrays(state,
-                                                        shapes_only=True))
-        state = load_train_state_(state, tree)
-        del tree
-        start_step = int(meta.get("step", 0)) + 1
+    resume = restore and ckpt is not None and ckpt.latest_step() is not None
+    if mesh is not None:
+        step_fn = bind_activation_rules(step_fn, activation_rules(cfg, mesh))
+        ssh = shardings_from_specs(train_state_specs(cfg, mesh)[0], mesh)
+        if resume:
+            # whole arrays from the files, each laid out on this mesh
+            state, meta = ckpt.restore(train_state_template(cfg),
+                                       shardings=ssh)
+            start_step = int(meta.get("step", 0)) + 1
+        else:
+            state = shard_train_state(init_train_state(cfg, opt, job.seed,
+                                                       dev), mesh)
+    else:
+        state = init_train_state(cfg, opt, job.seed, dev)
+        if resume:
+            # a template of shapes alone, and the restored arrays copied
+            # into the live state: one model on the device, no host copy
+            tree, meta = ckpt.restore(train_state_to_arrays(
+                state, shapes_only=True))
+            state = load_train_state_(state, tree)
+            del tree
+            start_step = int(meta.get("step", 0)) + 1
 
     stream = ShardedTokenStream(vocab=cfg.vocab_size,
                                 global_batch=job.global_batch,
                                 seq=job.seq_len + 1, seed=job.seed)
     history = []
+    saved = None
     # A traced step waits for the card before its span ends, so that every
     # train/step span holds its own step's device work (a logged step waits
     # anyway, reading its metrics).  Untraced, steps queue on the card.
@@ -141,16 +194,23 @@ def run(job: TrainJob, restore: bool = False) -> Dict[str, Any]:
             if logged:
                 m["step"] = step
                 if job.tda_every and step % job.tda_every == 0:
-                    m.update(tda_monitor(state.params, cfg, batch_np))
+                    model = state.params if mesh is None \
+                        else gathered_model(cfg, state)
+                    m.update(tda_monitor(model, cfg, batch_np))
+                    del model
                 history.append(m)
                 print(json.dumps({k: round(v, 5) if isinstance(v, float) else v
                                   for k, v in m.items()}))
             if ckpt is not None and step and step % job.ckpt_every == 0:
                 ckpt.save_async(step, train_state_to_arrays(state),
                                 metadata={"step": step})
+                saved = step
         if ckpt is not None:
-            ckpt.save(job.steps - 1, train_state_to_arrays(state),
-                      metadata={"step": job.steps - 1})
+            # the reference saves the last step again here; where the loop
+            # has just saved it, the files would be the same bytes
+            if saved != job.steps - 1:
+                ckpt.save(job.steps - 1, train_state_to_arrays(state),
+                          metadata={"step": job.steps - 1})
             ckpt.wait()
     wall = sw_wall.elapsed
     return {"history": history, "state": state, "wall_s": wall,

@@ -172,6 +172,18 @@ def _sdpa_masked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.cat(outs, dim=1)
 
 
+def _sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  q_pos: torch.Tensor, bias: torch.Tensor) -> torch.Tensor:
+    """:func:`_sdpa_masked` with the whole (B, Sq, Sk) bias computed
+    already: the same query chunks, each its rows of the bias."""
+    sq = q.shape[1]
+    bq = _q_chunk(sq)
+    if bq == 0 or sq % bq != 0:
+        return _sdpa(q, k, v, bias)
+    return torch.cat([_sdpa(q[:, i:i + bq], k, v, bias[:, i:i + bq])
+                      for i in range(0, sq, bq)], dim=1)
+
+
 def _flash_prefill(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                    window: int, causal: bool) -> torch.Tensor:
     """Self-attention over positions ``arange(S)`` through the flash kernel:
@@ -438,3 +450,109 @@ class CrossAttention(nn.Module):
     def forward(self, x, enc_out, kv_cache=None):
         return cross_attention_apply(self.p, self.cfg, x, enc_out,
                                      kv_cache=kv_cache)
+
+
+def _project(plan, x, w, m: int):
+    """``x @ w`` for model entry ``m`` of a sharded projection: its column
+    block when ``w`` is column-parallel, the whole output (row-parallel
+    partials ``psum``-ed, or one product) otherwise."""
+    from .layers import model_psum
+
+    cdt = x.dtype
+    dim = plan.split_model(w)
+    if dim == 1:
+        return x @ plan.local(w, m, cdt)
+    if dim == 0:
+        d = x.shape[-1] // plan.tp
+        return model_psum(plan, [x[..., j * d:(j + 1) * d]
+                                 @ plan.local(w, j, cdt)
+                                 for j in range(plan.tp)])
+    return x @ plan.local(w, 0, cdt)
+
+
+def attention_tables(cfg: ModelConfig, positions: torch.Tensor, windows,
+                     causal: bool = True) -> dict:
+    """What every layer's meshed attention of one data entry shares: the
+    mask bias of each window in ``windows`` and, with RoPE, the rotation
+    tables (:func:`~repro_torch.models.layers.rope_tables`), computed once
+    a forward."""
+    from .layers import rope_tables
+
+    out = {"positions": positions,
+           "bias": {w: _mask_bias(positions, positions, w, causal)
+                    for w in sorted(set(windows))}}
+    if cfg.rope_kind == "rope":
+        out["rope"] = rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
+    return out
+
+
+def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
+    """The training form of :func:`attention_apply` (explicit positions,
+    :func:`_sdpa_masked`'s arithmetic, no cache) over ``plan``'s mesh:
+    ``xs`` has one tensor a data entry and ``tables`` its
+    :func:`attention_tables`, ``p`` the layer's sharded weights; returns
+    the output of each data entry.
+
+    Aligned query heads (``wq`` column-parallel): model entry ``m`` runs
+    its own block of heads end to end and its row-parallel ``wo``
+    partial is ``psum``-ed.  Its keys and values are its own block of KV
+    heads when they are aligned too (a query block's KV heads are the
+    same block of the KV heads), else the whole K and V, each the
+    ``psum`` of the row-parallel partials over ``d_model``, with each
+    local query head's KV head picked out: no head is ever split.
+    Misaligned query heads: the whole attention once a data entry, then
+    ``wo`` column-parallel over ``d_model``, its blocks gathered."""
+    from repro_torch.launch.mesh import all_gather
+
+    from .layers import model_psum, rotate
+
+    cdt = cfg.cdtype
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q_split = plan.split_model(p["wq"]) == 1
+    kv_split = plan.split_model(p["wk"]) == 1
+    tp = plan.tp if q_split else 1
+    h_l = h // tp
+    outs = []
+    for x, tab in zip(xs, tables):
+        b, s, _ = x.shape
+        x = x.to(cdt)
+        bias = tab["bias"][window]
+        k_whole = v_whole = None
+        if not kv_split:
+            k_whole = _project(plan, x, p["wk"], 0).reshape(b, s, kv, hd)
+            v_whole = _project(plan, x, p["wv"], 0).reshape(b, s, kv, hd)
+        parts = []
+        for m in range(tp):
+            q = _project(plan, x, p["wq"], m).reshape(b, s, h_l, hd)
+            if kv_split:
+                kv_l = kv // plan.tp
+                k = _project(plan, x, p["wk"], m).reshape(b, s, kv_l, hd)
+                v = _project(plan, x, p["wv"], m).reshape(b, s, kv_l, hd)
+            elif tp > 1:
+                # each local query head's KV head, so _sdpa pairs them 1:1
+                pick = torch.arange(m * h_l, (m + 1) * h_l,
+                                    device=x.device) // (h // kv)
+                k, v = k_whole[:, :, pick], v_whole[:, :, pick]
+            else:
+                k, v = k_whole, v_whole
+            if cfg.qk_norm:
+                q = rmsnorm(q, plan.local(p["q_norm"]), cfg.norm_eps)
+                k = rmsnorm(k, plan.local(p["k_norm"]), cfg.norm_eps)
+            if "rope" in tab:
+                q, k = rotate(q, *tab["rope"]), rotate(k, *tab["rope"])
+            out = _sdpa_chunked(q, k, v, tab["positions"], bias)
+            out = out.reshape(b, s, h_l * hd).to(cdt)
+            parts.append(out @ plan.local(p["wo"], m, cdt) if q_split
+                         else out)
+        if q_split:
+            outs.append(model_psum(plan, parts))
+            continue
+        out = parts[0]
+        if plan.split_model(p["wo"]) == 1:
+            cols = [out @ plan.local(p["wo"], m, cdt)
+                    for m in range(plan.tp)]
+            outs.append(torch.cat(list(all_gather(plan.mesh, "model", cols)),
+                                  dim=-1))
+        else:
+            outs.append(out @ plan.local(p["wo"], 0, cdt))
+    return outs

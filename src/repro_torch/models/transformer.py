@@ -30,7 +30,11 @@ says where each sits in the reference's groups.  Entry points:
   MoE auxiliary loss (+ per-layer caches with ``return_caches``), the
   training forward too, with ``cfg.remat``'s activation checkpointing per
   block under autograd;
-* :func:`decode_step` — one token against the fixed-capacity cache.
+* :func:`decode_step` — one token against the fixed-capacity cache;
+* :func:`forward_meshed` — the sharded trainer's forward over the port's
+  ``Mesh``: the reference's parameter tree as per-entry blocks, each
+  layer run once an entry, the decoder-only dense and MoE kinds
+  (:func:`meshed_refusal` names the rest, item 10.8).
 
 A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
 MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's
@@ -43,6 +47,7 @@ differentiates :func:`forward` with explicit positions, which take
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Any, Dict, List, Mapping, Optional, Tuple
 
 import numpy as np
@@ -51,11 +56,12 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device, to_host
 
-from .attention import (MLA, Attention, CrossAttention, attn_params,
-                        cross_attn_params, mla_params)
+from .attention import (MLA, Attention, CrossAttention, attention_tables,
+                        attn_params, cross_attn_params, mla_params)
 from .config import ModelConfig
 from .layers import (MLP, RMSNorm, _param, dense_init, embed,
-                     neg_log_10000_over, sinusoidal_positions, unembed)
+                     neg_log_10000_over, rmsnorm as rmsnorm_,
+                     sinusoidal_positions, unembed)
 from .moe import MoE, moe_params
 from . import ssm
 
@@ -322,8 +328,9 @@ def init_params(cfg: ModelConfig, seed: int = 0,
 
 def params_from_arrays(cfg: ModelConfig, tree: Mapping[str, Any],
                        device: DeviceLike = None) -> Transformer:
-    """The module from the reference's params as numpy arrays: ``embed``,
-    ``final_norm``, optional ``lm_head`` and ``groups``, each layer's
+    """The module from the reference's params as numpy arrays (or tensors):
+    ``embed``, ``final_norm``, optional ``lm_head`` and ``groups``, each
+    layer's
     weights stacked on its group's leading ``repeats`` axis
     (:func:`layer_slots`).  The module is laid out on the meta device,
     allocated on ``device`` uninitialised and then loaded
@@ -375,7 +382,8 @@ def _stand_in(t) -> np.ndarray:
 
 
 def arrays_from_named(named: Mapping[str, Any], cfg: ModelConfig,
-                      shapes_only: bool = False) -> Dict[str, Any]:
+                      shapes_only: bool = False,
+                      on_device: bool = False) -> Dict[str, Any]:
     """The reference's parameter tree, as numpy arrays on the host, from a
     mapping keyed by the module's parameter names (the parameters, their
     gradients or a moment of the optimizer) of a model of ``cfg``:
@@ -383,8 +391,10 @@ def arrays_from_named(named: Mapping[str, Any], cfg: ModelConfig,
     group of ``cfg``'s plan (``attn_mlp_0``; deepseek's ``mla_mlp_0``, then
     ``mla_moe_0``) of each layer's weights stacked on ``repeats``.  With ``shapes_only`` each leaf is a
     zero-stride array of its shape and dtype (a restore template that
-    copies nothing)."""
-    leaf = _stand_in if shapes_only else to_host
+    copies nothing); with ``on_device`` each is a tensor where the named
+    one lives (detached; a stacked leaf is a new tensor)."""
+    leaf = _stand_in if shapes_only else (
+        (lambda t: t.detach()) if on_device else to_host)
     slots = _layer_places(cfg)
     tree: Dict[str, Any] = {}
     layers: Dict[Tuple[int, str, Tuple[str, ...]], Dict[int, Any]] = {}
@@ -405,7 +415,8 @@ def arrays_from_named(named: Mapping[str, Any], cfg: ModelConfig,
         rows = [per[i] for i in range(len(per))]
         node[path[-1]] = np.broadcast_to(rows[0], (len(rows),)
                                          + rows[0].shape) \
-            if shapes_only else np.stack(rows)
+            if shapes_only else (torch.stack(rows) if on_device
+                                 else np.stack(rows))
     tree["groups"] = groups
     return tree
 
@@ -413,8 +424,8 @@ def arrays_from_named(named: Mapping[str, Any], cfg: ModelConfig,
 def named_from_arrays(tree: Mapping[str, Any], names,
                       cfg: ModelConfig) -> Dict[str, np.ndarray]:
     """The inverse of :func:`arrays_from_named` for the parameter
-    ``names`` of a model of ``cfg``: each name's array out of the
-    reference's tree."""
+    ``names`` of a model of ``cfg``: each name's array (or tensor) out of
+    the reference's tree."""
     slots = _layer_places(cfg)
     out = {}
     for name in names:
@@ -422,7 +433,8 @@ def named_from_arrays(tree: Mapping[str, Any], names,
         node = tree if slot is None else tree["groups"][slot[0]][slot[1]]
         for k in path:
             node = node[k]
-        out[name] = np.asarray(node if slot is None else node[slot[2]])
+        got = node if slot is None else node[slot[2]]
+        out[name] = got if isinstance(got, torch.Tensor) else np.asarray(got)
     return out
 
 
@@ -433,6 +445,9 @@ def load_arrays_(named: Mapping[str, torch.Tensor],
     moment), in place, each converted to its tensor's dtype."""
     with torch.no_grad():
         for name, a in named_from_arrays(tree, named, cfg).items():
+            if isinstance(a, torch.Tensor):
+                named[name].copy_(a)
+                continue
             if not a.flags.writeable:     # torch wants a writeable buffer
                 a = a.copy()
             named[name].copy_(torch.from_numpy(a))
@@ -525,17 +540,9 @@ def _run_block(blk: Block, x: torch.Tensor, positions, remat: str,
     the backward pass, ``"dots"`` keeps the products without batch
     dimensions too (the reference's ``_run_group`` policies).  Returns
     ``(x, cache, aux)``."""
-    kw = dict(positions3=positions3, enc_out=enc_out)
-    if remat == "none" or not torch.is_grad_enabled():
-        return blk(x, positions, **kw)
-    from torch.utils.checkpoint import checkpoint
-
-    if remat == "full":
-        return checkpoint(blk, x, positions, use_reentrant=False, **kw)
-    if remat == "dots":
-        return checkpoint(blk, x, positions, use_reentrant=False,
-                          context_fn=_dots_saveable, **kw)
-    raise ValueError(f"unknown remat policy {remat!r}")
+    return _checkpointed(functools.partial(blk, positions3=positions3,
+                                           enc_out=enc_out),
+                         remat, x, positions)
 
 
 def _inputs(model: Transformer, batch: Mapping[str, Any]) -> torch.Tensor:
@@ -660,3 +667,142 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
         new_layers.append(kv)
     return _head(model, x), {"layers": new_layers,
                              "enc_out": cache.get("enc_out")}
+
+
+# ---------------------------------------------------------------------------
+# The meshed forward (the sharded trainer's)
+# ---------------------------------------------------------------------------
+
+# The layer kinds a meshed forward runs: the decoder-only dense and MoE
+# families.  MLA, the recurrent blocks and the vision-language and
+# encoder-decoder models wait (ROADMAP.md §1 item 10.8).
+MESHED_KINDS = ("attn_mlp", "attn_moe")
+
+
+def meshed_refusal(cfg: ModelConfig) -> Optional[str]:
+    """Why ``cfg`` cannot train over a mesh yet, or ``None``."""
+    kinds = sorted({s.kind for s in layer_slots(cfg)} - set(MESHED_KINDS))
+    if kinds or cfg.input_kind != "tokens" or cfg.rope_kind == "mrope":
+        what = ", ".join(kinds) if kinds else \
+            f"{cfg.input_kind} inputs with {cfg.rope_kind}"
+        return (f"meshed training of {cfg.name} ({what}) is not ported yet "
+                f"(ROADMAP.md §1, item 10, LM substrate: the meshed "
+                f"decoder-only dense and MoE models are item 10.7, the "
+                f"rest item 10.8)")
+    return None
+
+
+def _unstack(st, mesh):
+    """A stacked group leaf (its blocks ``(repeats, ...)``) as one sharded
+    view a repeat: each distinct block unbound once, so that the backward
+    stacks the repeats' gradients in one step."""
+    from repro_torch.dist.sharding import NamedSharding, ShardedTensor
+
+    views = {id(b): b.unbind(0) for b in st.distinct()}
+    sharding = NamedSharding(mesh, type(st.spec)(*tuple(st.spec)[1:]))
+    return [ShardedTensor(sharding, [views[id(b)][r] for b in st.blocks],
+                          st.shape[1:]) for r in range(st.shape[0])]
+
+
+def _layer_weights(params, cfg: ModelConfig, mesh) -> List[dict]:
+    """Each layer's sharded weights out of the reference's tree: ``ln1``,
+    ``ln2`` (the scales), ``attn`` (with the qk-norm scales under
+    ``q_norm`` / ``k_norm``) and ``ffn``."""
+    per_group: Dict[Tuple[int, str], dict] = {}
+    out = []
+    for slot in layer_slots(cfg):
+        key = (slot.group, slot.key)
+        if key not in per_group:
+            node = params["groups"][slot.group][slot.key]
+            attn = {n: _unstack(v["scale"] if isinstance(v, dict) else v,
+                                mesh)
+                    for n, v in node["attn"].items()}
+            per_group[key] = {
+                "ln1": _unstack(node["ln1"]["scale"], mesh),
+                "ln2": _unstack(node["ln2"]["scale"], mesh),
+                "attn": attn,
+                "ffn": {n: _unstack(v, mesh)
+                        for n, v in node["ffn"].items()}}
+        g, r = per_group[key], slot.repeat
+        out.append({"ln1": g["ln1"][r], "ln2": g["ln2"][r],
+                    "attn": {n: v[r] for n, v in g["attn"].items()},
+                    "ffn": {n: v[r] for n, v in g["ffn"].items()}})
+    return out
+
+
+def _block_meshed(plan, cfg: ModelConfig, lp: dict, moe: bool,
+                  window: int, xs, tables):
+    """:class:`Block`'s forward for the attention kinds over the mesh:
+    pre-norm self-attention, then the pre-norm MLP or MoE, on each data
+    entry's ``xs``.  Returns ``(xs, aux)``."""
+    from .attention import attention_meshed
+    from .layers import mlp_meshed
+    from .moe import moe_meshed
+
+    plan.clear()        # gather this layer's weights (again in a remat)
+    cdt = cfg.cdtype
+    ln1, ln2 = plan.local(lp["ln1"]), plan.local(lp["ln2"])
+    hs = [rmsnorm_(x.to(cdt), ln1, cfg.norm_eps) for x in xs]
+    a = attention_meshed(plan, lp["attn"], cfg, hs, tables, window)
+    xs = [x + o.to(x.dtype) for x, o in zip(xs, a)]
+    hs = [rmsnorm_(x.to(cdt), ln2, cfg.norm_eps) for x in xs]
+    if moe:
+        f, aux = moe_meshed(plan, lp["ffn"], cfg, hs)
+    else:
+        f, aux = mlp_meshed(plan, lp["ffn"], hs, cdt), None
+    return [x + o.to(x.dtype) for x, o in zip(xs, f)], aux
+
+
+def forward_meshed(params, cfg: ModelConfig, plan, batches):
+    """The training forward over ``plan``'s mesh (a
+    :class:`~repro_torch.models.layers.MeshPlan`).  ``params`` is the
+    reference's parameter tree, each leaf a
+    :class:`~repro_torch.dist.sharding.ShardedTensor` (its group leaves
+    stacked on ``repeats``); ``batches`` has one dict a data entry, its
+    ``tokens`` (B_d, S) and explicit ``positions`` (B_d, S).  Each block
+    runs under ``cfg.remat``'s activation checkpointing, as
+    :func:`forward`'s.  Returns ``(logits, aux)``: for each data entry
+    the float32 logits of each model entry's vocab block (a list), and
+    the summed MoE router loss."""
+    why = meshed_refusal(cfg)
+    if why:
+        raise NotImplementedError(why)
+    from .layers import embed_meshed, unembed_meshed
+
+    mesh = plan.mesh
+    cdt = cfg.cdtype
+    plan.clear()
+    xs = [x.to(cdt) for x in embed_meshed(
+        plan, params["embed"]["table"], [b["tokens"] for b in batches])]
+    slots = layer_slots(cfg)
+    tables = [attention_tables(cfg, b["positions"],
+                               [s.window for s in slots]) for b in batches]
+    aux = torch.zeros((), dtype=torch.float32, device=plan.device())
+    for slot, lp in zip(slots, _layer_weights(params, cfg, mesh)):
+        fn = functools.partial(_block_meshed, plan, cfg, lp,
+                               slot.kind.endswith("_moe"), slot.window)
+        xs, a = _checkpointed(fn, cfg.remat, xs, tables)
+        if a is not None:
+            aux = aux + a
+    plan.clear()
+    scale = plan.local(params["final_norm"]["scale"])
+    xs = [rmsnorm_(x, scale, cfg.norm_eps) for x in xs]
+    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
+    return unembed_meshed(plan, table, xs, cdt), aux
+
+
+def _checkpointed(fn, remat: str, *args):
+    """``fn(*args)`` under ``remat``'s activation checkpointing when
+    autograd records: ``"full"`` keeps only the inputs and recomputes the
+    rest in the backward pass, ``"dots"`` keeps the products without
+    batch dimensions too (:func:`_dots_saveable`)."""
+    if remat == "none" or not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    if remat == "full":
+        return checkpoint(fn, *args, use_reentrant=False)
+    if remat == "dots":
+        return checkpoint(fn, *args, use_reentrant=False,
+                          context_fn=_dots_saveable)
+    raise ValueError(f"unknown remat policy {remat!r}")

@@ -8,6 +8,15 @@ leaves its arguments as they were.  The arithmetic is the reference's,
 step for step in float32, over ``torch._foreach_*`` lists: clipping,
 bias correction, decoupled weight decay, and the schedule evaluated on the
 0-d int32 step.
+
+Over a mesh the trees' leaves are
+:class:`~repro_torch.dist.sharding.ShardedTensor`s (the parameters, their
+gradients and both moments laid out alike, ``shard_params(...,
+fsdp=True)``'s specs) and the update runs on the local blocks, each
+distinct block once.  The clip's global norm is built as a mesh builds
+it: each entry sums the squares of the gradient blocks it owns (a block
+that several entries hold is owned by the first, so a replicated leaf
+counts once), and the entries' sums are ``psum``-ed over every mesh axis.
 """
 from __future__ import annotations
 
@@ -17,7 +26,8 @@ from typing import Any, Callable, NamedTuple
 
 import torch
 
-from repro_torch.dist.sharding import tree_flatten_with_path, tree_unflatten
+from repro_torch.dist.sharding import (ShardedTensor, tree_flatten_with_path,
+                                       tree_unflatten)
 
 
 class AdamWState(NamedTuple):
@@ -56,13 +66,42 @@ class AdamW:
     def update(self, grads, state: AdamWState, params):
         flat, treedef = tree_flatten_with_path(params)
         p = [leaf for _, leaf in flat]
-        g = [t.float() for t in _leaves(grads)]
-        m, v = _leaves(state.m), _leaves(state.v)
+        g, m, v = _leaves(grads), _leaves(state.m), _leaves(state.v)
+        if p and isinstance(p[0], ShardedTensor):
+            gnorm = sharded_global_norm(g)
+            step = state.step.blocks[0] + 1
+            blocks = [[b for st in tree for b in st.distinct()]
+                      for tree in (g, m, v, p)]
+            new_p, m2, v2 = self._adamw(*blocks, gnorm, step)
+
+            def back(leaves, new):
+                it, out = iter(new), []
+                for st in leaves:
+                    out.append(st.with_blocks([next(it) for _ in
+                                               st.distinct()]))
+                return tree_unflatten(treedef, out)
+
+            return (back(p, new_p),
+                    AdamWState(step=state.step.with_blocks([step]),
+                               m=back(m, m2), v=back(v, v2)),
+                    gnorm)
+        g = [t.float() for t in g]
         gnorm = global_norm(g)
+        step = state.step + 1
+        new_p, m, v = self._adamw(g, m, v, p, gnorm, step)
+        return (tree_unflatten(treedef, new_p),
+                AdamWState(step=step, m=tree_unflatten(treedef, m),
+                           v=tree_unflatten(treedef, v)),
+                gnorm)
+
+    def _adamw(self, g, m, v, p, gnorm, step):
+        """The update on flat lists: clipping by ``gnorm``, bias correction
+        at ``step`` (the new step), decoupled weight decay.  Returns new
+        lists ``(p, m, v)``."""
+        g = [t.float() for t in g]
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)
             g = torch._foreach_mul(g, scale)
-        step = state.step + 1
         sf = step.float()
         b1c = 1.0 - torch.pow(self.b1, sf)
         b2c = 1.0 - torch.pow(self.b2, sf)
@@ -85,10 +124,7 @@ class AdamW:
         torch._foreach_add_(delta, torch._foreach_mul(p32, self.weight_decay))
         torch._foreach_mul_(delta, lr)
         new_p = [(a - d).to(t.dtype) for a, d, t in zip(p32, delta, p)]
-        return (tree_unflatten(treedef, new_p),
-                AdamWState(step=step, m=tree_unflatten(treedef, m),
-                           v=tree_unflatten(treedef, v)),
-                gnorm)
+        return new_p, m, v
 
 
 def global_norm(tree) -> torch.Tensor:
@@ -96,6 +132,31 @@ def global_norm(tree) -> torch.Tensor:
     for leaf in _leaves(tree):
         total = total + torch.sum(torch.square(leaf.float()))
     return torch.sqrt(torch.as_tensor(total, dtype=torch.float32))
+
+
+def sharded_global_norm(leaves) -> torch.Tensor:
+    """The global norm of a list of sharded gradient leaves: each mesh
+    entry's sum of squares over the blocks it owns (the first entry that
+    holds a block owns it), ``psum``-ed over every mesh axis, innermost
+    first."""
+    from repro_torch.launch.mesh import psum
+
+    mesh = leaves[0].sharding.mesh
+    dev = leaves[0].blocks[0].device
+    local = [torch.zeros((), dtype=torch.float32, device=dev)
+             for _ in range(mesh.devices.size)]
+    for st in leaves:
+        owned = set()
+        for i, b in enumerate(st.blocks):
+            key = st.sharding.block_index(i)
+            if key not in owned:
+                owned.add(key)
+                local[i] = local[i] + torch.sum(torch.square(b.float()))
+    for axis in reversed(mesh.axis_names):
+        n = mesh.shape[axis]
+        local = [psum(mesh, axis, local[i:i + n])
+                 for i in range(0, len(local), n)]
+    return torch.sqrt(local[0])
 
 
 def warmup_cosine(peak_lr: float, warmup: int, total: int,

@@ -343,10 +343,29 @@ def test_every_step_corrupt_raises(tmp_path):
 
 
 def test_restore_refuses_shardings(tmp_path):
-    tree = {"w": np.arange(4, dtype=np.float32)}
+    """Restoring onto shardings, refused until item 10.7 was ported, now
+    lays each leaf out on its placement: whole again, each is the
+    reference's restore of the same files bit for bit.  A shardings tree
+    that does not match the template raises ``ValueError``."""
+    from repro_torch.dist.sharding import NamedSharding, P
+    from repro_torch.launch.mesh import make_mesh
+
+    tree = {"w": np.arange(8, dtype=np.float32).reshape(4, 2),
+            "s": np.asarray(3, dtype=np.int32)}
     ckpt = Checkpointer(str(tmp_path))
     ckpt.save(1, tree)
-    with pytest.raises(NotImplementedError, match="item 10"):
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    shardings = {"w": NamedSharding(mesh, P("data", "model")),
+                 "s": NamedSharding(mesh, P())}
+    want, _ = JCheckpointer(str(tmp_path)).restore(tree)
+    got, meta = ckpt.restore(tree, shardings=shardings)
+    latest, _, step = ckpt.restore_latest_valid(tree, shardings=shardings)
+    assert step == 1
+    for out in (got, latest):
+        assert [b.shape for b in out["w"].blocks] == [(2, 1)] * 4
+        for k in tree:
+            whole = out[k].unshard().numpy()
+            assert whole.dtype == np.asarray(want[k]).dtype
+            assert np.array_equal(whole, np.asarray(want[k]))
+    with pytest.raises(ValueError, match="one NamedSharding a leaf"):
         ckpt.restore(tree, shardings={"w": object()})
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ckpt.restore_latest_valid(tree, shardings={"w": object()})

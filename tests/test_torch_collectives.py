@@ -1,5 +1,7 @@
 """``repro_torch.analyze.collectives`` against ``repro.analyze.collectives``:
-the port's registered mesh programs give the reference's pinned schedules,
+the port's registered mesh programs (the reference's registry, the int8
+gradient exchange ``compressed_psum_grads`` included) give the
+reference's pinned schedules,
 each planted fault gives the reference's violation kind, the pivot-exchange
 wire checks run on the port's codec, and the mesh collectives
 (``launch/mesh.py``'s ``all_gather`` and ``ppermute``) that the exchange
@@ -45,14 +47,13 @@ def test_check_repo_is_clean_and_matches_reference():
     ref_schedules, ref_violations = ref_coll.check_repo()
     assert not ref_violations
     want = {s.where: s.signature() for s in ref_schedules}
-    assert set(want) - set(got) == {"dist.compression.compressed_psum_grads"}
+    assert set(want) == set(got)
     for name, sig in got.items():
         assert sig == want[name], name
     assert [p.name for p in coll.repo_programs(device="cpu")] == \
-        [p.name for p in ref_coll.repo_programs()
-         if p.name != "dist.compression.compressed_psum_grads"]
+        [p.name for p in ref_coll.repo_programs()]
     assert {p.name: p.expect for p in coll.repo_programs(device="cpu")} == \
-        {p.name: p.expect for p in ref_coll.repo_programs() if p.name in got}
+        {p.name: p.expect for p in ref_coll.repo_programs()}
 
 
 def test_registry_runs_on_the_card_unless_asked(monkeypatch):
@@ -240,7 +241,7 @@ def test_check_repo_reports_planted_programs(monkeypatch):
 
     monkeypatch.setattr(coll, "repo_programs", planted)
     schedules, violations = coll.check_repo(device="cpu")
-    assert len(schedules) == 5
+    assert len(schedules) == len(real(device="cpu")) + 2
     by_where = {}
     for v in violations:
         by_where.setdefault(v.where, []).append(v.kind)
@@ -479,7 +480,7 @@ def test_cli_collectives_on_the_cpu_when_asked(capsys):
 
     assert main(["collectives", "--device", "cpu"]) == 0
     out = capsys.readouterr().out.splitlines()
-    assert out[-1] == "collectives: 3 program(s) traced, 0 violation(s)"
+    assert out[-1] == "collectives: 4 program(s) traced, 0 violation(s)"
 
 
 def test_cli_collectives_without_a_card_fails(monkeypatch, capsys):

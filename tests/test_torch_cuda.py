@@ -8,7 +8,10 @@ Tolerances: pairwise ``atol = 1e-4 * max(1, max |x|^2)``, ``rtol = 1e-5``
 float32 and ``1e-2`` in bfloat16, and a reduced prefill on the card
 against the CPU ``2e-4`` (float32 compute, TF32 off); one reduced train
 step on the card against the CPU: loss and gradient norm within 1e-5, the
-weights by the median and 99.9th percentile of their difference.  In bfloat16 the
+weights by the median and 99.9th percentile of their difference; the
+same for one meshed step over a (4, 2) mesh of the card's entries
+against a CPU mesh, and ``_moe_a2a`` there against the CPU's (the same
+routings dropped, outputs within 1e-5).  In bfloat16 the
 kernel rounds the probabilities to bfloat16 for P.V where the plain
 version keeps them in float32, and both round the output once:
 ``tests/test_torch_flash_numerics.py`` shows on the CPU that this stays
@@ -1006,3 +1009,97 @@ def test_check_repo_card_matches_cpu(dev):
         assert mesh.devices.flat[0].type == "cuda"
         fn, args, _, _ = program.build()
         assert _same_result(card_fn(*card_args), fn(*args)), program.name
+
+
+@pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b",
+                                  "granite-moe-1b-a400m"])
+def test_reduced_meshed_step_card_matches_cpu(dev, arch):
+    """One meshed train step of a reduced model (float32 compute, TF32 off)
+    over a (data 4, model 2) mesh of the card's entries and over one of the
+    CPU's, from the same weights: loss and gradient norm within 1e-5, the
+    weights as :func:`test_reduced_train_step_card_matches_cpu` holds
+    them."""
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules,
+                                           tree_flatten_with_path)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import (AdamW, init_train_state, make_train_step,
+                                   warmup_cosine)
+    from repro_torch.train.train_step import (shard_train_state,
+                                              train_state_to_arrays)
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config(arch, reduced=True)
+    opt = AdamW(lr=warmup_cosine(1e-3, 2, 10))
+    toks = torch.as_tensor(np.random.default_rng(8).integers(
+        0, cfg.vocab_size, (8, 33)), dtype=torch.int32)
+    out = []
+    for d in ("cpu", dev):
+        mesh = make_mesh((4, 2), ("data", "model"), devices=[d] * 8)
+        step = bind_activation_rules(make_train_step(
+            cfg, opt, n_micro=2, micro_batch_axes=("data",)),
+            activation_rules(cfg, mesh))
+        state = shard_train_state(init_train_state(cfg, opt, seed=0,
+                                                   device="cpu"), mesh)
+        state, m = step(state, {"tokens": toks.to(d)})
+        out.append((m, [np.asarray(a) for _, a in tree_flatten_with_path(
+            train_state_to_arrays(state).params)[0]]))
+    (hm, hw), (cm, cw) = out
+    for k in ("loss", "grad_norm", "lr", "aux_loss"):
+        np.testing.assert_allclose(float(cm[k]), float(hm[k]), rtol=1e-5,
+                                   err_msg=k)
+    d = np.concatenate([np.abs(a - b).ravel() for a, b in zip(cw, hw)])
+    assert np.median(d) <= 1e-7
+    assert np.quantile(d, 0.999) <= 1e-6
+    assert d.max() <= 2 * float(hm["lr"]) * (1 + 1e-3)
+
+
+@pytest.mark.parametrize("t", [64, 66])
+def test_moe_a2a_card_matches_cpu(dev, t):
+    """``_moe_a2a`` over a (data 2, model 2) mesh of the card's entries and
+    of the CPU's (reduced granite-moe, float32, TF32 off): the same
+    routings dropped, the outputs within 1e-5."""
+    from repro_torch.dist.sharding import NamedSharding, spec_for_param
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import MeshPlan
+    from repro_torch.models.moe import _moe_a2a
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = get_config("granite-moe-1b-a400m", reduced=True)
+    m = cfg.moe
+    rng = np.random.default_rng(t)
+    first = rng.choice(m.n_experts, size=t, p=[0.7, 0.1, 0.1, 0.1])
+    te = torch.as_tensor(np.stack([first, (first + 1 + rng.integers(
+        0, m.n_experts - 1, size=t)) % m.n_experts], axis=1))
+    tp = torch.as_tensor(rng.random((t, m.top_k)), dtype=torch.float32)
+    xf = torch.as_tensor(rng.normal(size=(t, cfg.d_model)),
+                         dtype=torch.float32)
+    shapes = {"w_gate": (m.n_experts, cfg.d_model, m.d_expert),
+              "w_up": (m.n_experts, cfg.d_model, m.d_expert),
+              "w_down": (m.n_experts, m.d_expert, cfg.d_model)}
+    weights = {k: rng.normal(size=s).astype(np.float32) / 8
+               for k, s in shapes.items()}
+    runs = []
+    for d in ("cpu", dev):
+        mesh = make_mesh((2, 2), ("data", "model"), devices=[d] * 4)
+        p = {k: NamedSharding(mesh, spec_for_param(
+            f"ffn/{k}", w.shape, mesh, [])).shard(w)
+            for k, w in weights.items()}
+        plan = MeshPlan(mesh, ("data",))
+
+        def run(w):
+            outs = _moe_a2a(plan, list(torch.chunk(xf.to(d), 2)),
+                            list(torch.chunk(te.to(d), 2)),
+                            list(torch.chunk(w.to(d), 2)), p, cfg)
+            return torch.cat(outs).cpu()
+
+        kept = []
+        for j in range(m.top_k):
+            one = torch.zeros_like(tp)
+            one[:, j] = 1.0
+            kept.append(run(one).ne(0).any(dim=1))
+        runs.append((run(tp), kept))
+    (want, want_kept), (got, got_kept) = runs
+    for a, b in zip(got_kept, want_kept):
+        assert torch.equal(a, b)
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)

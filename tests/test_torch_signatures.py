@@ -543,21 +543,78 @@ def test_trainer_packages_export_the_reference_names():
             "repro_torch.train.")
 
 
-def _trainer_refusal(case, tmp_path):
-    from repro_torch.configs import get_config
+def _trainer_accepts(case, tmp_path):
+    """What the sharded trainer's four entry points give against the
+    reference's results: ``mesh_shape`` (a (2, 2) run of reduced qwen3
+    from the reference's initial state, its losses and gradient norms
+    against the reference's unmeshed run of the same job),
+    ``micro_batch_axes`` (one meshed step against the reference's jitted
+    step on the same weights) and ``restore`` / ``restore_latest_valid``
+    onto shardings (each leaf laid out on a (2, 2) CPU mesh, whole again
+    equal to the reference's restore).  Returns pairs (port, reference)
+    to hold within 1e-5 relative."""
+    import contextlib
+    import io
 
+    import jax
+    import jax.numpy as jnp
+    import torch
+
+    from repro.checkpoint import Checkpointer as JCheckpointer
+    from repro.configs import get_config as jax_get_config
+    from repro.launch import train as jlaunch
+    from repro.train import optimizer as jopt
+    from repro.train import train_step as jts
+    from repro_torch.configs import get_config
+    from repro_torch.dist.sharding import (NamedSharding, P,
+                                           activation_rules,
+                                           bind_activation_rules)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import train_step as port_ts
+
+    jcfg = jax_get_config("qwen3-0.6b", reduced=True)
     cfg = get_config("qwen3-0.6b", reduced=True)
-    opt = port_train.AdamW(lr=port_train.warmup_cosine(1e-3, 2, 10))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    jo = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    jstate = jts.init_train_state(jcfg, jo, jax.random.PRNGKey(0))
     if case == "mesh_shape":
-        port_launch_train.run(port_launch_train.TrainJob(
-            cfg=cfg, mesh_shape=(2, 2), device="cpu"))
-    elif case == "micro_batch_axes":
-        port_train.make_train_step(cfg, opt, micro_batch_axes=("data",))
-    else:
-        ckpt = port_checkpoint.Checkpointer(str(tmp_path))
-        tree = {"w": np.zeros(3, dtype=np.float32)}
-        ckpt.save(0, tree)
-        getattr(ckpt, case)(tree, shardings={"w": None})
+        for d in ("j", "t"):
+            JCheckpointer(str(tmp_path / d)).save(-1, jstate,
+                                                  metadata={"step": -1})
+        kw = dict(steps=3, global_batch=4, seq_len=16, n_micro=2, lr=1e-3,
+                  warmup=2, ckpt_every=10_000, log_every=1)
+        with contextlib.redirect_stdout(io.StringIO()):
+            want = jlaunch.run(jlaunch.TrainJob(
+                cfg=jcfg, ckpt_dir=str(tmp_path / "j"), **kw), restore=True)
+            got = port_launch_train.run(port_launch_train.TrainJob(
+                cfg=cfg, ckpt_dir=str(tmp_path / "t"), mesh_shape=(2, 2),
+                device="cpu", **kw), restore=True)
+        return [(g[k], w[k]) for g, w in zip(got["history"], want["history"])
+                for k in ("loss", "grad_norm")]
+    if case == "micro_batch_axes":
+        toks = np.random.default_rng(0).integers(
+            0, cfg.vocab_size, (8, 17)).astype(np.int32)
+        _, jm = jax.jit(jts.make_train_step(jcfg, jo, n_micro=2))(
+            jstate, {"tokens": jnp.asarray(toks)})
+        to = port_train.AdamW(lr=port_train.warmup_cosine(1e-3, 2, 10))
+        state = port_ts.train_state_from_arrays(
+            cfg, jax.tree.map(np.asarray, jstate), "cpu")
+        step = bind_activation_rules(port_train.make_train_step(
+            cfg, to, n_micro=2, micro_batch_axes=("data",)),
+            activation_rules(cfg, mesh))
+        _, tm = step(port_ts.shard_train_state(state, mesh),
+                     {"tokens": torch.from_numpy(toks)})
+        return [(float(tm[k]), float(jm[k])) for k in ("loss", "grad_norm")]
+    ckpt = port_checkpoint.Checkpointer(str(tmp_path))
+    tree = {"w": np.arange(24, dtype=np.float32).reshape(4, 6),
+            "b": np.arange(3, dtype=np.int32)}
+    ckpt.save(0, tree)
+    shardings = {"w": NamedSharding(mesh, P("data", "model")),
+                 "b": NamedSharding(mesh, P())}
+    got = getattr(ckpt, case)(tree, shardings=shardings)[0]
+    want = JCheckpointer(str(tmp_path)).restore(tree)[0]
+    assert len(got["w"].distinct()) == 4 and len(got["b"].distinct()) == 1
+    return [(got[k].unshard().numpy(), np.asarray(want[k])) for k in tree]
 
 
 def _embedding_batch_step(case):
@@ -605,23 +662,40 @@ def _embedding_batch_step(case):
     return jm, tm
 
 
+MESH_REFUSED = ("deepseek-v2-lite-16b", "xlstm-1.3b", "recurrentgemma-9b",
+                "qwen2-vl-2b", "whisper-small")
+
+
 @pytest.mark.parametrize("case", ["mesh_shape", "micro_batch_axes",
                                   "restore", "restore_latest_valid",
-                                  "positions3", "embeds"])
+                                  "positions3", "embeds",
+                                  *(f"mesh:{a}" for a in MESH_REFUSED)])
 def test_trainer_refusals_name_item_10(case, tmp_path):
-    """The sharded trainer (a mesh, pinned microbatch axes, restoring onto
-    shardings) raises ``NotImplementedError`` naming ROADMAP.md §1 item
-    10.  The batches refused until qwen2-vl was ported, ``embeds`` and
-    ``positions3``, now train: one step's loss and gradient norm equal
-    the reference's within 1e-5 relative."""
+    """The sharded trainer's entry points (a mesh, pinned microbatch axes,
+    restoring onto shardings), refused until item 10.7 was ported, now
+    run and give the reference's results within 1e-5 relative
+    (:func:`_trainer_accepts`).  Under a mesh the five architectures
+    whose meshed forward is item 10.8 raise ``NotImplementedError``
+    naming item 10.  The batches refused until qwen2-vl was ported,
+    ``embeds`` and ``positions3``, now train: one step's loss and
+    gradient norm equal the reference's within 1e-5 relative."""
     if case in ("positions3", "embeds"):
         jm, tm = _embedding_batch_step(case)
         for k in ("loss", "grad_norm"):
             np.testing.assert_allclose(float(tm[k]), float(jm[k]),
                                        rtol=1e-5, err_msg=k)
         return
-    with pytest.raises(NotImplementedError, match=r"item 10\b"):
-        _trainer_refusal(case, tmp_path)
+    if case.startswith("mesh:"):
+        from repro_torch.configs import get_config
+
+        cfg = get_config(case[len("mesh:"):], reduced=True)
+        with pytest.raises(NotImplementedError, match=r"item 10\b") as err:
+            port_launch_train.run(port_launch_train.TrainJob(
+                cfg=cfg, mesh_shape=(2, 2), device="cpu"))
+        assert "item 10," in str(err.value)
+        return
+    for got, want in _trainer_accepts(case, tmp_path):
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=case)
 
 
 # ---------------------------------------------------------------------------
@@ -629,17 +703,17 @@ def test_trainer_refusals_name_item_10(case, tmp_path):
 # ---------------------------------------------------------------------------
 
 def test_dist_exports_the_ported_part_of_the_references():
-    """``repro_torch.dist`` exports each name of the reference's
-    ``__all__`` that the port has (``tree_path_str``); the rest of its
-    list waits for the sharded trainer (item 10).  Beside them it exports
-    its own: the Elias-Fano codec and the data axis."""
+    """``repro_torch.dist`` exports every name of the reference's
+    ``__all__`` but ``tile_specs`` (its one choice is ``data_axis``), in
+    the reference's order; beside them its own: the Elias-Fano codec and
+    the data axis."""
     import repro.dist as ref_dist
     import repro_torch.dist as port_dist
     from repro_torch.dist import compression, sharding
 
     ported = [n for n in ref_dist.__all__
               if hasattr(sharding, n) or hasattr(compression, n)]
-    assert ported == ["tree_path_str"]
+    assert ported == [n for n in ref_dist.__all__ if n != "tile_specs"]
     assert [n for n in port_dist.__all__ if n in ref_dist.__all__] == ported
     assert set(port_dist.__all__) - set(ported) == {
         "ef_encode_sorted", "ef_decode_sorted", "pack_column_payload",
@@ -648,6 +722,16 @@ def test_dist_exports_the_ported_part_of_the_references():
         assert getattr(port_dist, name).__module__.startswith(
             "repro_torch.dist.")
     assert port_dist.tree_path_str is sharding.tree_path_str
+    for name in ported:
+        ref_params = list(inspect.signature(
+            getattr(ref_dist, name)).parameters)
+        port_params = list(inspect.signature(
+            getattr(port_dist, name)).parameters)
+        if name == "compressed_psum_grads":
+            # the port's collectives name their mesh
+            assert port_params == ref_params + ["mesh"]
+        else:
+            assert port_params == ref_params, name
 
 
 def test_sample_temperature_signature_is_the_references():

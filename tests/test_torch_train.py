@@ -14,7 +14,9 @@ rtol 1e-4 each step, and the final weights by the median (<= 1e-7) and the
 99.9th percentile (<= 1e-6) of their absolute difference, since at step 1
 AdamW turns a near-zero gradient whose last bit differs into a move of
 2 lr; microbatching within the port (1 against 4) below 1e-5, as
-``tests/test_system.py`` holds the reference; remat exactly.
+``tests/test_system.py`` holds the reference; remat exactly; the meshed
+step and launcher (``micro_batch_axes``, ``mesh_shape``) against the
+reference's unmeshed ones, loss and gradient norm rtol 1e-5.
 """
 import contextlib
 import io
@@ -352,15 +354,35 @@ def test_grad_accum_is_a_rebracketing():
 
 
 def test_train_step_refusals_name_item_10():
-    """The sharded step (``micro_batch_axes``) raises naming item 10.  A
-    token model's batch carrying ``positions3`` or ``embeds``, refused
-    until qwen2-vl was ported, now trains as the reference's does, which
-    reads neither for a token model: loss and gradient norm rtol 1e-5."""
+    """The sharded step (``micro_batch_axes``), refused until item 10.7
+    was ported, now runs: on a (data 2, model 2) CPU mesh one step equals
+    the reference's on the same weights (loss and gradient norm rtol
+    1e-5, the weights as :func:`_hold_weights` holds them).  A token
+    model's batch carrying ``positions3`` or ``embeds``, refused until
+    qwen2-vl was ported, now trains as the reference's does, which reads
+    neither for a token model: loss and gradient norm rtol 1e-5."""
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules)
+    from repro_torch.launch.mesh import make_mesh
+
     jcfg, cfg, jp, _ = _carried("qwen3-0.6b")
     opt = topt.AdamW(lr=topt.warmup_cosine(1e-3, 2, 10))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tts.make_train_step(cfg, opt, micro_batch_axes=("data",))
     jo = jopt.AdamW(lr=jopt.warmup_cosine(1e-3, 2, 10))
+    mesh = make_mesh((2, 2), ("data", "model"), devices=["cpu"] * 4)
+    meshed = bind_activation_rules(tts.make_train_step(
+        cfg, opt, n_micro=2, micro_batch_axes=("data",)),
+        activation_rules(cfg, mesh))
+    toks = _tokens(cfg, 8, 17, 3)
+    js, jm = jax.jit(jts.make_train_step(jcfg, jo, n_micro=2))(
+        jts.TrainState(params=jp, opt=jo.init(jp)),
+        {"tokens": jnp.asarray(toks)})
+    ts, tm = meshed(tts.shard_train_state(_port_state(cfg, jp, opt), mesh),
+                    {"tokens": torch.from_numpy(toks)})
+    for k in ("loss", "grad_norm"):
+        np.testing.assert_allclose(float(tm[k]), float(jm[k]), rtol=1e-5,
+                                   err_msg=f"meshed {k}")
+    _hold_weights(tts.train_state_to_arrays(ts).params,
+                  jax.tree.map(np.asarray, js.params))
     jstep = jts.make_train_step(jcfg, jo)
     step = tts.make_train_step(cfg, opt)
     toks = _tokens(cfg, 2, 9, 0)
@@ -546,11 +568,29 @@ def test_traced_run_spans_every_step():
     assert all(sp.dur > 0 for sp in spans)
 
 
-def test_run_refuses_a_mesh():
-    job = tlaunch.TrainJob(cfg=get_config("qwen3_0_6b", reduced=True),
-                           mesh_shape=(2, 2), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tlaunch.run(job)
+def test_run_refuses_a_mesh(tmp_path):
+    """``TrainJob(mesh_shape=(2, 2))``, refused until item 10.7 was
+    ported, now trains: from the reference's initial state, its history
+    equals the reference's unmeshed run of the same job (loss, gradient
+    norm, lr rtol 1e-5), its first line the mesh it built."""
+    jcfg, tcfg = jax_get_config("qwen3-0.6b", reduced=True), get_config(
+        "qwen3-0.6b", reduced=True)
+    kw = dict(steps=3, global_batch=4, seq_len=16, n_micro=2, lr=1e-3,
+              warmup=2, ckpt_every=10_000, log_every=1)
+    for d in ("j", "t"):
+        _seed_ckpt(str(tmp_path / d), jcfg)
+    want, _ = _quiet(jlaunch.run, jlaunch.TrainJob(
+        cfg=jcfg, ckpt_dir=str(tmp_path / "j"), **kw), restore=True)
+    got, out = _quiet(tlaunch.run, tlaunch.TrainJob(
+        cfg=tcfg, ckpt_dir=str(tmp_path / "t"), mesh_shape=(2, 2),
+        device="cpu", **kw), restore=True)
+    assert out.splitlines()[0] == ("Mesh({'data': 2, 'model': 2}, devices="
+                                   "['cpu', 'cpu', 'cpu', 'cpu'])")
+    for g, w in zip(got["history"], want["history"]):
+        for k in ("loss", "grad_norm", "lr"):
+            np.testing.assert_allclose(g[k], w[k], rtol=1e-5,
+                                       err_msg=f"{k} step {w['step']}")
+    assert len(got["history"]) == 3
 
 
 def test_cli_prints_the_reference_lines():
