@@ -110,27 +110,42 @@ paths' long profiles, a short profiled serving epoch has lost one of its
 6f. ``train_mesh`` — the sharded trainer over the port's ``Mesh``
    (``MESH_*``), run after ``train_moe``: full-width qwen3-0.6b (float32
    parameters, bf16 compute) with ``TrainJob(mesh_shape=(4, 2))`` over
-   ``["cuda:0"] * 8``, 3 steps of 8 x 512 tokens in 2 microbatches (one
+   ``["cuda:0"] * 8``, 2 steps of 8 x 512 tokens in 2 microbatches (one
    sequence a data entry, heads and MLP split in two), a checkpoint at
    every step (``save_async``), ``tda_monitor`` at step 0 (the counts set
    to 0 just before ``run``: one bf16 flash launch a layer and the PH
-   kernels); then ``run(restore=True)`` on a (2, 2) mesh for 2 more steps.
+   kernels); then its last checkpoint restored onto a (2, 2) mesh
+   (``restore(shardings=)``, every leaf bit for bit) and 1 more step.
    Beside it the unmeshed step at the same shape from the same seed.
    Printed: step s, tokens/s, peak bytes, the largest entry's bytes of
    parameters and moments, each collective's count and bytes a step, the
    restore's seconds, each number beside the card's name and power limit.
    Gates: finite losses, the first meshed loss within 1e-2 of the
-   unmeshed one, the restored run resuming at step 3, the peak under 60
+   unmeshed one, the restored state equal to the saved one and resuming
+   at step 2, the peak under 60
    GB.  Then full-width granite-moe-1b-a400m on (4, 2), 2 steps
    (``train_mesh_moe``: aux loss > 0, ``_moe_a2a`` on every MoE layer of
-   every microbatch); and each reduced copy (qwen3, gemma3, granite-moe)
-   meshed on the card against meshed on the CPU in float32 under
+   every microbatch); then the other five families at published width on
+   (4, 2), 2 steps of 8 rows in 2 microbatches, each cut in depth
+   (``MESH_FAMILIES`` says how and why) and its counts set to 0 just
+   before it (``train_mesh_families``, one line a model: step s, tokens/s,
+   peak bytes, the largest entry's state bytes, each collective's count
+   and bytes a step): deepseek-v2-lite-16b (3 layers, MLA, ``_moe_a2a`` on
+   every MoE layer of every microbatch, aux loss > 0), recurrentgemma-9b
+   (3 blocks, ``tda_monitor`` at step 0: one bf16 flash launch, its
+   ``local_attn`` layer's) and xlstm-1.3b (8 blocks, 256 tokens) through
+   ``TrainJob(mesh_shape=)``, qwen2-vl-2b (4 layers, 512 positions with a
+   1 x 16 x 16 image grid) and whisper-small (12 + 12 layers, 1,500
+   frames, 224 tokens) through the meshed step on their own batches;
+   gates: finite losses and gradient norms, the peak under 60 GB.  Last,
+   each reduced copy (qwen3, gemma3, granite-moe and the five) meshed on
+   the card against meshed on the CPU in float32 under
    ``train_card_vs_cpu``'s gates (``train_mesh_card_vs_cpu``).
 6d. ``ssm_archs`` — the recurrent blocks (``repro_torch.models.ssm``):
-   xlstm-1.3b (42 mLSTM, 6 sLSTM; 8 slots of 1,024-2,048 tokens
-   left-padded to 2,048) and recurrentgemma-9b (26 RG-LRU, 12
-   ``local_attn`` at window 2,048; 4 slots of 2,048-4,096 tokens
-   left-padded to 4,096) at published width and depth, float32
+   xlstm-1.3b (cut to 8 of its 48 layers: 7 mLSTM, 1 sLSTM; 8 slots
+   of 1,024-2,048 tokens left-padded to 2,048) and recurrentgemma-9b (26
+   RG-LRU, 12 ``local_attn`` at window 2,048; 4 slots of 2,048-4,096
+   tokens left-padded to 4,096) at published width, float32
    parameters, bf16 compute, seed 0, as ``lm_archs`` serves: one flash
    launch a ``local_attn`` layer a prefill (12; xlstm 0), the cache of
    each kind's state, recurrentgemma's seam; xlstm's profiled prefill
@@ -215,18 +230,18 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    runs that cloud at P = 4 over both transports, and the card test
    ``test_compute_ph_dist_card_matches_cpu`` holds P in {2, 4} x cadence.)
 12. ``serve_ph`` — the PH service, ``repro_torch.serve.PHServeEngine``
-   (packed engine, a 4 MiB admission account, 256 MiB of tenant cache, 8
+   (packed engine, a 4 MiB admission account, 256 MiB of tenant cache, 4
    clouds a batch) on the card, in the shape of the reference launcher's
    ``run_ph`` traffic, under ``torch.profiler`` with the counts set to 0
-   just before it: a cold wave of 8 clouds of 1,500 points
+   just before it: a cold wave of 4 clouds of 1,500 points
    (``rng.normal``, seed 0) at the 0.5 % quantile of pair lengths
    (``sample_pair_lengths``, seed 0), served as one union batch; an
-   update wave of 8 requests alternating tau growth to 1.5x and the
+   update wave of 4 requests alternating tau growth to 1.5x and the
    arrival of 64 points, each on its own cached cloud and served warm;
    one request at 3x tau that admission clamps to the account and serves
    warm at the granted tau.  Every request at maxdim 1 (the service's
    default 2, cut for time).  Every response's path must be the planned
-   one; the 9 warm responses and 2 of the cold wave must equal (H0, H1) a
+   one; the 5 warm responses and 2 of the cold wave must equal (H0, H1) a
    cold ``compute_ph`` on the card at the granted tau; ``gf2_find_low``
    and ``gf2_scatter_xor`` must launch.  A checkpoint saved and reloaded
    keeps its ``content_hash``; under a ``resume.load`` bit flip the
@@ -1752,18 +1767,20 @@ def dist_check(dev, cards: dict) -> None:
 # ---------------------------------------------------------------------------
 
 # The reference launcher's run_ph traffic at a size a service holds on the
-# card: 8 clouds of 1,500 points (about 5,700 edges each at the 0.5 %
+# card: 4 clouds of 1,500 points (about 5,700 edges each at the 0.5 %
 # quantile of pair lengths), a 4 MiB admission account, 256 MiB of tenant
 # cache, the packed engine; maxdim 1, cut from the service's default 2.
 # At the 1 % quantile (about 11,000 edges a cloud) the phase took 64.1 s
 # on an H100, more than the 60 s it may take of the run; at 0.5 %, 37.3 s.
-SERVE_PH_N, SERVE_PH_CLOUDS, SERVE_PH_Q = 1500, 8, 0.005
+# 8 clouds took 38.1 s on an H100; cut to 4 to leave the script room for
+# train_mesh_families.
+SERVE_PH_N, SERVE_PH_CLOUDS, SERVE_PH_Q = 1500, 4, 0.005
 SERVE_PH_BUDGET, SERVE_PH_STORE = 4 << 20, 256 << 20
 SERVE_PH_ARRIVALS = 64
 
 
 def serve_ph_traffic(rng, clouds, tau: float):
-    """The update wave: 8 requests, even uids grow tau to 1.5x on one
+    """The update wave: 4 requests, even uids grow tau to 1.5x on one
     cached cloud, odd uids bring 64 new points to another; then one
     request at 3x tau on the first, which admission clamps.  Returns
     (uid, dataset, points, tau, expected path) rows."""
@@ -1783,10 +1800,10 @@ def serve_ph_traffic(rng, clouds, tau: float):
 
 def serve_ph(dev) -> dict:
     """``PHServeEngine(engine="packed", device=dev)`` under the profiler,
-    the counts set to 0 just before it: a cold wave of 8 clouds served as
-    one union batch, an update wave of 8 warm requests (tau growth, point
+    the counts set to 0 just before it: a cold wave of 4 clouds served as
+    one union batch, an update wave of 4 warm requests (tau growth, point
     arrival) and one request at 3x tau that admission clamps to the 4 MiB
-    account and serves warm.  Gates: every path as planned; 9 warm and 2
+    account and serves warm.  Gates: every path as planned; 5 warm and 2
     cold responses equal (H0, H1) to a cold ``compute_ph`` on the card at
     the granted tau; find-low and scatter-XOR launched; a checkpoint saved
     and reloaded keeps its hash, and under a ``resume.load`` bit flip the
@@ -3394,8 +3411,10 @@ def sample_on_card(model, cfg, dev) -> dict:
 
 
 def lm_arch(dev, arch: str, param_dtype: str, slots: int,
-            prompt: int, line: str = "lm_archs") -> dict:
-    """One architecture at its published width through ``ServeEngine`` on
+            prompt: int, layers: Optional[int] = None,
+            line: str = "lm_archs") -> dict:
+    """One architecture at its published width (and depth, or ``layers``
+    of it) through ``ServeEngine`` on
     the card, the counts set to 0 just before ``run``: ``LM_EPOCHS``
     epochs of ``slots`` requests, every request served with ``LM_NEW``
     tokens, one flash launch an attention layer of the plan a prefill (the
@@ -3420,6 +3439,8 @@ def lm_arch(dev, arch: str, param_dtype: str, slots: int,
     from repro_torch.serve.steps import make_prefill_step
 
     cfg = dataclasses.replace(get_config(arch), param_dtype=param_dtype)
+    if layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
     kinds = [sl.kind for sl in layer_slots(cfg)]
     n_attn = sum(is_attention(k) for k in kinds)
     # earlier phases' models can outlive their phase in reference cycles
@@ -3637,13 +3658,17 @@ def lm_archs(dev) -> dict:
 # phase 6d: the recurrent and hybrid architectures
 # ---------------------------------------------------------------------------
 
-# (arch, param_dtype, slots, prompt_len), served as lm_archs serves, with
-# the configs' own float32 parameters (13.71 and 29.93 GB).  xlstm-1.3b's
-# prompts are left-padded to 2,048, a multiple of its chunk of 64;
-# recurrentgemma-9b's to 4,096, so that its local attention's window of
-# 2,048 masks inside the prompt.
-SSM_ARCHS = (("xlstm-1.3b", "float32", 8, 2048),
-             ("recurrentgemma-9b", "float32", 4, 4096))
+# (arch, param_dtype, slots, prompt_len, layers), served as lm_archs
+# serves, with the configs' own float32 parameters (13.71 and 29.93 GB at
+# full depth).  xlstm-1.3b's prompts are left-padded to 2,048, a multiple
+# of its chunk of 64; recurrentgemma-9b's to 4,096, so that its local
+# attention's window of 2,048 masks inside the prompt.  xlstm is cut from
+# 48 layers to 8 (one superblock of 7 mLSTM and 1 sLSTM, the published
+# slstm_every) to leave the script room for train_mesh_families: on an
+# H100 it took 43.6 s of the phase at full depth, most of it its six sLSTM
+# loops over 2,048 tokens, and 28.4 s at 16 layers on a slower host.
+SSM_ARCHS = (("xlstm-1.3b", "float32", 8, 2048, 8),
+             ("recurrentgemma-9b", "float32", 4, 4096, None))
 # The reduced copies' float32 forward, card against CPU (TF32 off): the
 # logits within 1e-4 of max(1, their largest).
 SSM_CARD_VS_CPU_TOL = 1e-4
@@ -3694,8 +3719,9 @@ def ssm_card_vs_cpu(dev, arch: str) -> dict:
 
 
 def ssm_archs(dev) -> dict:
-    """Phase 6d: xlstm-1.3b and recurrentgemma-9b at published width and
-    depth through :func:`lm_arch`, one after another, each freed before the
+    """Phase 6d: xlstm-1.3b and recurrentgemma-9b at published width (xlstm
+    at 8 of its 48 layers, ``SSM_ARCHS``) through :func:`lm_arch`, one
+    after another, each freed before the
     next; then each reduced copy card against CPU
     (:func:`ssm_card_vs_cpu`)."""
     t0 = time.perf_counter()
@@ -4153,15 +4179,44 @@ def train_moe(dev) -> dict:
 # (a) full-width qwen3-0.6b on a (data 4, model 2) mesh of one card's
 # entries: 8 x 512 tokens a step in 2 microbatches, so each microbatch is 4
 # sequences, one a data entry, with heads and MLP split in two; a
-# checkpoint at every step; then restored onto (2, 2) for 2 more steps.
+# checkpoint at every step; then restored onto (2, 2) for more steps.
 # (b) full-width granite-moe-1b-a400m on (4, 2), _moe_a2a on every MoE
 # layer.  (c) the reduced copies, meshed, card against CPU in float32.
 MESH_ARCH, MESH_MOE_ARCH = "qwen3-0.6b", "granite-moe-1b-a400m"
 MESH_SHAPE, MESH_REMESH = (4, 2), (2, 2)
 MESH_BATCH, MESH_SEQ, MESH_MICRO = 8, 512, 2
-MESH_STEPS, MESH_MORE, MESH_MOE_STEPS = 3, 2, 2
+# Cut from 3 steps and 2 more after the restore to 2 and 1 (one 7.15 GB
+# checkpoint write fewer) to leave the script room for
+# train_mesh_families; the re-mesh case stays held bit for bit on the CPU
+# (tests/test_torch_train_mesh.py).
+MESH_STEPS, MESH_MORE, MESH_MOE_STEPS = 2, 1, 2
 MESH_UNMESHED_REL = 1e-2   # first meshed loss against the unmeshed one
-MESH_REDUCED = ("qwen3-0.6b", "gemma3-1b", "granite-moe-1b-a400m")
+MESH_REDUCED = ("qwen3-0.6b", "gemma3-1b", "granite-moe-1b-a400m",
+                "deepseek-v2-lite-16b", "xlstm-1.3b", "recurrentgemma-9b",
+                "qwen2-vl-2b", "whisper-small")
+# (d) train_mesh_families: the other five families at published width on
+# (4, 2), 2 steps of 8 rows in 2 microbatches (one sequence a data entry a
+# microbatch), seed 0, each cut in depth for the phase's time and the
+# card's memory: deepseek to 3 of 27 layers (its dense layer and 2 MoE
+# layers of 64 experts: 1.67 G parameters, 20 GB of parameters and
+# moments; at 4 layers the AdamW step's new state beside the old would
+# pass TRAIN_MAX_PEAK), recurrentgemma to one block pattern (RG-LRU,
+# RG-LRU, local_attn) of 38 layers (1.55 G parameters, most of them the
+# 256,000-row table), xlstm to one superblock of 48 layers (7 mLSTM, 1
+# sLSTM: the published slstm_every; its sLSTM loops over every token of
+# every data entry, a launch each op) at 256 tokens, qwen2-vl to 4 of 28
+# layers; whisper-small whole (12 + 12 layers).  Rows: (arch, layers,
+# decoder positions).
+MESH_FAMILIES = (("deepseek-v2-lite-16b", 3, 512),
+                 ("recurrentgemma-9b", 3, 512),
+                 ("xlstm-1.3b", 8, 256),
+                 ("qwen2-vl-2b", 4, 512),
+                 ("whisper-small", 12, 224))
+MESH_FAMILY_STEPS = 2
+# qwen2-vl's 512 positions as vlm_audio lays out its prompts: 16 text, one
+# image of 1 x 16 x 16 merged patches, text; whisper's 1,500 frames
+MESH_VLM_TEXT_BEFORE, MESH_VLM_GRID = 16, (1, 16, 16)
+MESH_AUDIO_FRAMES = 1500
 
 
 class CollectiveCount:
@@ -4219,7 +4274,8 @@ def unmeshed_reference(dev, cfg, stream) -> dict:
 
 
 def meshed_run(dev, cfg, shape, steps: int, ckpt_dir=None, restore=False,
-               ckpt_every: int = 1, **kw) -> tuple:
+               ckpt_every: int = 1, seq_len: Optional[int] = None,
+               **kw) -> tuple:
     """``launch.train.run`` with ``mesh_shape=shape`` on the card, traced,
     every step logged, its collectives counted; returns (its output, its
     times: the step seconds, the seconds before the first step (the
@@ -4231,7 +4287,8 @@ def meshed_run(dev, cfg, shape, steps: int, ckpt_dir=None, restore=False,
     from repro_torch.obs.trace import Tracer, tracing
 
     job = train_job(cfg, dev, steps=steps, global_batch=MESH_BATCH,
-                    seq_len=MESH_SEQ, n_micro=MESH_MICRO, mesh_shape=shape,
+                    seq_len=seq_len or MESH_SEQ, n_micro=MESH_MICRO,
+                    mesh_shape=shape,
                     ckpt_dir=ckpt_dir, ckpt_every=ckpt_every, **kw)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -4254,11 +4311,65 @@ def meshed_run(dev, cfg, shape, steps: int, ckpt_dir=None, restore=False,
             count.per_step(max(len(step_s), 1)))
 
 
+def remeshed_restore(dev, cfg, ckpt_dir, saved, stream) -> tuple:
+    """The meshed run's last checkpoint restored onto a ``MESH_REMESH``
+    mesh of the card as ``run(restore=True)`` restores it
+    (``restore(shardings=)``), every leaf equal to the run's final state
+    ``saved`` bit for bit, then ``MESH_MORE`` steps from it with the step
+    the launcher builds for that mesh, on the stream's next batches.  The
+    launcher's resumed run would also write a final 7.15 GB checkpoint
+    that nothing reads; its whole cycle is held across the packages on
+    the CPU (``tests/test_torch_train_mesh.py``).  Returns (the steps'
+    metrics, their seconds and the restore's, the peak device bytes)."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules,
+                                           shardings_from_specs,
+                                           tree_flatten_with_path)
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import AdamW, make_train_step, warmup_cosine
+    from repro_torch.train.train_step import (train_state_specs,
+                                              train_state_template)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_mesh(MESH_REMESH, ("data", "model"),
+                     devices=[dev] * int(np.prod(MESH_REMESH)))
+    t0 = time.perf_counter()
+    state, meta = Checkpointer(ckpt_dir).restore(
+        train_state_template(cfg), shardings=shardings_from_specs(
+            train_state_specs(cfg, mesh)[0], mesh))
+    torch.cuda.synchronize()
+    restore_s = time.perf_counter() - t0
+    for (path, got), (_, want) in zip(tree_flatten_with_path(state)[0],
+                                      tree_flatten_with_path(saved)[0]):
+        if not torch.equal(got.unshard(), want.unshard()):
+            raise AssertionError(f"the (2, 2) restore of {path} differs "
+                                 f"from the saved state")
+    total = MESH_STEPS + MESH_MORE
+    step_fn = bind_activation_rules(make_train_step(
+        cfg, AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, total)),
+        n_micro=MESH_MICRO, micro_batch_axes=("data",)),
+        activation_rules(cfg, mesh))
+    hist, secs = [], []
+    for step in range(int(meta["step"]) + 1, total):
+        batch = {k: torch.from_numpy(v).to(dev)
+                 for k, v in stream.batch_at(step).items()}
+        t0 = time.perf_counter()
+        state, m = step_fn(state, batch)
+        hist.append(dict(step=step, **{k: float(v) for k, v in m.items()}))
+        secs.append(time.perf_counter() - t0)
+    return (hist, dict(step_s=secs, setup_s=restore_s),
+            torch.cuda.max_memory_allocated())
+
+
 def mesh_card_vs_cpu(dev, arch: str, smi: str) -> dict:
     """One meshed step of reduced ``arch`` on (4, 2) in float32 (TF32 off)
-    on the card and on a CPU mesh from the same weights: loss and gradient
-    norm within ``TRAIN_REL_TOL``, the weights under
-    ``train_card_vs_cpu``'s gates."""
+    on the card and on a CPU mesh from the same weights, on 8 rows of 64
+    positions of its input kind (:func:`family_batch`: qwen2-vl with a
+    1 x 4 x 4 image grid, whisper with 40 frames): loss and gradient norm
+    within ``TRAIN_REL_TOL``, the weights under ``train_card_vs_cpu``'s
+    gates."""
     from repro_torch.configs import get_config
     from repro_torch.dist.sharding import (activation_rules,
                                            bind_activation_rules,
@@ -4274,8 +4385,8 @@ def mesh_card_vs_cpu(dev, arch: str, smi: str) -> dict:
     torch.backends.cuda.matmul.allow_tf32 = False
     opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
     n = int(np.prod(MESH_SHAPE))
-    toks = np.random.default_rng(0).integers(
-        0, cfg.vocab_size, size=(8, 65)).astype(np.int32)
+    batch = family_batch(cfg, 8, 64, np.random.default_rng(0),
+                         grid=(1, 4, 4), frames=40)
     got = {}
     for where in (dev, torch.device("cpu")):
         mesh = make_mesh(MESH_SHAPE, ("data", "model"), devices=[where] * n)
@@ -4285,8 +4396,8 @@ def mesh_card_vs_cpu(dev, arch: str, smi: str) -> dict:
         state = shard_train_state(init_train_state(cfg, opt, seed=0,
                                                    device="cpu"), mesh)
         t0 = time.perf_counter()
-        state, m = step_fn(state, {"tokens": torch.from_numpy(toks).to(
-            where)})
+        state, m = step_fn(state, {k: torch.from_numpy(v).to(where)
+                                   for k, v in batch.items()})
         metrics = {k: float(v) for k, v in m.items()}
         got[where.type] = (metrics, time.perf_counter() - t0,
                            [np.asarray(a) for _, a in tree_flatten_with_path(
@@ -4313,16 +4424,169 @@ def mesh_card_vs_cpu(dev, arch: str, smi: str) -> dict:
     return out
 
 
+def family_batch(cfg, rows: int, positions: int, rng, grid=MESH_VLM_GRID,
+                 frames: int = MESH_AUDIO_FRAMES) -> dict:
+    """A training batch of ``cfg``'s input kind as numpy arrays, drawn from
+    ``rng``: ``tokens`` of ``positions + 1`` (the step shifts them);
+    whisper's ``enc_embeds`` of ``frames`` beside them; qwen2-vl's
+    ``embeds`` and ``labels`` of ``positions`` with ``positions3`` laid
+    out as ``vlm_audio`` lays them out (16 text positions, one image of
+    ``grid`` merged patches, text)."""
+    if cfg.input_kind != "tokens":
+        p3, _ = vlm_positions3(rows, positions, MESH_VLM_TEXT_BEFORE, grid)
+        return {"embeds": rng.standard_normal(
+                    (rows, positions, cfg.d_model), dtype=np.float32),
+                "labels": rng.integers(0, cfg.vocab_size,
+                                       (rows, positions)).astype(np.int32),
+                "positions3": p3}
+    out = {"tokens": rng.integers(0, cfg.vocab_size,
+                                  (rows, positions + 1)).astype(np.int32)}
+    if cfg.enc_dec:
+        out["enc_embeds"] = rng.standard_normal(
+            (rows, frames, cfg.d_model), dtype=np.float32)
+    return out
+
+
+def meshed_steps(dev, cfg, batch: dict, steps: int) -> tuple:
+    """``make_train_step(micro_batch_axes=("data",))`` bound to
+    ``activation_rules`` on a ``MESH_SHAPE`` mesh of the card, ``steps``
+    steps on ``batch`` (the launcher feeds tokens only, so the
+    embedding-input and encoder-decoder models train here, as the
+    reference's do), each ending in a synchronise, its collectives
+    counted.  Returns (the metrics of each step, the step seconds, the peak
+    device bytes, the largest entry's state bytes, the collectives a
+    step)."""
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules)
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.train import (AdamW, init_train_state, make_train_step,
+                                   warmup_cosine)
+    from repro_torch.train.train_step import shard_train_state
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh = mesh_mod.make_mesh(MESH_SHAPE, ("data", "model"),
+                              devices=[dev] * int(np.prod(MESH_SHAPE)))
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, steps))
+    step_fn = bind_activation_rules(make_train_step(
+        cfg, opt, n_micro=MESH_MICRO, micro_batch_axes=("data",)),
+        activation_rules(cfg, mesh))
+    state = shard_train_state(init_train_state(cfg, opt, seed=0,
+                                               device=dev), mesh)
+    on_card = {k: torch.from_numpy(v).to(dev) for k, v in batch.items()}
+    hist, secs = [], []
+    count = CollectiveCount()
+    with mesh_mod.recording(count):
+        for _ in range(steps):
+            t0 = time.perf_counter()
+            state, m = step_fn(state, on_card)
+            hist.append({k: float(v) for k, v in m.items()})
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+    state_bytes = entry_state_bytes(state)
+    del state
+    return (hist, secs, torch.cuda.max_memory_allocated(), state_bytes,
+            count.per_step(steps))
+
+
+def train_mesh_families(dev, smi: str) -> dict:
+    """``MESH_FAMILIES`` at published width on ``MESH_SHAPE``, one after
+    another, each freed before the next, the counts set to 0 just before
+    each and read just after: deepseek, recurrentgemma and xlstm through
+    ``TrainJob(mesh_shape=)`` (recurrentgemma's ``tda_monitor`` at step 0,
+    whose forward takes the bf16 flash kernel at its ``local_attn``
+    layer, window 2,048), qwen2-vl and whisper through the meshed step on
+    their own batches (:func:`meshed_steps`).  One line each
+    (``train_mesh_families``).  Gates: finite losses and gradient norms,
+    the peak under ``TRAIN_MAX_PEAK``, deepseek's aux loss > 0 and
+    ``_moe_a2a`` on every MoE layer of every microbatch, recurrentgemma's
+    flash launches its ``local_attn`` layers'."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import layer_slots
+
+    out = {}
+    for arch, layers, positions in MESH_FAMILIES:
+        cfg = dataclasses.replace(get_config(arch), n_layers=layers)
+        kinds = [s.kind for s in layer_slots(cfg)]
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        calls = []
+        real_a2a = moe_mod._moe_a2a
+
+        def counted(*a, **k):
+            calls.append(1)
+            return real_a2a(*a, **k)
+
+        moe_mod._moe_a2a = counted
+        counters = reset_counters()
+        try:
+            if cfg.input_kind == "tokens" and not cfg.enc_dec:
+                run, times, peak, _, coll = meshed_run(
+                    dev, cfg, MESH_SHAPE, MESH_FAMILY_STEPS,
+                    seq_len=positions,
+                    tda_every=MESH_FAMILY_STEPS if cfg.rglru else 0)
+                hist, step_s = run["history"], times["step_s"]
+                state_bytes = entry_state_bytes(run["state"])
+                del run
+            else:
+                batch = family_batch(cfg, MESH_BATCH, positions,
+                                     np.random.default_rng(0))
+                hist, step_s, peak, state_bytes, coll = meshed_steps(
+                    dev, cfg, batch, MESH_FAMILY_STEPS)
+                times = dict(step_s=step_s)
+        finally:
+            moe_mod._moe_a2a = real_a2a
+        launches = {k: fn.launches for k, fn in counters.items()}
+        torch.cuda.empty_cache()
+        median_s = float(np.median(step_s[1:]))
+        tokens = MESH_BATCH * positions
+        n_moe = sum(k.endswith("_moe") for k in kinds)
+        res = dict(
+            card=smi, arch=cfg.name, layers=layers, kinds=kinds,
+            mesh=list(MESH_SHAPE), param_dtype=cfg.param_dtype,
+            compute_dtype=cfg.compute_dtype, global_batch=MESH_BATCH,
+            positions=positions, n_micro=MESH_MICRO,
+            enc_frames=MESH_AUDIO_FRAMES if cfg.enc_dec else None,
+            loss=[h["loss"] for h in hist],
+            grad_norm=[h["grad_norm"] for h in hist],
+            aux_loss=[h["aux_loss"] for h in hist], times=times,
+            median_step_s=median_s, tokens_per_s=tokens / median_s,
+            peak_device_bytes=peak, entry_state_bytes=state_bytes,
+            collectives_one_step=coll, moe_a2a_calls=len(calls),
+            moe_a2a_expected=n_moe * MESH_MICRO * MESH_FAMILY_STEPS,
+            launches=launches,
+            tda={k: v for k, v in hist[0].items() if k.startswith("tda_")},
+            sub_phase_s=time.perf_counter() - t0)
+        emit("train_mesh_families", **res)
+        if not (len(hist) == MESH_FAMILY_STEPS
+                and all(np.isfinite(res["loss"] + res["grad_norm"]))
+                and peak <= TRAIN_MAX_PEAK):
+            raise AssertionError(f"meshed {arch}: {res}")
+        if cfg.moe is not None and not (
+                all(a > 0 for a in res["aux_loss"])
+                and len(calls) == res["moe_a2a_expected"]):
+            raise AssertionError(f"meshed {arch}'s MoE: {res}")
+        if cfg.rglru is not None and not (
+                len(res["tda"]) == 3 and launches["flash_attention"]
+                == kinds.count("local_attn")):
+            raise AssertionError(f"meshed {arch}'s tda_monitor: {res}")
+        out[arch] = res
+    return out
+
+
 def train_mesh(dev) -> dict:
     """Phase 6f: the sharded trainer (module constants ``MESH_*``).  The
     counts are set to 0 just before the full-width qwen3 run, whose
     ``tda_monitor`` (step 0) launches the bf16 flash kernel and the PH
     kernels, and read just after.  Gates: finite losses; the first meshed
     loss within ``MESH_UNMESHED_REL`` of the unmeshed step's on the same
-    weights and batch; the run restored onto (2, 2) resumes at step
-    ``MESH_STEPS``; the peak under ``TRAIN_MAX_PEAK``; granite-moe's aux
-    loss > 0 and ``_moe_a2a`` on every MoE layer of every microbatch;
-    the reduced copies card against CPU."""
+    weights and batch; its checkpoint restored onto (2, 2) bit for bit,
+    resuming at step ``MESH_STEPS`` (:func:`remeshed_restore`); the peak
+    under ``TRAIN_MAX_PEAK``; granite-moe's aux loss > 0 and ``_moe_a2a``
+    on every MoE layer of every microbatch; the other five families
+    (:func:`train_mesh_families`); the reduced copies card against
+    CPU."""
     import tempfile
 
     from repro_torch.configs import get_config
@@ -4344,14 +4608,10 @@ def train_mesh(dev) -> dict:
         launches = {k: fn.launches for k, fn in counters.items()}
         hist = out["history"]
         state_bytes = entry_state_bytes(out["state"])
+        # its checkpoint: the one its last step wrote
+        more_hist, more_times, more_peak = remeshed_restore(
+            dev, cfg, tmp, out["state"], stream)
         del out
-        torch.cuda.empty_cache()
-        # its checkpoint: run's own at the end
-        more, more_times, more_peak, _, _ = meshed_run(
-            dev, cfg, MESH_REMESH, MESH_STEPS + MESH_MORE, ckpt_dir=tmp,
-            restore=True, ckpt_every=10_000)
-        more_hist = more["history"]
-        del more
     torch.cuda.empty_cache()
     tokens = MESH_BATCH * MESH_SEQ
     step_s = times["step_s"]
@@ -4430,9 +4690,10 @@ def train_mesh(dev) -> dict:
             and len(calls) == want_calls and mo_peak <= TRAIN_MAX_PEAK):
         raise AssertionError(f"meshed granite-moe: {moe_res}")
 
+    families = train_mesh_families(dev, smi)
     versus = {a: mesh_card_vs_cpu(dev, a, smi) for a in MESH_REDUCED}
-    res = dict(dense=dense, moe=moe_res, card_vs_cpu=versus,
-               phase_s=time.perf_counter() - t0)
+    res = dict(dense=dense, moe=moe_res, families=families,
+               card_vs_cpu=versus, phase_s=time.perf_counter() - t0)
     emit("train_mesh_done", card=smi, phase_s=res["phase_s"])
     torch.cuda.empty_cache()
     return res
@@ -4542,6 +4803,8 @@ def main() -> int:
     lm_launches = {a: bf16(r["launches"]) for a, r in archs.items()}
     moe_train_launches = bf16(moe_trained["launches"])
     mesh_train_launches = bf16(mesh_trained["dense"]["launches"])
+    family_launches = {a: bf16(r["launches"])
+                       for a, r in mesh_trained["families"].items()}
     ssm_launches = {a: bf16(r["launches"]) for a, r in ssm.items()}
     vlm_launches = {a: bf16(r["launches"]) for a, r in vlm.items()}
 
@@ -4585,6 +4848,8 @@ def main() -> int:
             lm_archs_launches={a: n[kname] for a, n in lm_launches.items()},
             train_moe_launches=moe_train_launches[kname],
             train_mesh_launches=mesh_train_launches[kname],
+            train_mesh_families_launches={
+                a: n[kname] for a, n in family_launches.items()},
             ssm_archs_launches={a: n[kname] for a, n in ssm_launches.items()},
             vlm_audio_launches={a: n[kname] for a, n in vlm_launches.items()},
             wrapper_ms=e["wrapper_ms"], shape=e["shape"]))

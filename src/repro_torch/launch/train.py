@@ -18,8 +18,9 @@ between them, ROADMAP.md §1 item 5).  ``run`` prints the mesh once, shards
 the state as ``shard_params(..., fsdp=True)`` says, binds the step to
 ``activation_rules(cfg, mesh)`` with the data axes as its microbatch axes,
 restores a checkpoint of any mesh shape onto this one, and saves whole
-arrays.  The decoder-only dense and MoE models train on a mesh; the others
-raise ``NotImplementedError`` (ROADMAP.md §1 item 10.8).
+arrays.  Every architecture trains on a mesh; the launcher feeds tokens
+only, as the reference's does, so qwen2-vl and whisper train through
+``make_train_step`` with their own batches.
 
 Usage::
 
@@ -45,7 +46,6 @@ from repro_torch.dist.sharding import (activation_rules,
                                        shardings_from_specs)
 from repro_torch.launch.mesh import make_mesh
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import meshed_refusal
 from repro_torch.obs.trace import active_tracer, span, stopwatch
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.train_step import (gathered_model, init_train_state,
@@ -130,10 +130,6 @@ def run(job: TrainJob, restore: bool = False) -> Dict[str, Any]:
 
     mesh = None
     if job.mesh_shape is not None:
-        why = meshed_refusal(cfg)
-        if why:
-            raise NotImplementedError(
-                f"TrainJob(mesh_shape={job.mesh_shape!r}): {why}")
         shape = tuple(int(n) for n in job.mesh_shape)
         mesh = make_mesh(shape, _mesh_axes(shape),
                          devices=[dev] * int(np.prod(shape)))

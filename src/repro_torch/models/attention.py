@@ -43,6 +43,12 @@ Decode writes the new K/V (MLA: the latent ``c_kv`` and the rotary key)
 into the cache in place (the reference returns an updated copy);
 :func:`attention_apply` and :func:`mla_apply` return the same cache
 tensors.
+
+The sharded trainer's forms sit at the end: :func:`attention_meshed`,
+:func:`mla_meshed` and :func:`cross_attention_meshed` run each data
+entry's rows with the heads split over ``model`` where they align, on the
+rotation tables and mask biases of :func:`attention_tables` (RoPE at MLA's
+rotary width, M-RoPE from ``positions3``, the encoder's not causal).
 """
 from __future__ import annotations
 
@@ -470,19 +476,50 @@ def _project(plan, x, w, m: int):
     return x @ plan.local(w, 0, cdt)
 
 
+def _out_meshed(plan, wo, parts, q_split: bool, cdt):
+    """One data entry's out-projection.  Aligned heads (``q_split``):
+    ``parts[m]`` is model entry ``m``'s own heads' output, times its row
+    block of ``wo``, ``psum``-ed.  Misaligned: ``parts[0]`` is the whole
+    output, times ``wo`` column-parallel over ``d_model`` with its blocks
+    gathered (or one product where ``wo`` does not split)."""
+    from repro_torch.launch.mesh import all_gather
+
+    from .layers import model_psum
+
+    if q_split:
+        return model_psum(plan, [o @ plan.local(wo, m, cdt)
+                                 for m, o in enumerate(parts)])
+    out = parts[0]
+    if plan.split_model(wo) == 1:
+        cols = [out @ plan.local(wo, m, cdt) for m in range(plan.tp)]
+        return torch.cat(list(all_gather(plan.mesh, "model", cols)), dim=-1)
+    return out @ plan.local(wo, 0, cdt)
+
+
 def attention_tables(cfg: ModelConfig, positions: torch.Tensor, windows,
-                     causal: bool = True) -> dict:
+                     causal: bool = True,
+                     positions3: Optional[torch.Tensor] = None) -> dict:
     """What every layer's meshed attention of one data entry shares: the
-    mask bias of each window in ``windows`` and, with RoPE, the rotation
-    tables (:func:`~repro_torch.models.layers.rope_tables`), computed once
-    a forward."""
-    from .layers import rope_tables
+    mask bias of each window in ``windows`` (not causal for the encoder)
+    and the rotation tables, computed once a forward: RoPE's
+    (:func:`~repro_torch.models.layers.rope_tables`, at MLA's rotary
+    width for MLA), or M-RoPE's by ``positions3`` (3, B, S), by default
+    ``positions`` on all three grids
+    (:func:`~repro_torch.models.layers.mrope_tables`)."""
+    from .layers import mrope_tables, rope_tables
 
     out = {"positions": positions,
            "bias": {w: _mask_bias(positions, positions, w, causal)
                     for w in sorted(set(windows))}}
     if cfg.rope_kind == "rope":
-        out["rope"] = rope_tables(positions, cfg.head_dim_, cfg.rope_theta)
+        dim = cfg.mla.rope_head_dim if cfg.mla is not None \
+            else cfg.head_dim_
+        out["rope"] = rope_tables(positions, dim, cfg.rope_theta)
+    elif cfg.rope_kind == "mrope":
+        if positions3 is None:
+            positions3 = positions[None].expand(3, *positions.shape)
+        out["rope"] = mrope_tables(positions3, cfg.head_dim_,
+                                   cfg.mrope_sections, cfg.rope_theta)
     return out
 
 
@@ -490,8 +527,8 @@ def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
     """The training form of :func:`attention_apply` (explicit positions,
     :func:`_sdpa_masked`'s arithmetic, no cache) over ``plan``'s mesh:
     ``xs`` has one tensor a data entry and ``tables`` its
-    :func:`attention_tables`, ``p`` the layer's sharded weights; returns
-    the output of each data entry.
+    :func:`attention_tables` (the encoder's not causal), ``p`` the
+    layer's sharded weights; returns the output of each data entry.
 
     Aligned query heads (``wq`` column-parallel): model entry ``m`` runs
     its own block of heads end to end and its row-parallel ``wo``
@@ -501,10 +538,9 @@ def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
     ``psum`` of the row-parallel partials over ``d_model``, with each
     local query head's KV head picked out: no head is ever split.
     Misaligned query heads: the whole attention once a data entry, then
-    ``wo`` column-parallel over ``d_model``, its blocks gathered."""
-    from repro_torch.launch.mesh import all_gather
-
-    from .layers import model_psum, rotate
+    ``wo`` column-parallel over ``d_model``, its blocks gathered
+    (:func:`_out_meshed`)."""
+    from .layers import rotate
 
     cdt = cfg.cdtype
     h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
@@ -541,18 +577,100 @@ def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
             if "rope" in tab:
                 q, k = rotate(q, *tab["rope"]), rotate(k, *tab["rope"])
             out = _sdpa_chunked(q, k, v, tab["positions"], bias)
-            out = out.reshape(b, s, h_l * hd).to(cdt)
-            parts.append(out @ plan.local(p["wo"], m, cdt) if q_split
-                         else out)
-        if q_split:
-            outs.append(model_psum(plan, parts))
-            continue
-        out = parts[0]
-        if plan.split_model(p["wo"]) == 1:
-            cols = [out @ plan.local(p["wo"], m, cdt)
-                    for m in range(plan.tp)]
-            outs.append(torch.cat(list(all_gather(plan.mesh, "model", cols)),
-                                  dim=-1))
-        else:
-            outs.append(out @ plan.local(p["wo"], 0, cdt))
+            parts.append(out.reshape(b, s, h_l * hd).to(cdt))
+        outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
+    return outs
+
+
+def mla_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
+    """The training form of :func:`mla_apply` (explicit positions,
+    :func:`_sdpa_masked`'s arithmetic at q·k ``nope + rope`` and P·V
+    ``v_head_dim``, no cache) over ``plan``'s mesh, as
+    :func:`attention_meshed` takes its arguments.  The latent ``c_kv``
+    and the rotary key are whole on every model entry: ``w_dkv`` and
+    ``w_krope`` fall to the generic 2-D rule (``d_model`` over
+    ``model``), so their row-parallel partials are ``psum``-ed, and
+    ``kv_norm`` normalises the whole latent.  Aligned heads: ``wq`` and
+    the up-projections ``w_uk`` / ``w_uv`` are column-parallel, so model
+    entry ``m`` expands only its own heads' keys and values, and ``wo``
+    is row-parallel and ``psum``-ed.  Misaligned heads: the whole MLA
+    once a data entry on the gathered up-projections, then ``wo`` as
+    :func:`_out_meshed` takes it."""
+    from .layers import rotate
+
+    cdt = cfg.cdtype
+    mc = cfg.mla
+    nope, rope, dv = mc.nope_head_dim, mc.rope_head_dim, mc.v_head_dim
+    q_split = plan.split_model(p["wq"]) == 1
+    tp = plan.tp if q_split else 1
+    h_l = cfg.n_heads // tp
+    if q_split:
+        w_uk = [plan.local(p["w_uk"], m, cdt) for m in range(tp)]
+        w_uv = [plan.local(p["w_uv"], m, cdt) for m in range(tp)]
+    else:
+        w_uk, w_uv = [plan.whole(p["w_uk"], cdt)], [plan.whole(p["w_uv"], cdt)]
+    kv_norm = plan.local(p["kv_norm"])
+    outs = []
+    for x, tab in zip(xs, tables):
+        b, s, _ = x.shape
+        x = x.to(cdt)
+        c_kv = rmsnorm(_project(plan, x, p["w_dkv"], 0), kv_norm,
+                       cfg.norm_eps)
+        k_rope = rotate(_project(plan, x, p["w_krope"], 0)[:, :, None],
+                        *tab["rope"])                      # (B, S, 1, rope)
+        parts = []
+        for m in range(tp):
+            q = _project(plan, x, p["wq"], m).reshape(b, s, h_l, nope + rope)
+            q_full = torch.cat([q[..., :nope],
+                                rotate(q[..., nope:], *tab["rope"])], dim=-1)
+            k_nope = (c_kv @ w_uk[m]).reshape(b, s, h_l, nope)
+            val = (c_kv @ w_uv[m]).reshape(b, s, h_l, dv)
+            k_full = torch.cat([k_nope, k_rope.expand(b, s, h_l, rope)],
+                               dim=-1)
+            out = _sdpa_chunked(q_full, k_full, val, tab["positions"],
+                                tab["bias"][window])
+            parts.append(out.reshape(b, s, h_l * dv).to(cdt))
+        outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
+    return outs
+
+
+def cross_attention_meshed(plan, p, cfg: ModelConfig, xs, enc_outs):
+    """The training form of :func:`cross_attention_apply` over ``plan``'s
+    mesh: data entry ``d``'s decoder rows ``xs[d]`` attend to its own
+    encoder output ``enc_outs[d]``, unmasked.  ``wq``, ``wk``, ``wv``
+    and ``wo`` follow the head rules of self-attention: aligned, model
+    entry ``m`` projects, attends and out-projects its own heads (the
+    ``wo`` partials ``psum``-ed); where ``wk`` is not column-parallel (it
+    is then row-parallel on ``d_model``) K and V are whole (``psum``-ed
+    partials) and each model entry picks its heads;
+    misaligned, the whole attention once a data entry
+    (:func:`_out_meshed`)."""
+    cdt = cfg.cdtype
+    h, hd = cfg.n_heads, cfg.head_dim_
+    q_split = plan.split_model(p["wq"]) == 1
+    kv_split = q_split and plan.split_model(p["wk"]) == 1
+    tp = plan.tp if q_split else 1
+    h_l = h // tp
+    outs = []
+    for x, e in zip(xs, enc_outs):
+        b, s, _ = x.shape
+        se = e.shape[1]
+        x, e = x.to(cdt), e.to(cdt)
+        if not kv_split:
+            k_whole = _project(plan, e, p["wk"], 0).reshape(b, se, h, hd)
+            v_whole = _project(plan, e, p["wv"], 0).reshape(b, se, h, hd)
+        q_pos = torch.zeros((b, s), dtype=torch.int64, device=x.device)
+        k_pos = torch.zeros((se,), dtype=torch.int64, device=x.device)
+        parts = []
+        for m in range(tp):
+            q = _project(plan, x, p["wq"], m).reshape(b, s, h_l, hd)
+            if kv_split:
+                k = _project(plan, e, p["wk"], m).reshape(b, se, h_l, hd)
+                v = _project(plan, e, p["wv"], m).reshape(b, se, h_l, hd)
+            else:
+                heads = slice(m * h_l, (m + 1) * h_l)
+                k, v = k_whole[:, :, heads], v_whole[:, :, heads]
+            out = _sdpa_masked(q, k, v, q_pos, k_pos, -1, causal=False)
+            parts.append(out.reshape(b, s, h_l * hd).to(cdt))
+        outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
     return outs

@@ -110,18 +110,21 @@ def apply_mrope(x: torch.Tensor, positions3: torch.Tensor,
     sections; lane ``l`` rotates by ``positions3[sec[l]]``.  With the three
     grids equal it is :func:`apply_rope`.
     """
-    d = x.shape[-1]
-    freqs = rope_freqs(d, theta, device=x.device)          # (D/2,)
-    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=x.device)
+    return rotate(x, *mrope_tables(positions3, x.shape[-1], sections, theta))
+
+
+def mrope_tables(positions3: torch.Tensor, head_dim: int,
+                 sections: Tuple[int, int, int], theta: float = 1e6):
+    """The (B, S, 1, D/2) float32 cosines and sines :func:`apply_mrope`
+    rotates by: lane ``l`` at ``positions3[sec[l]]``."""
+    dev = positions3.device
+    freqs = rope_freqs(head_dim, theta, device=dev)         # (D/2,)
+    sec = torch.cat([torch.full((s,), i, dtype=torch.long, device=dev)
                      for i, s in enumerate(sections)])
-    assert sec.shape[0] == d // 2, (sections, d)
+    assert sec.shape[0] == head_dim // 2, (sections, head_dim)
     lane_pos = positions3.float()[sec]                      # (D/2, B, S)
     ang = torch.movedim(lane_pos, 0, -1) * freqs            # (B, S, D/2)
-    cos = torch.cos(ang)[:, :, None, :]
-    sin = torch.sin(ang)[:, :, None, :]
-    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
-    return out.to(x.dtype)
+    return torch.cos(ang)[:, :, None, :], torch.sin(ang)[:, :, None, :]
 
 
 def sinusoidal_positions(seq: int, d_model: int,

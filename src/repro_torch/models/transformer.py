@@ -33,8 +33,9 @@ says where each sits in the reference's groups.  Entry points:
 * :func:`decode_step` — one token against the fixed-capacity cache;
 * :func:`forward_meshed` — the sharded trainer's forward over the port's
   ``Mesh``: the reference's parameter tree as per-entry blocks, each
-  layer run once an entry, the decoder-only dense and MoE kinds
-  (:func:`meshed_refusal` names the rest, item 10.8).
+  layer run once an entry, for every block kind (attention, MLA and
+  cross-attention split by heads over ``model``, the recurrent blocks
+  once a data entry on whole weights).
 
 A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
 MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's
@@ -673,25 +674,6 @@ def decode_step(model: Transformer, cache: Dict[str, Any],
 # The meshed forward (the sharded trainer's)
 # ---------------------------------------------------------------------------
 
-# The layer kinds a meshed forward runs: the decoder-only dense and MoE
-# families.  MLA, the recurrent blocks and the vision-language and
-# encoder-decoder models wait (ROADMAP.md §1 item 10.8).
-MESHED_KINDS = ("attn_mlp", "attn_moe")
-
-
-def meshed_refusal(cfg: ModelConfig) -> Optional[str]:
-    """Why ``cfg`` cannot train over a mesh yet, or ``None``."""
-    kinds = sorted({s.kind for s in layer_slots(cfg)} - set(MESHED_KINDS))
-    if kinds or cfg.input_kind != "tokens" or cfg.rope_kind == "mrope":
-        what = ", ".join(kinds) if kinds else \
-            f"{cfg.input_kind} inputs with {cfg.rope_kind}"
-        return (f"meshed training of {cfg.name} ({what}) is not ported yet "
-                f"(ROADMAP.md §1, item 10, LM substrate: the meshed "
-                f"decoder-only dense and MoE models are item 10.7, the "
-                f"rest item 10.8)")
-    return None
-
-
 def _unstack(st, mesh):
     """A stacked group leaf (its blocks ``(repeats, ...)``) as one sharded
     view a repeat: each distinct block unbound once, so that the backward
@@ -704,84 +686,155 @@ def _unstack(st, mesh):
                           st.shape[1:]) for r in range(st.shape[0])]
 
 
+def _unstack_node(node, mesh):
+    """A node of the reference's group tree as per-repeat sharded views
+    (:func:`_unstack`), its ``{"scale": ...}`` norms collapsed to the
+    scale."""
+    if not isinstance(node, dict):
+        return _unstack(node, mesh)
+    if set(node) == {"scale"}:
+        return _unstack(node["scale"], mesh)
+    return {k: _unstack_node(v, mesh) for k, v in node.items()}
+
+
+def _at(node, r: int):
+    return {k: _at(v, r) for k, v in node.items()} \
+        if isinstance(node, dict) else node[r]
+
+
 def _layer_weights(params, cfg: ModelConfig, mesh) -> List[dict]:
-    """Each layer's sharded weights out of the reference's tree: ``ln1``,
-    ``ln2`` (the scales), ``attn`` (with the qk-norm scales under
-    ``q_norm`` / ``k_norm``) and ``ffn``."""
+    """Each layer's sharded weights out of the reference's tree, in its
+    node's layout (``src/repro/models/transformer.py::_block_params``) with
+    the norms as their scales: ``ln1``, ``attn`` (its qk-norm or
+    ``kv_norm`` scales inside), ``ln_cross`` and ``cross`` of a decoder
+    layer, ``ln2`` and ``ffn`` where the layer has an FFN; a recurrent
+    block's flat weights (``norm``, ``w_up``, ...), RG-LRU's with its
+    ``ln2`` and ``ffn``."""
     per_group: Dict[Tuple[int, str], dict] = {}
     out = []
     for slot in layer_slots(cfg):
         key = (slot.group, slot.key)
         if key not in per_group:
-            node = params["groups"][slot.group][slot.key]
-            attn = {n: _unstack(v["scale"] if isinstance(v, dict) else v,
-                                mesh)
-                    for n, v in node["attn"].items()}
-            per_group[key] = {
-                "ln1": _unstack(node["ln1"]["scale"], mesh),
-                "ln2": _unstack(node["ln2"]["scale"], mesh),
-                "attn": attn,
-                "ffn": {n: _unstack(v, mesh)
-                        for n, v in node["ffn"].items()}}
-        g, r = per_group[key], slot.repeat
-        out.append({"ln1": g["ln1"][r], "ln2": g["ln2"][r],
-                    "attn": {n: v[r] for n, v in g["attn"].items()},
-                    "ffn": {n: v[r] for n, v in g["ffn"].items()}})
+            per_group[key] = _unstack_node(
+                params["groups"][slot.group][slot.key], mesh)
+        out.append(_at(per_group[key], slot.repeat))
     return out
 
 
-def _block_meshed(plan, cfg: ModelConfig, lp: dict, moe: bool,
-                  window: int, xs, tables):
-    """:class:`Block`'s forward for the attention kinds over the mesh:
-    pre-norm self-attention, then the pre-norm MLP or MoE, on each data
-    entry's ``xs``.  Returns ``(xs, aux)``."""
-    from .attention import attention_meshed
+def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
+                  tables, enc_outs=None):
+    """:class:`Block`'s forward over the mesh on each data entry's ``xs``
+    (the reference's ``_apply_block``).  Attention kinds: pre-norm
+    self-attention (GQA or MLA; the encoder's tables are not causal), a
+    decoder layer's pre-norm cross-attention to its data entry's
+    ``enc_outs``, then, where the layer has one, the pre-norm MLP or MoE.
+    Recurrent kinds: the block of ``models/ssm.py`` once a data entry on
+    its weights gathered whole (:meth:`MeshPlan.whole`: the FSDP gather,
+    then the blocks over ``model``; the backward reduce-scatters), then
+    RG-LRU's pre-norm MLP.  Returns ``(xs, aux)``."""
+    from .attention import (attention_meshed, cross_attention_meshed,
+                            mla_meshed)
     from .layers import mlp_meshed
     from .moe import moe_meshed
 
     plan.clear()        # gather this layer's weights (again in a remat)
-    cdt = cfg.cdtype
-    ln1, ln2 = plan.local(lp["ln1"]), plan.local(lp["ln2"])
-    hs = [rmsnorm_(x.to(cdt), ln1, cfg.norm_eps) for x in xs]
-    a = attention_meshed(plan, lp["attn"], cfg, hs, tables, window)
-    xs = [x + o.to(x.dtype) for x, o in zip(xs, a)]
-    hs = [rmsnorm_(x.to(cdt), ln2, cfg.norm_eps) for x in xs]
-    if moe:
+    cdt, eps, kind = cfg.cdtype, cfg.norm_eps, slot.kind
+
+    def pre_norm(name):
+        scale = plan.local(lp[name])
+        return [rmsnorm_(x.to(cdt), scale, eps) for x in xs]
+
+    def add(outs):
+        return [x + o.to(x.dtype) for x, o in zip(xs, outs)]
+
+    if kind in RECURRENT:
+        w = {n: plan.whole(v) for n, v in lp.items()
+             if n not in ("ln2", "ffn")}
+        apply = RECURRENT[kind][0].apply_fn
+        xs = [apply(w, cfg, x)[0] for x in xs]
+    else:
+        mixer = mla_meshed if kind.startswith("mla") else attention_meshed
+        xs = add(mixer(plan, lp["attn"], cfg, pre_norm("ln1"), tables,
+                       slot.window))
+        if kind == "dec_attn_mlp":
+            xs = add(cross_attention_meshed(plan, lp["cross"], cfg,
+                                            pre_norm("ln_cross"), enc_outs))
+    if "ffn" not in lp:
+        return xs, None
+    hs = pre_norm("ln2")
+    if kind.endswith("_moe"):
         f, aux = moe_meshed(plan, lp["ffn"], cfg, hs)
     else:
         f, aux = mlp_meshed(plan, lp["ffn"], hs, cdt), None
-    return [x + o.to(x.dtype) for x, o in zip(xs, f)], aux
+    return add(f), aux
+
+
+def _encode_meshed(plan, params, cfg: ModelConfig, enc_embeds, slots,
+                   weights):
+    """:func:`_encode` over the mesh: each data entry's ``enc_embeds``
+    plus the sinusoid, the ``enc_attn_mlp`` layers (not causal, positions
+    ``arange(S_enc)``), then ``enc_final_norm``."""
+    cdt = cfg.cdtype
+    es, tables = [], []
+    for e in enc_embeds:
+        b, se = e.shape[:2]
+        es.append(e.to(cdt) + sinusoidal_positions(
+            se, cfg.d_model, e.device).to(cdt)[None])
+        pos = torch.arange(se, device=e.device).expand(b, se)
+        tables.append(attention_tables(cfg, pos, [-1], causal=False))
+    for slot, lp in zip(slots, weights):
+        if slot.kind == "enc_attn_mlp":
+            es, _ = _checkpointed(functools.partial(
+                _block_meshed, plan, cfg, slot, lp), cfg.remat, es, tables)
+    plan.clear()
+    scale = plan.local(params["enc_final_norm"]["scale"])
+    return [rmsnorm_(e, scale, cfg.norm_eps) for e in es]
 
 
 def forward_meshed(params, cfg: ModelConfig, plan, batches):
     """The training forward over ``plan``'s mesh (a
-    :class:`~repro_torch.models.layers.MeshPlan`).  ``params`` is the
-    reference's parameter tree, each leaf a
+    :class:`~repro_torch.models.layers.MeshPlan`), for every family.
+    ``params`` is the reference's parameter tree, each leaf a
     :class:`~repro_torch.dist.sharding.ShardedTensor` (its group leaves
-    stacked on ``repeats``); ``batches`` has one dict a data entry, its
-    ``tokens`` (B_d, S) and explicit ``positions`` (B_d, S).  Each block
-    runs under ``cfg.remat``'s activation checkpointing, as
-    :func:`forward`'s.  Returns ``(logits, aux)``: for each data entry
-    the float32 logits of each model entry's vocab block (a list), and
-    the summed MoE router loss."""
-    why = meshed_refusal(cfg)
-    if why:
-        raise NotImplementedError(why)
+    stacked on ``repeats``); ``batches`` has one dict a data entry: its
+    ``tokens`` (B_d, S), or ``embeds`` (B_d, S, d) for an embedding-input
+    model (no table lookup; the tied table still gives the logits), and
+    explicit ``positions`` (B_d, S); ``positions3`` (3, B_d, S) for
+    M-RoPE (default: ``positions`` on all three grids); ``enc_embeds``
+    (B_d, S_enc, d) for the encoder-decoder, whose encoder runs first on
+    each data entry.  Each block runs under ``cfg.remat``'s activation
+    checkpointing, as :func:`forward`'s.  Returns ``(logits, aux)``: for
+    each data entry the float32 logits of each model entry's vocab block
+    (a list), and the summed MoE router loss."""
     from .layers import embed_meshed, unembed_meshed
 
     mesh = plan.mesh
     cdt = cfg.cdtype
     plan.clear()
-    xs = [x.to(cdt) for x in embed_meshed(
-        plan, params["embed"]["table"], [b["tokens"] for b in batches])]
+    if cfg.input_kind == "tokens":
+        xs = [x.to(cdt) for x in embed_meshed(
+            plan, params["embed"]["table"], [b["tokens"] for b in batches])]
+    else:
+        xs = [b["embeds"].to(cdt) for b in batches]
     slots = layer_slots(cfg)
+    weights = _layer_weights(params, cfg, mesh)
+    enc_outs = None
+    if cfg.enc_dec:
+        enc_outs = _encode_meshed(plan, params, cfg,
+                                  [b["enc_embeds"] for b in batches], slots,
+                                  weights)
+        xs = [x + sinusoidal_positions(x.shape[1], cfg.d_model,
+                                       x.device).to(cdt)[None] for x in xs]
     tables = [attention_tables(cfg, b["positions"],
-                               [s.window for s in slots]) for b in batches]
+                               [s.window for s in slots],
+                               positions3=b.get("positions3"))
+              for b in batches]
     aux = torch.zeros((), dtype=torch.float32, device=plan.device())
-    for slot, lp in zip(slots, _layer_weights(params, cfg, mesh)):
-        fn = functools.partial(_block_meshed, plan, cfg, lp,
-                               slot.kind.endswith("_moe"), slot.window)
-        xs, a = _checkpointed(fn, cfg.remat, xs, tables)
+    for slot, lp in zip(slots, weights):
+        if slot.kind == "enc_attn_mlp":
+            continue
+        fn = functools.partial(_block_meshed, plan, cfg, slot, lp)
+        xs, a = _checkpointed(fn, cfg.remat, xs, tables, enc_outs)
         if a is not None:
             aux = aux + a
     plan.clear()

@@ -30,6 +30,11 @@ from repro_torch.dist.sharding import (ShardedTensor, tree_flatten_with_path,
                                        tree_unflatten)
 
 
+# The most elements :meth:`AdamW._adamw` updates together (1 GiB of
+# float32).
+_CHUNK = 1 << 28
+
+
 class AdamWState(NamedTuple):
     step: torch.Tensor
     m: Any
@@ -97,7 +102,24 @@ class AdamW:
     def _adamw(self, g, m, v, p, gnorm, step):
         """The update on flat lists: clipping by ``gnorm``, bias correction
         at ``step`` (the new step), decoupled weight decay.  Returns new
-        lists ``(p, m, v)``."""
+        lists ``(p, m, v)``.  It runs on runs of tensors of at most
+        ``_CHUNK`` elements together (a larger tensor alone), so that its
+        float32 temporaries stay a chunk's, not the state's; the
+        arithmetic is elementwise, the same in any grouping."""
+        out = ([], [], [])
+        lo = 0
+        while lo < len(p):
+            hi, n = lo + 1, p[lo].numel()
+            while hi < len(p) and n + p[hi].numel() <= _CHUNK:
+                n += p[hi].numel()
+                hi += 1
+            for acc, got in zip(out, self._adamw_lists(
+                    g[lo:hi], m[lo:hi], v[lo:hi], p[lo:hi], gnorm, step)):
+                acc.extend(got)
+            lo = hi
+        return out
+
+    def _adamw_lists(self, g, m, v, p, gnorm, step):
         g = [t.float() for t in g]
         if self.clip_norm > 0:
             scale = torch.clamp(self.clip_norm / (gnorm + 1e-9), max=1.0)

@@ -36,10 +36,11 @@ the blocks (``train/optimizer.py``).  The entries run one after another on
 the current stream: autograd releases a saved tensor once its backward
 node is queued, not once the node's stream has run it, so an entry stream
 that read a tensor of another stream could see its memory reused early.
-The decoder-only dense and MoE models train on a mesh; the others raise
-``NotImplementedError`` naming item 10 (their meshed forward is ROADMAP.md
-§1 item 10.8), as does a mesh whose entries sit on more than one device
-(the transport between cards, item 5).
+Every family trains on a mesh, its batches as the unmeshed step takes
+them (``tokens``; ``embeds``, ``labels`` and ``positions3`` for qwen2-vl;
+``enc_embeds`` beside ``tokens`` for whisper).  A mesh whose entries sit
+on more than one device raises ``NotImplementedError`` (the transport
+between cards, ROADMAP.md §1 item 5).
 """
 from __future__ import annotations
 
@@ -60,7 +61,6 @@ from repro_torch.models.transformer import (Transformer, _stand_in,
                                             arrays_from_named,
                                             forward, forward_meshed,
                                             init_params, load_arrays_,
-                                            meshed_refusal,
                                             params_from_arrays)
 from .optimizer import AdamW, AdamWState
 
@@ -97,18 +97,27 @@ def _shift_batch(batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     return inp, toks[:, 1:]
 
 
+def _step_inputs(batch: Dict[str, torch.Tensor], cfg: ModelConfig):
+    """A training forward's inputs and labels: :func:`_shift_batch`, then
+    explicit ``positions`` ``arange(S)`` unless given (the differentiable
+    attention route; S and the rows from ``tokens``, or ``embeds`` for an
+    embedding-input model), and an embedding-input model's labels cut to
+    the logits' length S, as the reference's loss cuts them."""
+    inp, labels = _shift_batch(batch, cfg)
+    x = inp["tokens"] if cfg.input_kind == "tokens" else inp["embeds"]
+    b, s = x.shape[:2]
+    if "positions" not in inp:
+        inp = dict(inp, positions=torch.arange(s, device=x.device).expand(
+            b, s))
+    if cfg.input_kind != "tokens":
+        labels = labels[:, :s]
+    return inp, labels
+
+
 def make_loss_fn(cfg: ModelConfig):
     def loss_fn(params: Transformer, batch):
-        inp, labels = _shift_batch(batch, cfg)
-        if "positions" not in inp:
-            # explicit arange positions: the differentiable attention route
-            x = inp["tokens"] if cfg.input_kind == "tokens" else inp["embeds"]
-            b, s = x.shape[:2]
-            inp = dict(inp, positions=torch.arange(
-                s, device=x.device).expand(b, s))
+        inp, labels = _step_inputs(batch, cfg)
         logits, aux = forward(params, inp)
-        if cfg.input_kind != "tokens":
-            labels = labels[:, :logits.shape[1]]
         loss = lm_loss(logits, labels, cfg.vocab_size, cfg.z_loss)
         return loss + aux, (loss, aux)
     return loss_fn
@@ -303,11 +312,6 @@ def split_micro(batch: Dict[str, torch.Tensor], n_micro: int, dp: int):
 
 def _make_meshed_step(cfg: ModelConfig, opt: AdamW, n_micro: int,
                       micro_batch_axes):
-    why = meshed_refusal(cfg)
-    if why:
-        raise NotImplementedError(
-            f"make_train_step(micro_batch_axes={micro_batch_axes!r}): {why}")
-
     def train_step(state: TrainState, batch):
         params = state.params
         leaves = [leaf for _, leaf in tree_flatten_with_path(params)[0]]
@@ -333,16 +337,8 @@ def _make_meshed_step(cfg: ModelConfig, opt: AdamW, n_micro: int,
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         aux_acc = loss_acc
         for parts in split_micro(batch, n_micro, plan.dp):
-            inputs, labels = [], []
-            for part in parts:
-                inp, lab = _shift_batch(part, cfg)
-                toks = inp["tokens"]
-                if "positions" not in inp:
-                    b, s = toks.shape
-                    inp = dict(inp, positions=torch.arange(
-                        s, device=toks.device).expand(b, s))
-                inputs.append(inp)
-                labels.append(lab)
+            inputs, labels = zip(*(_step_inputs(part, cfg)
+                                   for part in parts))
             logits, aux = forward_meshed(params, cfg, plan, inputs)
             loss = lm_loss_meshed(plan, logits, labels, cfg.vocab_size,
                                   cfg.z_loss)
@@ -407,14 +403,18 @@ def shard_train_state(state: TrainState, mesh) -> TrainState:
     each leaf sharded from the tensors on their device."""
     cfg = state.params.cfg
     specs, _ = train_state_specs(cfg, mesh)
+    sh = shardings_from_specs(specs, mesh)
     opt = state.opt
-    tree = TrainState(
-        params=arrays_from_named(dict(state.params.named_parameters()), cfg,
-                                 on_device=True),
-        opt=AdamWState(step=opt.step,
-                       m=arrays_from_named(opt.m, cfg, on_device=True),
-                       v=arrays_from_named(opt.v, cfg, on_device=True)))
-    return shard_tree(tree, shardings_from_specs(specs, mesh))
+
+    def part(named, shardings):
+        # one tree at a time: its stacked copy is freed before the next
+        return shard_tree(arrays_from_named(named, cfg, on_device=True),
+                          shardings)
+
+    return TrainState(
+        params=part(dict(state.params.named_parameters()), sh.params),
+        opt=AdamWState(step=sh.opt.step.shard(opt.step),
+                       m=part(opt.m, sh.opt.m), v=part(opt.v, sh.opt.v)))
 
 
 def gathered_model(cfg: ModelConfig, state: TrainState) -> Transformer:

@@ -1012,13 +1012,17 @@ def test_check_repo_card_matches_cpu(dev):
 
 
 @pytest.mark.parametrize("arch", ["qwen3-0.6b", "gemma3-1b",
-                                  "granite-moe-1b-a400m"])
+                                  "granite-moe-1b-a400m",
+                                  "deepseek-v2-lite-16b", "xlstm-1.3b",
+                                  "recurrentgemma-9b", "qwen2-vl-2b",
+                                  "whisper-small"])
 def test_reduced_meshed_step_card_matches_cpu(dev, arch):
     """One meshed train step of a reduced model (float32 compute, TF32 off)
     over a (data 4, model 2) mesh of the card's entries and over one of the
-    CPU's, from the same weights: loss and gradient norm within 1e-5, the
-    weights as :func:`test_reduced_train_step_card_matches_cpu` holds
-    them."""
+    CPU's, from the same weights, on a batch of its input kind
+    (``tests/test_torch_train_mesh_families.py``'s ``family_batch``): loss
+    and gradient norm within 1e-5, the weights as
+    :func:`test_reduced_train_step_card_matches_cpu` holds them."""
     from repro_torch.dist.sharding import (activation_rules,
                                            bind_activation_rules,
                                            tree_flatten_with_path)
@@ -1028,11 +1032,13 @@ def test_reduced_meshed_step_card_matches_cpu(dev, arch):
     from repro_torch.train.train_step import (shard_train_state,
                                               train_state_to_arrays)
 
+    from test_torch_train_mesh_families import family_batch
+
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = get_config(arch, reduced=True)
     opt = AdamW(lr=warmup_cosine(1e-3, 2, 10))
-    toks = torch.as_tensor(np.random.default_rng(8).integers(
-        0, cfg.vocab_size, (8, 33)), dtype=torch.int32)
+    batch = {k: torch.from_numpy(v) for k, v in
+             family_batch(cfg, seed=8, seq=33).items()}
     out = []
     for d in ("cpu", dev):
         mesh = make_mesh((4, 2), ("data", "model"), devices=[d] * 8)
@@ -1041,7 +1047,7 @@ def test_reduced_meshed_step_card_matches_cpu(dev, arch):
             activation_rules(cfg, mesh))
         state = shard_train_state(init_train_state(cfg, opt, seed=0,
                                                    device="cpu"), mesh)
-        state, m = step(state, {"tokens": toks.to(d)})
+        state, m = step(state, {k: v.to(d) for k, v in batch.items()})
         out.append((m, [np.asarray(a) for _, a in tree_flatten_with_path(
             train_state_to_arrays(state).params)[0]]))
     (hm, hw), (cm, cw) = out

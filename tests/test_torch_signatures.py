@@ -662,6 +662,7 @@ def _embedding_batch_step(case):
     return jm, tm
 
 
+# the architectures a mesh refused until item 10.8 was ported
 MESH_REFUSED = ("deepseek-v2-lite-16b", "xlstm-1.3b", "recurrentgemma-9b",
                 "qwen2-vl-2b", "whisper-small")
 
@@ -674,11 +675,15 @@ def test_trainer_refusals_name_item_10(case, tmp_path):
     """The sharded trainer's entry points (a mesh, pinned microbatch axes,
     restoring onto shardings), refused until item 10.7 was ported, now
     run and give the reference's results within 1e-5 relative
-    (:func:`_trainer_accepts`).  Under a mesh the five architectures
-    whose meshed forward is item 10.8 raise ``NotImplementedError``
-    naming item 10.  The batches refused until qwen2-vl was ported,
-    ``embeds`` and ``positions3``, now train: one step's loss and
-    gradient norm equal the reference's within 1e-5 relative."""
+    (:func:`_trainer_accepts`).  The five architectures a mesh refused
+    until their meshed forward was ported (item 10.8) train on one: the
+    launcher for a token decoder, one ``make_train_step(micro_batch_axes=)``
+    step for qwen2-vl and whisper, against the reference's unmeshed call
+    within 1e-5 relative
+    (``tests/test_torch_train_mesh_families.py``'s
+    ``accepted_against_reference``).  The batches refused until qwen2-vl
+    was ported, ``embeds`` and ``positions3``, now train: one step's loss
+    and gradient norm equal the reference's within 1e-5 relative."""
     if case in ("positions3", "embeds"):
         jm, tm = _embedding_batch_step(case)
         for k in ("loss", "grad_norm"):
@@ -686,13 +691,11 @@ def test_trainer_refusals_name_item_10(case, tmp_path):
                                        rtol=1e-5, err_msg=k)
         return
     if case.startswith("mesh:"):
-        from repro_torch.configs import get_config
+        from test_torch_train_mesh_families import accepted_against_reference
 
-        cfg = get_config(case[len("mesh:"):], reduced=True)
-        with pytest.raises(NotImplementedError, match=r"item 10\b") as err:
-            port_launch_train.run(port_launch_train.TrainJob(
-                cfg=cfg, mesh_shape=(2, 2), device="cpu"))
-        assert "item 10," in str(err.value)
+        for got, want in accepted_against_reference(case[len("mesh:"):],
+                                                    tmp_path):
+            np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=case)
         return
     for got, want in _trainer_accepts(case, tmp_path):
         np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=case)

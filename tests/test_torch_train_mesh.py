@@ -5,7 +5,8 @@ head misaligned at tp = 2) and granite-moe-1b-a400m (``_moe_a2a``) at
 entries; the elastic re-mesh case of ``tests/test_system.py``
 (``test_elastic_remesh_restore``: train on (4, 2) with a checkpoint at
 every step, restore onto (2, 2), keep training) across both packages;
-and the architectures a mesh refuses.
+and the architectures a mesh refused, which now train on one
+(``tests/test_torch_train_mesh_families.py`` holds their meshed steps).
 
 The reference runs in one subprocess (``XLA_FLAGS`` set before jax
 starts), from the port's initial weights and checkpoints, so that both
@@ -40,6 +41,7 @@ from repro_torch.train import train_step as tts
 _ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ARCHS = ["qwen3-0.6b", "gemma3-1b", "granite-moe-1b-a400m"]
 SHAPES = [(4, 2), (2, 2)]
+# the families a mesh refused before their meshed forward was ported
 REFUSED = ["deepseek-v2-lite-16b", "xlstm-1.3b", "recurrentgemma-9b",
            "qwen2-vl-2b", "whisper-small"]
 BATCH, SEQ, N_MICRO = 8, 17, 2
@@ -350,17 +352,18 @@ def test_port_checkpoint_restores_in_the_reference_remeshed(world):
 
 
 @pytest.mark.parametrize("arch", REFUSED)
-def test_meshed_entry_points_refuse_the_other_families(arch):
+def test_meshed_entry_points_train_the_other_families(arch, tmp_path):
     """MLA, the recurrent blocks, the vision-language and the
-    encoder-decoder models raise under a mesh, naming item 10 (their
-    meshed forward is item 10.8); unmeshed they train as before."""
-    cfg = get_config(arch, reduced=True)
-    with pytest.raises(NotImplementedError, match=r"item 10\b") as err:
-        tlaunch.run(tlaunch.TrainJob(cfg=cfg, mesh_shape=(2, 2),
-                                     device="cpu"))
-    assert "item 10," in str(err.value) and "10.8" in str(err.value)
-    with pytest.raises(NotImplementedError, match=r"item 10,"):
-        tts.make_train_step(cfg, _opt(), micro_batch_axes=("data",))
+    encoder-decoder models, which raised under a mesh until their meshed
+    forward was ported, train on one: the accepted call (the launcher for
+    a token decoder, one ``make_train_step(micro_batch_axes=)`` step for
+    qwen2-vl and whisper) gives the reference's losses and gradient norms
+    within 1e-5 relative (``tests/test_torch_train_mesh_families.py``'s
+    :func:`accepted_against_reference`)."""
+    from test_torch_train_mesh_families import accepted_against_reference
+
+    for got, want in accepted_against_reference(arch, tmp_path):
+        np.testing.assert_allclose(got, want, rtol=1e-5, err_msg=arch)
 
 
 def test_a_meshed_job_without_a_card_raises(monkeypatch):
