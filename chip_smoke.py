@@ -66,7 +66,7 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    m and v) through the checkpointer: ``save_async``, one step while its
    thread writes, a verified ``restore`` of that checkpoint, every leaf
    equal to what was saved bit for bit, the seconds and bytes of each
-   part (``train_checkpoint``).
+   part (``train_checkpoint``); before it, ``dryrun_check`` (phase 19).
    One step of the same model cut to 4 of its 28 layers
    (``TRAIN_VS_CPU_LAYERS``) in float32 compute (TF32 off) on 1 x 65
    tokens on the card and on the CPU from the card's weights: loss and
@@ -237,17 +237,17 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    (``rng.normal``, seed 0) at the 0.5 % quantile of pair lengths
    (``sample_pair_lengths``, seed 0), served as one union batch; an
    update wave of 4 requests alternating tau growth to 1.5x and the
-   arrival of 64 points, each on its own cached cloud and served warm;
-   one request at 3x tau that admission clamps to the account and serves
-   warm at the granted tau.  Every request at maxdim 1 (the service's
-   default 2, cut for time).  Every response's path must be the planned
-   one; the 5 warm responses and 2 of the cold wave must equal (H0, H1) a
-   cold ``compute_ph`` on the card at the granted tau; ``gf2_find_low``
+   arrival of 64 points, each on its own cached cloud and served warm
+   (the request at 3x tau that admission clamped was cut for time; the
+   clamp is held on the CPU).  Every request at maxdim 1 (the
+   service's default 2, cut for time).  Every response's path must be the
+   planned one; the 4 warm responses and 2 of the cold wave must equal
+   (H0, H1) a cold ``compute_ph`` on the card at the granted tau; ``gf2_find_low``
    and ``gf2_scatter_xor`` must launch.  A checkpoint saved and reloaded
    keeps its ``content_hash``; under a ``resume.load`` bit flip the
    reload raises ``CheckpointCorruption`` and a cold reduction through
    the engine's reducer gives the cached diagrams.  It prints the walls
-   of both waves and the clamped request, requests/s, the cache-hit
+   of both waves, requests/s, the cache-hit
    ratio, each ``serve_ph_*`` counter, p50 and p95 latency, each
    kernel's launches and the card's idle share.
 13. ``resilience`` — ``dist_path``'s loop-back run (torus4, n = 10,000,
@@ -319,6 +319,20 @@ paths' long profiles, a short profiled serving epoch has lost one of its
     candidate lists; the exchange round must gather the uneven wire
     buffer bit for bit (``Mesh``'s ``all_gather``), and the exchange over
     the card mesh must return the loop-back's payloads.
+19. ``dryrun`` — ``repro_torch.launch.dryrun`` on fake CUDA tensors (the
+    card's routes, nothing allocated): ``run_cell`` for qwen3-0.6b at its
+    published width and depth on ``mesh_kind="card"`` for ``train_4k``
+    (one microbatch traced, weighted by its 256), ``prefill_32k`` (one
+    flash custom operator a layer) and ``decode_32k``, each line its peak,
+    three roofline terms, dominant term, useful-FLOP ratio and trace
+    seconds; ``long_500k`` a skip; then ``run_ph_cell("ph_round_64k",
+    "entries")``.  Its check, ``dryrun_check``, runs inside phase 6 where
+    the training state is alive: the trace of the ``train`` step (8 x
+    1,024 tokens, 4 microbatches) must count the FLOPs that
+    ``FlopCounterMode`` counts around a real step, exactly, and its peak
+    (beside what else the card holds) must lie within 10 % of
+    ``max_memory_allocated`` over one.  ``dryrun_done`` prints the
+    phase's seconds, the check's included.
 
 Phase 3 holds the flash kernel against its plain version (``rtol = atol =
 2e-4`` in float32, ``1e-2`` in bfloat16: see ``FLASH_BF16_TOL``) at the
@@ -889,14 +903,6 @@ def check_kernels(dev) -> dict:
     return summary
 
 
-def attended_pairs(s: int, causal: bool, window: int) -> int:
-    """(query, key) pairs the masks leave, over S queries and S keys."""
-    i = np.arange(s)
-    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
-    hi = i if causal else np.full_like(i, s - 1)
-    return int((hi - lo + 1).sum())
-
-
 FLASH_SM90 = "flash_attention_kernel_sm90"   # the bf16 kernel's symbol
 FLASH_F32 = "flash_attention_f32_kernel"     # the f32 kernel's symbol
 FLASH_SYMBOL = {torch.bfloat16: FLASH_SM90, torch.float32: FLASH_F32}
@@ -939,8 +945,10 @@ def check_flash(dev, rng) -> dict:
     yardstick; then bf16 and f32 cases held for correctness alone; then the
     copies of ``_flash_prefill`` around the kernel at the serving shape.
     Returns the serving shape's entry for each dtype."""
-    from repro_torch.kernels.flash_attention import (flash_attention,
+    from repro_torch.kernels.flash_attention import (attended_pairs,
+                                                     flash_attention,
                                                      flash_attention_plain)
+
     sdpa = torch.nn.functional.scaled_dot_product_attention
 
     def inputs(bh, s, d, dtype):
@@ -1781,9 +1789,11 @@ SERVE_PH_ARRIVALS = 64
 
 def serve_ph_traffic(rng, clouds, tau: float):
     """The update wave: 4 requests, even uids grow tau to 1.5x on one
-    cached cloud, odd uids bring 64 new points to another; then one
-    request at 3x tau on the first, which admission clamps.  Returns
-    (uid, dataset, points, tau, expected path) rows."""
+    cached cloud, odd uids bring 64 new points to another.  Returns (uid,
+    dataset, points, tau, expected path) rows.  (A request at 3x tau that
+    admission clamps was cut for the run's time limit;
+    ``tests/test_torch_serve_ph.py::test_admission_clamps_and_rejects``
+    holds the clamp against the reference.)"""
     rows = []
     for k in range(SERVE_PH_CLOUDS):
         uid = SERVE_PH_CLOUDS + k
@@ -1793,19 +1803,16 @@ def serve_ph_traffic(rng, clouds, tau: float):
             grown = np.concatenate(
                 [clouds[k], rng.normal(size=(SERVE_PH_ARRIVALS, 3))], axis=0)
             rows.append((uid, f"ds{k}", grown, tau, "warm_points"))
-    rows.append((2 * SERVE_PH_CLOUDS, "ds0", clouds[0], 3.0 * tau,
-                 "warm_tau"))
     return rows
 
 
 def serve_ph(dev) -> dict:
     """``PHServeEngine(engine="packed", device=dev)`` under the profiler,
     the counts set to 0 just before it: a cold wave of 4 clouds served as
-    one union batch, an update wave of 4 warm requests (tau growth, point
-    arrival) and one request at 3x tau that admission clamps to the 4 MiB
-    account and serves warm.  Gates: every path as planned; 5 warm and 2
-    cold responses equal (H0, H1) to a cold ``compute_ph`` on the card at
-    the granted tau; find-low and scatter-XOR launched; a checkpoint saved
+    one union batch and an update wave of 4 warm requests (tau growth,
+    point arrival).  Gates: every path as planned; 4 warm and 2 cold
+    responses equal (H0, H1) to a cold ``compute_ph`` on the card at the
+    granted tau; find-low and scatter-XOR launched; a checkpoint saved
     and reloaded keeps its hash, and under a ``resume.load`` bit flip the
     reload raises ``CheckpointCorruption`` and a cold reduction through
     the engine's reducer gives the cached diagrams."""
@@ -1838,14 +1845,10 @@ def serve_ph(dev) -> dict:
             engine.submit(PHRequest(uid=k, points=p, tau_max=tau,
                                     dataset=f"ds{k}", maxdim=1))
         _, walls["cold_wave_s"] = timed(engine.run)
-        for uid, ds, p, t, _ in updates[:-1]:
+        for uid, ds, p, t, _ in updates:
             engine.submit(PHRequest(uid=uid, points=p, tau_max=t,
                                     dataset=ds, maxdim=1))
         _, walls["update_wave_s"] = timed(engine.run)
-        uid, ds, p, t, _ = updates[-1]
-        engine.submit(PHRequest(uid=uid, points=p, tau_max=t, dataset=ds,
-                                maxdim=1))
-        _, walls["clamped_s"] = timed(engine.run)
         return walls
 
     walls, evs = profiled(run)
@@ -1859,11 +1862,6 @@ def serve_ph(dev) -> dict:
         if not r.admitted or r.path != path or r.degraded:
             raise AssertionError(f"serve_ph: request {uid} took {r.path} "
                                  f"(admitted {r.admitted}), planned {path}")
-    clamped = done[updates[-1][0]]
-    if not (clamped.granted_tau < 3.0 * tau
-            and "clamped" in clamped.admission.reason):
-        raise AssertionError("serve_ph: the 3x tau request was not clamped "
-                             "to the account")
     for k in ("gf2_find_low", "gf2_scatter_xor"):
         if launches[k] <= 0:
             raise AssertionError(f"serve_ph: the service never launched {k}")
@@ -1914,8 +1912,7 @@ def serve_ph(dev) -> dict:
     lat = np.array([done[u].latency_s for u in sorted(done)])
     out = dict(
         n=SERVE_PH_N, clouds=SERVE_PH_CLOUDS, quantile=SERVE_PH_Q,
-        tau_max=tau, granted_clamped_tau=clamped.granted_tau,
-        n_e_clamped=checked[-1]["n_e"], budget_bytes=SERVE_PH_BUDGET,
+        tau_max=tau, budget_bytes=SERVE_PH_BUDGET,
         store_budget_bytes=SERVE_PH_STORE, maxdim=1, **walls,
         requests=len(done), requests_per_s=len(done) / wall,
         cache_hit_ratio=stats["serve_ph_n_cache_hits"]
@@ -2104,38 +2101,45 @@ def sanitize(dev, o3_card: dict, o3_p3_s: float) -> dict:
     return out
 
 
-# launch/dryrun.py's ph_round_64k cell: columns per mesh entry, column
-# width in keys, pivot-table entries
-ROUND_COLS, ROUND_WIDTH, ROUND_PIVOTS = 256, 64, 2**20
+ROUND_SHAPE = "ph_round_64k"
+
+
+def round_shape() -> tuple:
+    """``launch/dryrun.py``'s ``ph_round_64k`` cell: columns per mesh
+    entry, column width in keys, pivot-table entries."""
+    from repro_torch.launch.dryrun import PH_SHAPES
+
+    p = PH_SHAPES[ROUND_SHAPE]
+    return p["b_per_dev"], p["width"], p["n_pivots"]
 
 
 def round_inputs(entries: int, seed: int = 0):
-    """A pivot table of ``ROUND_PIVOTS`` sorted keys whose row k has low
+    """A pivot table of ``n_pivots`` sorted keys whose row k has low
     ``keys[k]`` and later keys of the table after it, and ``entries x
-    ROUND_COLS`` columns of table keys, so that reductions chain through
-    the table and cancel."""
+    b_per_dev`` columns of table keys (:func:`round_shape`), so that
+    reductions chain through the table and cancel."""
     from repro_torch.core.device_engine import EMPTY
 
+    n_cols, w, n_piv = round_shape()
     rng = np.random.default_rng(seed)
-    keys = np.cumsum(rng.integers(1, 1 << 12, size=ROUND_PIVOTS,
+    keys = np.cumsum(rng.integers(1, 1 << 12, size=n_piv,
                                   dtype=np.int64))
-    w = ROUND_WIDTH
     # row k: itself, then table keys at increasing offsets past k
-    idx = np.arange(ROUND_PIVOTS, dtype=np.int64)[:, None] + np.concatenate(
-        [np.zeros((ROUND_PIVOTS, 1), dtype=np.int64),
-         np.cumsum(rng.integers(1, 64, size=(ROUND_PIVOTS, w - 1)), axis=1)],
+    idx = np.arange(n_piv, dtype=np.int64)[:, None] + np.concatenate(
+        [np.zeros((n_piv, 1), dtype=np.int64),
+         np.cumsum(rng.integers(1, 64, size=(n_piv, w - 1)), axis=1)],
         axis=1)
-    length = rng.integers(1, w + 1, size=(ROUND_PIVOTS, 1))
-    live = (np.arange(w)[None, :] < length) & (idx < ROUND_PIVOTS)
-    table = np.where(live, keys[np.minimum(idx, ROUND_PIVOTS - 1)], EMPTY)
-    b = entries * ROUND_COLS
-    start = rng.integers(0, ROUND_PIVOTS // 2, size=(b, 1))
+    length = rng.integers(1, w + 1, size=(n_piv, 1))
+    live = (np.arange(w)[None, :] < length) & (idx < n_piv)
+    table = np.where(live, keys[np.minimum(idx, n_piv - 1)], EMPTY)
+    b = entries * n_cols
+    start = rng.integers(0, n_piv // 2, size=(b, 1))
     cidx = start + np.concatenate(
         [np.zeros((b, 1), dtype=np.int64),
          np.cumsum(rng.integers(1, 4096, size=(b, w - 1)), axis=1)], axis=1)
     clen = rng.integers(1, w + 1, size=(b, 1))
-    clive = (np.arange(w)[None, :] < clen) & (cidx < ROUND_PIVOTS)
-    cols = np.where(clive, keys[np.minimum(cidx, ROUND_PIVOTS - 1)], EMPTY)
+    clive = (np.arange(w)[None, :] < clen) & (cidx < n_piv)
+    cols = np.where(clive, keys[np.minimum(cidx, n_piv - 1)], EMPTY)
     return cols, keys, table
 
 
@@ -2182,11 +2186,12 @@ def device_engine(dev, main_filt, main_n: int, death_edges) -> dict:
             raise AssertionError("device_engine: the distributed round "
                                  "differs between the card and the CPU")
     moved = int((out["cuda"][0] != cols).any(axis=1).sum())
+    n_cols, width, n_piv = round_shape()
     res = dict(n=main_n, n_e=int(edges.shape[0]), msf_s=msf_s,
                boruvka_rounds=rounds, msf_edges=int(mask.sum()),
                msf_equal_union_find=True, round_entries=entries,
-               round_cols=ROUND_COLS * entries, round_width=ROUND_WIDTH,
-               round_pivots=ROUND_PIVOTS, round_card_s=walls["cuda"],
+               round_cols=n_cols * entries, round_width=width,
+               round_pivots=n_piv, round_card_s=walls["cuda"],
                round_cpu_s=walls["cpu"], round_rows_changed=moved,
                round_equal_cpu=True)
     emit("device_engine", **res)
@@ -2499,6 +2504,170 @@ def analyze(dev) -> dict:
                exchange_payload_words=list(sizes),
                exchange_equal_loopback=True)
     emit("analyze", **out)
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 19: the dry-run tooling (launch/dryrun.py) on fake tensors
+# ---------------------------------------------------------------------------
+
+DRYRUN_ARCH = "qwen3-0.6b"
+DRYRUN_SHAPES = ("train_4k", "prefill_32k", "decode_32k", "long_500k")
+DRYRUN_PH = ("ph_round_64k", "entries")
+# The traced peak, beside what else the card holds, against
+# max_memory_allocated over the same step
+DRYRUN_PEAK_TOL = 0.10
+
+
+def dryrun_check(dev, cfg, state, stream) -> tuple:
+    """``launch/dryrun.py``'s ``trace_step`` held to the card on the
+    ``train`` phase's own step (full-width qwen3-0.6b, 8 x 1,024 tokens in
+    4 microbatches), where its state is alive.  One real step after
+    ``reset_peak_memory_stats()`` gives the card's
+    ``max_memory_allocated()``, one more under ``FlopCounterMode`` its
+    FLOPs; the
+    trace runs the step built for one microbatch on fake CUDA tensors of
+    the same shapes, weighted by 4.  Its FLOPs must equal the card's, and
+    its peak plus what the card held beside the step's arguments
+    (``other_bytes``) must lie within 10 % of the card's peak.  Returns
+    (the check's line, the state after the two steps)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.launch.dryrun import _storages, trace_step
+    from repro_torch.launch.specs import first_micro
+    from repro_torch.train import AdamW, make_train_step, warmup_cosine
+    from repro_torch.train.train_step import init_train_state
+
+    t0 = time.perf_counter()
+    opt = AdamW(lr=warmup_cosine(TRAIN_LR, TRAIN_WARMUP, TRAIN_STEPS))
+    step_fn = make_train_step(cfg, opt, n_micro=TRAIN_MICRO)
+    batch = {k: torch.from_numpy(v).to(dev)
+             for k, v in stream.batch_at(TRAIN_STEPS + 2).items()}
+    torch.cuda.synchronize()
+    gc.collect()
+    other = torch.cuda.memory_allocated() - sum(
+        _storages((state, batch)).values())
+    torch.cuda.reset_peak_memory_stats()
+    state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    card_peak = torch.cuda.max_memory_allocated()
+    # FlopCounterMode's module tracker keeps tensors of the step alive
+    # past it: counted after the peak's step, and let go before going on
+    with FlopCounterMode(display=False) as fc:
+        state, _ = step_fn(state, batch)
+    torch.cuda.synchronize()
+    card_flops = float(fc.get_total_flops())
+    del fc
+    gc.collect()
+    card_s = time.perf_counter() - t0
+
+    mode = FakeTensorMode()
+    with mode:
+        fake_state = init_train_state(cfg, opt, 0, dev)
+        fake_batch = {k: torch.empty(v.shape, dtype=v.dtype, device=dev)
+                      for k, v in batch.items()}
+    tr = trace_step(make_train_step(cfg, opt, n_micro=1),
+                    (fake_state, first_micro(fake_batch, TRAIN_MICRO)),
+                    mode, n_micro=TRAIN_MICRO)
+    ratio = (tr.peak_bytes + other) / card_peak
+    out = dict(arch=cfg.name, global_batch=TRAIN_BATCH, seq_len=TRAIN_SEQ,
+               n_micro=TRAIN_MICRO, trace_flops=tr.total_flops,
+               card_flops=card_flops,
+               flops_ratio=tr.total_flops / card_flops,
+               trace_flops_by_dtype=tr.flops,
+               trace_peak_bytes=tr.peak_bytes, card_peak_bytes=card_peak,
+               other_bytes=other, peak_ratio=ratio,
+               trace_peak_over_card_peak=tr.peak_bytes / card_peak,
+               trace_argument_bytes=tr.argument_bytes,
+               trace_traffic_bytes=tr.traffic_bytes, trace_s=tr.seconds,
+               card_steps_s=card_s, check_s=time.perf_counter() - t0)
+    emit("dryrun_check", **out)
+    if tr.total_flops != card_flops or abs(ratio - 1) > DRYRUN_PEAK_TOL:
+        raise AssertionError(
+            f"dryrun_check: traced {tr.total_flops} FLOPs against the "
+            f"card's {card_flops}; traced peak {tr.peak_bytes} + "
+            f"{other} beside the step against the card's {card_peak} "
+            f"(ratio {ratio:.4f}, tolerance {DRYRUN_PEAK_TOL})")
+    return out, state
+
+
+def dryrun_line(rec: dict) -> dict:
+    """A dry-run record's summary: the peak, the three terms, the dominant
+    one, the useful-FLOP ratio and the trace's seconds."""
+    if rec["status"] == "skip":
+        return dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+                    status="skip", skip_reason=rec["skip_reason"])
+    r = rec["roofline"]
+    return dict(arch=rec["arch"], shape=rec["shape"], mesh=rec["mesh"],
+                status=rec["status"], kind=rec["kind"],
+                peak_gib=rec["memory"]["peak_bytes"] / 2**30,
+                compute_s=r["compute_s"], memory_s=r["memory_s"],
+                collective_s=r["collective_s"], dominant=r["dominant"],
+                useful_flop_ratio=r["useful_flop_ratio"],
+                trace_s=rec["lower_s"], n_micro=rec["meta"].get("n_micro"),
+                entries=rec["meta"]["entries"],
+                flops=rec["cost"]["per_device_flops"],
+                flops_by_dtype=rec["cost"].get("flops_by_dtype"),
+                traffic_bytes=rec["cost"]["per_device_bytes"],
+                collectives={k: v for k, v in rec["collectives"].items()
+                             if v})
+
+
+def dryrun(dev, check: dict) -> dict:
+    """``launch/dryrun.py`` on the card: ``run_cell`` for qwen3-0.6b at its
+    published width and depth on ``mesh_kind="card"``, traced on fake CUDA
+    tensors (the card's routes: prefill's attention through the flash
+    kernel's custom operator, whose fake implementation allocates nothing),
+    for ``train_4k``, ``prefill_32k`` and ``decode_32k``; ``long_500k``
+    must be a skip (full attention).  Then ``run_ph_cell("ph_round_64k",
+    "entries")``.  Gates: every record ``ok`` with finite positive terms
+    and a positive peak, on ``cuda``; ``train_4k`` weighted by its 256
+    microbatches; one flash operator a layer in the prefill; the PH round's
+    collectives present.  The phase's seconds include
+    :func:`dryrun_check`'s."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import dryrun as dr
+
+    t0 = time.perf_counter()
+    cfg = get_config(DRYRUN_ARCH)
+    lines = {}
+    for shape in DRYRUN_SHAPES:
+        rec = dr.run_cell(DRYRUN_ARCH, shape, "card", device=dev)
+        line = dryrun_line(rec)
+        emit("dryrun", **line)
+        lines[shape] = line
+        if shape == "long_500k":
+            if rec["status"] != "skip":
+                raise AssertionError(f"dryrun: long_500k is {rec['status']}"
+                                     ", not a skip, on a full-attention arch")
+            continue
+        terms = [line[k] for k in ("compute_s", "memory_s")]
+        if rec["status"] != "ok" or not all(
+                math.isfinite(t) and t > 0 for t in terms) \
+                or line["peak_gib"] <= 0 \
+                or not rec["meta"]["device"].startswith("cuda"):
+            raise AssertionError(f"dryrun: {shape}: {line}")
+        if shape == "train_4k" and line["n_micro"] != 256:
+            raise AssertionError(f"dryrun: train_4k took {line['n_micro']} "
+                                 "microbatches, not 256")
+        if shape == "prefill_32k" and rec["collectives"].get(
+                "count_flash_attention") != cfg.n_layers:
+            raise AssertionError(f"dryrun: prefill_32k traced "
+                                 f"{rec['collectives']} flash operators, not"
+                                 f" one a layer ({cfg.n_layers})")
+    rec = dr.run_ph_cell(*DRYRUN_PH, device=dev)
+    line = dryrun_line(rec)
+    emit("dryrun", **line)
+    lines["ph"] = line
+    if rec["status"] != "ok" or rec["memory"]["peak_bytes"] <= 0 \
+            or rec["collectives"]["total"] <= 0:
+        raise AssertionError(f"dryrun: {DRYRUN_PH}: {line}")
+    own_s = time.perf_counter() - t0
+    out = dict(cells=lines, check=check, own_s=own_s,
+               check_s=check["check_s"], phase_s=own_s + check["check_s"])
+    emit("dryrun_done", own_s=own_s, check_s=check["check_s"],
+         phase_s=out["phase_s"])
     return out
 
 
@@ -3296,6 +3465,8 @@ def train(dev) -> dict:
     t0 = time.perf_counter()
     full, cfg, state, step_fn, stream = train_full_width(dev, counters)
     t1 = time.perf_counter()
+    check, state = dryrun_check(dev, cfg, state, stream)
+    t1c = time.perf_counter()
     ckpt = train_checkpoint(dev, state, step_fn, stream)
     t2 = time.perf_counter()
     del state, step_fn
@@ -3307,8 +3478,9 @@ def train(dev) -> dict:
     learn = train_learning(dev)
     t4 = time.perf_counter()
     out = dict(full_width=full, checkpoint=ckpt, card_vs_cpu=versus,
-               learning=learn,
-               part_s=dict(full_width=t1 - t0, checkpoint=t2 - t1,
+               learning=learn, dryrun_check=check,
+               part_s=dict(full_width=t1 - t0, dryrun_check=t1c - t1,
+                           checkpoint=t2 - t1c,
                            card_vs_cpu=t3 - t2, learning=t4 - t3))
     emit("train_done", part_s=out["part_s"], phase_s=t4 - t0)
     torch.cuda.empty_cache()
@@ -3808,6 +3980,8 @@ def flash_groups(calls, evs, d_v: Optional[int] = None) -> dict:
     profiler recorded another number of launches than were made (it has
     dropped events of short sessions after long ones), since the order
     then pairs them wrongly."""
+    from repro_torch.kernels.flash_attention import attended_pairs
+
     evs = sorted(evs, key=lambda ev: ev.time_range.start)
     out = dict(calls=len(calls), profiled_launches=len(evs), groups=None)
     if len(evs) != len(calls):
@@ -4788,6 +4962,7 @@ def main() -> int:
     hic_suite(dev)
     hic = hic_path(dev)
     analyze(dev)
+    dryrun(dev, trained["dryrun_check"])
     launches = dict(path["launches"],
                     flash_attention_bf16=served["flash_launches"],
                     flash_attention_f32=served_f32["flash_launches"])

@@ -34,9 +34,9 @@ recorded as an ``all_gather``), and each calls the hook that
 
 The registry holds ``dist.compression.compressed_psum_grads`` too, the
 int8 gradient exchange of the sharded trainer, pinned to the reference's
-two ``all_gather``s a leaf.  :func:`collective_schedule_from_hlo`, which
-reads compiled HLO through ``launch/hlo.py``, waits for the XLA tooling
-(ROADMAP.md §1 item 11).
+two ``all_gather``s a leaf.  :func:`collective_schedule_from_hlo` is the
+reference's post-XLA cross-check over compiled HLO text, through the
+port's copy of the ``launch/hlo.py`` parser.
 
 The modules under test are imported inside functions, so importing this
 module stays cheap.
@@ -201,12 +201,65 @@ def verify_axes(schedule: Schedule,
 
 def collective_schedule_from_hlo(hlo_text: str, where: str = "<hlo>",
                                  pod_size: int = 256) -> Schedule:
-    """The reference's post-XLA cross-check over compiled HLO text: it
-    reuses ``launch/hlo.py``'s parser, which waits for the XLA tooling."""
-    raise NotImplementedError(
-        "collective_schedule_from_hlo reads compiled HLO through "
-        "launch/hlo.py's parser, which is not ported yet (ROADMAP.md §1 "
-        "item 11); collective_schedule runs the program on a port Mesh")
+    """Extract the collective schedule from compiled HLO text (the
+    reference's, over ``repro_torch.launch.hlo``'s parser).
+
+    Walks the entry computation in program order, inlining called and
+    fusion-called computations and while bodies.  A collective reached
+    through a while loop whose trip count the parser cannot prove is
+    flagged ``while-collective``: the same deadlock class as
+    :func:`collective_schedule`'s, after XLA had its say."""
+    import re
+
+    from ..launch.hlo import (COLLECTIVES, _group_info, _parse_computation,
+                              _split_computations)
+
+    raw = _split_computations(hlo_text)
+    parsed = {name: _parse_computation(name, lines, pod_size)
+              for name, lines in raw.items()}
+    entry: Optional[str] = None
+    for line in hlo_text.splitlines():
+        if line.startswith("ENTRY"):
+            match = re.search(r"ENTRY\s+%?([\w.\-]+)", line)
+            if match:
+                entry = match.group(1)
+            break
+    if entry is None and parsed:
+        entry = next(iter(parsed))
+
+    ops: List[CollectiveOp] = []
+    violations: List[Violation] = []
+
+    def visit(name: str, in_unproven_while: bool,
+              stack: Tuple[str, ...]) -> None:
+        comp = parsed.get(name)
+        if comp is None or name in stack:
+            return
+        stack = stack + (name,)
+        for op in comp.ops:
+            base = op.opcode[:-len("-start")] \
+                if op.opcode.endswith("-start") else op.opcode
+            if base in COLLECTIVES:
+                group_size, _ = _group_info(op.line, pod_size)
+                ops.append(CollectiveOp(base, (), (), group_size))
+                if in_unproven_while:
+                    violations.append(Violation(
+                        "while-collective", where,
+                        f"HLO {base} executes under a while loop with an "
+                        "unproven trip count; shards that disagree on the "
+                        "trip count deadlock"))
+        for callee in comp.calls:
+            visit(callee, in_unproven_while, stack)
+        for callee in comp.fusion_calls:
+            visit(callee, in_unproven_while, stack)
+        for cond, body, trip in comp.whiles:
+            risky = in_unproven_while or trip <= 0
+            visit(cond, risky, stack)
+            visit(body, risky, stack)
+
+    if entry is not None:
+        visit(entry, False, ())
+    return Schedule(where, ops, violations)
 
 
 # ---------------------------------------------------------------------------

@@ -2,7 +2,9 @@
 
 Port of ``src/repro/configs/__init__.py``.  ``get_config(name)`` returns
 the full published config; ``get_config(name, reduced=True)`` the CPU
-smoke-test variant.  Modules load from this package
+smoke-test variant.  ``SHAPES`` defines the input-shape cells, and
+``cells(arch)`` marks ``long_500k`` a skip on every arch that is not
+sub-quadratic, as the reference does.  Modules load from this package
 (``repro_torch.configs.<name>``), never the reference's; every one of the
 reference's ``ARCHS`` has one.
 """
@@ -46,3 +48,15 @@ def get_config(name: str, reduced: bool = False) -> ModelConfig:
     mod = importlib.import_module(f"repro_torch.configs.{canonical(name)}")
     cfg: ModelConfig = mod.CONFIG
     return cfg.reduced() if reduced else cfg
+
+
+def cells(arch: str):
+    """The (shape -> spec) cells for an arch, marking long_500k skips."""
+    cfg = get_config(arch)
+    out = {}
+    for shape, spec in SHAPES.items():
+        skip = (shape == "long_500k" and not cfg.sub_quadratic)
+        out[shape] = dict(spec, skip=skip,
+                          skip_reason="full-attention (quadratic); "
+                          "per task spec" if skip else "")
+    return out

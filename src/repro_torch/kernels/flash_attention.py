@@ -31,14 +31,21 @@ float32, output in q's dtype.
 
 :func:`flash_attention` runs a kernel for CUDA tensors and the plain
 version for CPU tensors, and nothing else: a CUDA tensor it cannot take
-raises.  ``flash_attention.launches`` counts kernel launches.
+raises.  ``flash_attention.launches`` counts kernel launches.  The launch
+is the custom operator ``torch.ops.repro_torch.flash_attention``, so a
+trace on fake CUDA tensors (``launch/dryrun.py``) passes through it: its
+fake implementation gives the output's shape without touching memory,
+and its FLOP formula, which ``torch.utils.flop_counter`` reads, counts
+4 · d FLOPs a (query, key) pair the masks leave (:func:`attended_pairs`).
 """
 from __future__ import annotations
 
 import ctypes
 import math
 
+import numpy as np
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import _build
 
@@ -114,21 +121,53 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "of 8")
     if bh > 65535:
         raise ValueError(f"BH={bh} exceeds the kernel grid's limit of 65535")
+    return torch.ops.repro_torch.flash_attention(q, k, v, bool(causal),
+                                                 int(window))
+
+
+flash_attention.launches = 0
+
+
+@torch.library.custom_op("repro_torch::flash_attention", mutates_args=(),
+                         device_types="cuda")
+def _flash_attention_cuda(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, causal: bool,
+                          window: int) -> torch.Tensor:
+    """The kernel launch behind :func:`flash_attention` (checked there)."""
     if any(t.data_ptr() % ALIGN for t in (q, k, v)):
         raise ValueError("q, k and v must be 16-byte aligned: the kernels "
                          "load them with TMA (bfloat16) or cp.async "
                          "(float32)")
     out = torch.empty_like(q)
+    bh, s, d = q.shape
     if bh and s:
         source, fn = _ROUTES[q.dtype]
         lib = _build.library(source, {fn: _ARGTYPES})
         stream = torch.cuda.current_stream(q.device).cuda_stream
         err = getattr(lib, fn)(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), bh, s,
-            d, int(bool(causal)), int(window), 1.0 / math.sqrt(d), stream)
+            d, int(causal), int(window), 1.0 / math.sqrt(d), stream)
         flash_attention.launches += 1
         _build.check_launch(err, "flash_attention")
     return out
 
 
-flash_attention.launches = 0
+@_flash_attention_cuda.register_fake
+def _flash_attention_fake(q, k, v, causal, window):
+    return torch.empty_like(q)
+
+
+def attended_pairs(s: int, causal: bool, window: int) -> int:
+    """(query, key) pairs the masks leave, over S queries and S keys."""
+    i = np.arange(s)
+    lo = np.maximum(i - window + 1, 0) if window > 0 else np.zeros_like(i)
+    hi = i if causal else np.full_like(i, s - 1)
+    return int((hi - lo + 1).sum())
+
+
+@register_flop_formula(torch.ops.repro_torch.flash_attention)
+def _flash_flops(q_shape, k_shape, v_shape, causal, window, *args,
+                 out_shape=None, **kwargs) -> int:
+    """Q.K^T and P.V: 2 · d FLOPs each a pair attended, BH times."""
+    bh, s, d = q_shape
+    return 4 * d * bh * attended_pairs(s, causal, window)

@@ -376,9 +376,17 @@ def _slot(name: str, slots: Mapping[int, Tuple[int, str, int]]
 
 
 def _stand_in(t) -> np.ndarray:
-    """A zero-stride array of ``t``'s shape and dtype: it copies nothing."""
-    dtype = torch.empty(0, dtype=t.dtype).numpy().dtype \
-        if isinstance(t, torch.Tensor) else np.asarray(t).dtype
+    """A zero-stride array of ``t``'s shape and dtype: it copies nothing.
+    The dtype is read off an empty real tensor, also inside a
+    ``FakeTensorMode`` (where a new tensor would be fake, and a fake one
+    has no ``numpy()``)."""
+    if isinstance(t, torch.Tensor):
+        from torch._subclasses.fake_tensor import unset_fake_temporarily
+
+        with unset_fake_temporarily():
+            dtype = torch.empty(0, dtype=t.dtype).numpy().dtype
+    else:
+        dtype = np.asarray(t).dtype
     return np.broadcast_to(np.zeros((), dtype=dtype), tuple(t.shape))
 
 

@@ -57,6 +57,7 @@ from repro_torch.dist.sharding import (P, ShardedTensor, shard_tree,
 from repro_torch.launch.mesh import all_gather, psum
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshPlan
+from repro_torch.obs.trace import span
 from repro_torch.models.transformer import (Transformer, _stand_in,
                                             arrays_from_named,
                                             forward, forward_meshed,
@@ -129,7 +130,9 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, n_micro: int = 1,
 
     batch leaves have leading dim = global_batch; they are split into
     ``n_micro`` microbatches run one after another with float32
-    accumulation.  ``micro_batch_axes`` (a mesh axis name or tuple) makes
+    accumulation, each inside a ``train/micro`` span (``i``: its index),
+    which the dry-run's trace reads to weight one microbatch by
+    ``n_micro``.  ``micro_batch_axes`` (a mesh axis name or tuple) makes
     it the meshed step (module docstring), which takes a sharded state
     (:func:`shard_train_state`) and splits each microbatch over those
     axes.
@@ -158,16 +161,17 @@ def make_train_step(cfg: ModelConfig, opt: AdamW, n_micro: int = 1,
                  for p in params]
         loss_acc, aux_acc = zero, zero
         for i in range(n_micro):
-            mb = {k: v[i] for k, v in micro.items()}
-            tot, (loss, aux) = loss_fn(model, mb)
-            g = torch.autograd.grad(tot, params)
-            with torch.no_grad():
-                g = [t.float() for t in g]
-                torch._foreach_div_(g, n_micro)
-                torch._foreach_add_(grads, g)
-            del g, tot
-            loss_acc = loss_acc + loss.detach() / n_micro
-            aux_acc = aux_acc + aux.detach() / n_micro
+            with span("train/micro", i=i):
+                mb = {k: v[i] for k, v in micro.items()}
+                tot, (loss, aux) = loss_fn(model, mb)
+                g = torch.autograd.grad(tot, params)
+                with torch.no_grad():
+                    g = [t.float() for t in g]
+                    torch._foreach_div_(g, n_micro)
+                    torch._foreach_add_(grads, g)
+                del g, tot
+                loss_acc = loss_acc + loss.detach() / n_micro
+                aux_acc = aux_acc + aux.detach() / n_micro
         names = list(named)
         new_params, new_opt, gnorm = opt.update(
             dict(zip(names, grads)), state.opt,
@@ -336,21 +340,23 @@ def _make_meshed_step(cfg: ModelConfig, opt: AdamW, n_micro: int,
         dev = plan.device()
         loss_acc = torch.zeros((), dtype=torch.float32, device=dev)
         aux_acc = loss_acc
-        for parts in split_micro(batch, n_micro, plan.dp):
-            inputs, labels = zip(*(_step_inputs(part, cfg)
-                                   for part in parts))
-            logits, aux = forward_meshed(params, cfg, plan, inputs)
-            loss = lm_loss_meshed(plan, logits, labels, cfg.vocab_size,
-                                  cfg.z_loss)
-            del logits
-            g = torch.autograd.grad(loss + aux, blocks, allow_unused=True)
-            with torch.no_grad():
-                for acc, t in zip(grads, g):
-                    if t is not None:
-                        acc.add_(t.float() / n_micro)
-            del g
-            loss_acc = loss_acc + loss.detach() / n_micro
-            aux_acc = aux_acc + aux.detach() / n_micro
+        for i, parts in enumerate(split_micro(batch, n_micro, plan.dp)):
+            with span("train/micro", i=i):
+                inputs, labels = zip(*(_step_inputs(part, cfg)
+                                       for part in parts))
+                logits, aux = forward_meshed(params, cfg, plan, inputs)
+                loss = lm_loss_meshed(plan, logits, labels, cfg.vocab_size,
+                                      cfg.z_loss)
+                del logits
+                g = torch.autograd.grad(loss + aux, blocks,
+                                        allow_unused=True)
+                with torch.no_grad():
+                    for acc, t in zip(grads, g):
+                        if t is not None:
+                            acc.add_(t.float() / n_micro)
+                del g
+                loss_acc = loss_acc + loss.detach() / n_micro
+                aux_acc = aux_acc + aux.detach() / n_micro
         for b in blocks:
             b.requires_grad_(False)
         it = iter(grads)

@@ -293,8 +293,34 @@ def test_collective_schedule_takes_only_a_port_mesh():
 
 
 def test_hlo_schedule_waits_for_item_11():
-    with pytest.raises(NotImplementedError, match="item 11"):
-        coll.collective_schedule_from_hlo("HloModule m\n")
+    """Item 11 is done: ``collective_schedule_from_hlo`` no longer refuses
+    and returns the reference's ``Schedule`` (here an empty module's, and
+    a module with a collective under an unproven loop;
+    ``tests/test_torch_hlo.py`` holds the rest)."""
+    text = ("HloModule m\n\n"
+            "%c (p: s32[]) -> pred[] {\n"
+            "  %p = s32[] parameter(0)\n"
+            "  ROOT %t = pred[] compare(s32[] %p, s32[] %p), direction=LT\n"
+            "}\n\n"
+            "%b (p: s32[]) -> s32[] {\n"
+            "  %p = s32[] parameter(0)\n"
+            "  %g = s32[4] all-gather(s32[] %p), replica_groups={{0,1,2,3}}, "
+            "dimensions={0}\n"
+            "  ROOT %q = s32[] add(s32[] %p, s32[] %p)\n"
+            "}\n\n"
+            "ENTRY %e (x: s32[]) -> s32[] {\n"
+            "  %x = s32[] parameter(0)\n"
+            "  ROOT %w = s32[] while(s32[] %x), condition=%c, body=%b\n"
+            "}\n")
+    for hlo_text in ("HloModule m\n", text):
+        got = coll.collective_schedule_from_hlo(hlo_text)
+        want = ref_coll.collective_schedule_from_hlo(hlo_text)
+        assert (got.where, [(o.name, o.group_size) for o in got.ops],
+                [(v.kind, v.detail) for v in got.violations]) == \
+            (want.where, [(o.name, o.group_size) for o in want.ops],
+             [(v.kind, v.detail) for v in want.violations])
+    assert [(o.name, o.group_size) for o in got.ops] == [("all-gather", 4)]
+    assert [v.kind for v in got.violations] == ["while-collective"]
 
 
 # ---------------------------------------------------------------------------

@@ -788,3 +788,73 @@ def test_ssm_allocating_signatures_add_device(kind):
         [(p.name, p.default) for p in _params(port_attn.attn_params)] == \
         [("cfg", inspect.Parameter.empty), ("gen", inspect.Parameter.empty),
          ("device", None)]
+
+
+# ---------------------------------------------------------------------------
+# the dry-run tooling (ROADMAP.md §1 item 11)
+# ---------------------------------------------------------------------------
+
+def _ast_params(path, name):
+    """A function's parameters read off its source: the reference's
+    ``launch/dryrun.py`` forces 512 host devices when it is imported."""
+    import ast
+
+    tree = ast.parse(open(path).read())
+    fn = next(n for n in ast.walk(tree)
+              if isinstance(n, ast.FunctionDef) and n.name == name)
+    a = fn.args
+    defaults = [None] * (len(a.args) - len(a.defaults)) + [
+        ast.literal_eval(d) for d in a.defaults]
+    return [(p.arg, d) for p, d in zip(a.args, defaults)]
+
+
+@pytest.mark.parametrize("name", ["build_cell", "count_params",
+                                  "model_flops", "input_specs", "cells",
+                                  "analyze_module"])
+def test_dryrun_tooling_signature_is_the_references(name):
+    """Host-only (or fake-tensor) entry points take exactly the
+    reference's parameters; ``input_specs``, which makes its fake tensors
+    on a device, adds ``device`` last.  (``collective_schedule_from_hlo``
+    sits in :func:`test_host_signature_is_the_reference`.)"""
+    from repro import configs as ref_configs
+    from repro.launch import hlo as ref_hlo
+    from repro.launch import specs as ref_specs
+    from repro_torch import configs as port_configs
+    from repro_torch.launch import hlo as port_hlo
+    from repro_torch.launch import specs as port_specs
+
+    ref_mod, port_mod = {"cells": (ref_configs, port_configs),
+                         "analyze_module": (ref_hlo, port_hlo)}.get(
+        name, (ref_specs, port_specs))
+    want, got = _params(getattr(ref_mod, name)), _params(getattr(port_mod,
+                                                                 name))
+    extra = ["device"] if name == "input_specs" else []
+    assert [p.name for p in got] == [p.name for p in want] + extra
+    for a, b in zip(want, got):
+        assert a.kind == b.kind and _same_default(a, b), a.name
+    if extra:
+        assert got[-1].default is None
+
+
+@pytest.mark.parametrize("name", ["run_cell", "run_ph_cell"])
+def test_dryrun_cell_signature_adds_device(name):
+    """``run_cell`` and ``run_ph_cell`` trace on the card by default: the
+    reference's parameters and defaults, then ``device``."""
+    from repro_torch.launch import dryrun
+
+    ref = os.path.join(os.path.dirname(__file__), os.pardir, "src", "repro",
+                       "launch", "dryrun.py")
+    got = _params(getattr(dryrun, name))
+    want = _ast_params(ref, name)
+    assert [(p.name, None if p.default is inspect.Parameter.empty
+             else p.default) for p in got] == want + [("device", None)]
+
+
+def test_no_refusal_names_item_11():
+    """Item 11 is ported: no message of the port names it."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "src" / \
+        "repro_torch"
+    hits = [str(p) for p in root.rglob("*.py") if "item 11" in p.read_text()]
+    assert hits == []
