@@ -62,11 +62,12 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    (one launch a layer, 28).  One more step under ``torch.profiler`` (CUDA
    activity only): the card's busy share, device seconds by kind of
    operation and its five longest device operations
-   (``train_profiled_step``).  The full-width state (float32 parameters,
-   m and v) through the checkpointer: ``save_async``, one step while its
-   thread writes, a verified ``restore`` of that checkpoint, every leaf
-   equal to what was saved bit for bit, the seconds and bytes of each
-   part (``train_checkpoint``); before it, ``dryrun_check`` (phase 19).
+   (``train_profiled_step``).  Then ``dryrun_check`` (phase 19).  (The
+   full-width state's checkpoint round trip, ``save_async`` while a step
+   runs and a verified ``restore``, was cut for time: ``train_mesh``
+   writes and restores the meshed full-width state bit for bit, and
+   ``tests/test_torch_checkpoint.py`` holds the unmeshed train state's
+   round trip on the CPU.)
    One step of the same model cut to 4 of its 28 layers
    (``TRAIN_VS_CPU_LAYERS``) in float32 compute (TF32 off) on 1 x 65
    tokens on the card and on the CPU from the card's weights: loss and
@@ -141,6 +142,31 @@ paths' long profiles, a short profiled serving epoch has lost one of its
    each reduced copy (qwen3, gemma3, granite-moe and the five) meshed on
    the card against meshed on the CPU in float32 under
    ``train_card_vs_cpu``'s gates (``train_mesh_card_vs_cpu``).
+6g. ``serve_mesh`` — serving over the port's ``Mesh`` (``SERVE_MESH_*``),
+   run after ``train_mesh``: full-width qwen3-0.6b (float32 parameters,
+   bf16 compute, seed 0) through ``make_prefill_step``, ``extend_cache``
+   and ``make_decode_step`` over (data 4, model 2) entries of the card
+   (``["cuda:0"] * 8``; the parameters laid out by ``shard_params(...,
+   fsdp=False)``, the activation rules bound): 8 rows of 1,024 prompt
+   tokens, then 16 decode steps against a 1,040-slot cache whose
+   sequence lies over ``model``.  The counts are set to 0 just before the
+   meshed run and read just after: the prefill launches the bf16 flash
+   kernel once a layer and (data, model) entry (28 x 8), and nothing
+   else.  The same weights through the unmeshed steps first; the meshed
+   decode is teacher-forced on the unmeshed greedy tokens, and the
+   prefill's and every step's logits must lie within ``SERVE_CONTRACT *
+   max(1, max |logits|)`` of the unmeshed ones (the greedy tokens that
+   agree are printed).  Printed: prefill s, ``extend_cache`` s, decode ms
+   a step, the largest entry's cache bytes, each collective's count and
+   bytes in the prefill, ``extend_cache`` and a decode step, the peak,
+   and one profiled decode step's busy share (``serve_mesh``).  Then
+   full-width granite-moe-1b-a400m, one prefill and 4 decode steps held
+   the same way, at a capacity factor of ``n_experts / top_k`` where
+   neither dispatch drops a routing (``serve_mesh_moe``); last, qwen3 cut
+   to 4 layers in float32 compute, 8 rows of 32 tokens and 4 decode
+   steps, meshed on the card (the float32 flash kernel, 4 x 8 launches)
+   against meshed on the CPU, within ``1e-4 * max |logits|``
+   (``serve_mesh_card_vs_cpu``).
 6d. ``ssm_archs`` — the recurrent blocks (``repro_torch.models.ssm``):
    xlstm-1.3b (cut to 8 of its 48 layers: 7 mLSTM, 1 sLSTM; 8 slots
    of 1,024-2,048 tokens left-padded to 2,048) and recurrentgemma-9b (26
@@ -350,6 +376,7 @@ Then the ``nvidia-smi`` line, the kernels summary (each kernel's
 launches on the main path, the Hi-C path, ``dist_path``'s loop-back,
 ``mesh_path``, ``serve_ph``, ``resilience``, the training run, each
 ``lm_archs`` architecture, ``train_moe``, ``train_mesh``'s qwen3 run,
+``serve_mesh``'s qwen3 run (its float32 check's for the float32 kernel),
 each ``ssm_archs`` and each
 ``vlm_audio`` architecture) and, last, ``{"ok": true,
 "device": ...}``.  Any failed
@@ -3304,57 +3331,6 @@ def monitor_routes(model, cfg, batch_np, counters) -> dict:
     return out
 
 
-def train_checkpoint(dev, state, step_fn, stream) -> dict:
-    """The full-width state (float32 params, m and v) through the
-    checkpointer: ``save_async`` of the state, one train step while its
-    thread writes, then ``restore`` of that checkpoint with ``verify``;
-    every leaf must equal the host copy handed to ``save_async`` bit for
-    bit.  (``save``, synchronous, is held on the CPU by
-    tests/test_torch_checkpoint.py.)"""
-    import tempfile
-
-    from repro_torch.checkpoint import Checkpointer
-    from repro_torch.dist.sharding import tree_flatten_with_path
-    from repro_torch.train.train_step import train_state_to_arrays
-
-    batch = {k: torch.from_numpy(v).to(dev)
-             for k, v in stream.batch_at(TRAIN_STEPS + 1).items()}
-    with tempfile.TemporaryDirectory() as tmp:
-        ckpt = Checkpointer(tmp, keep=2)
-        t0 = time.perf_counter()
-        saved = train_state_to_arrays(state)
-        ckpt.save_async(1, saved, metadata={"step": 1})
-        t1 = time.perf_counter()
-        state, _ = step_fn(state, batch)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
-        ckpt.wait()
-        t3 = time.perf_counter()
-        restored, meta = ckpt.restore(saved, verify=True)
-        t4 = time.perf_counter()
-        got = tree_flatten_with_path(restored)[0]
-        want = tree_flatten_with_path(saved)[0]
-        unequal = [tuple(str(k) for k in kp) for (kp, a), (_, b)
-                   in zip(want, got) if a.dtype != b.dtype
-                   or not np.array_equal(a, b)]
-        n_bytes = sum(a.nbytes for _, a in want)
-        disk = sum(os.path.getsize(os.path.join(tmp, d, f))
-                   for d in os.listdir(tmp)
-                   for f in os.listdir(os.path.join(tmp, d)))
-        steps = ckpt.all_steps()
-    out = dict(leaves=len(want), state_bytes=n_bytes, disk_bytes=disk,
-               async_host_copy_s=t1 - t0, step_while_writing_s=t2 - t1,
-               async_wait_after_step_s=t3 - t2, restore_verify_s=t4 - t3,
-               total_s=t4 - t0, steps=steps, meta=meta)
-    emit("train_checkpoint", **out)
-    if unequal or len(got) != len(want) or meta != {"step": 1} \
-            or steps != [1]:
-        raise AssertionError(f"checkpoint round trip: leaves {unequal[:5]} "
-                             f"differ, {len(got)} of {len(want)} restored, "
-                             f"metadata {meta}, steps {steps}")
-    return out
-
-
 def train_card_vs_cpu(dev, cfg, tokens=(1, 65), n_micro: int = 1,
                       line: str = "train_card_vs_cpu",
                       batch: Optional[dict] = None) -> dict:
@@ -3466,8 +3442,6 @@ def train(dev) -> dict:
     full, cfg, state, step_fn, stream = train_full_width(dev, counters)
     t1 = time.perf_counter()
     check, state = dryrun_check(dev, cfg, state, stream)
-    t1c = time.perf_counter()
-    ckpt = train_checkpoint(dev, state, step_fn, stream)
     t2 = time.perf_counter()
     del state, step_fn
     torch.cuda.empty_cache()
@@ -3477,10 +3451,9 @@ def train(dev) -> dict:
     torch.cuda.empty_cache()
     learn = train_learning(dev)
     t4 = time.perf_counter()
-    out = dict(full_width=full, checkpoint=ckpt, card_vs_cpu=versus,
+    out = dict(full_width=full, card_vs_cpu=versus,
                learning=learn, dryrun_check=check,
-               part_s=dict(full_width=t1 - t0, dryrun_check=t1c - t1,
-                           checkpoint=t2 - t1c,
+               part_s=dict(full_width=t1 - t0, dryrun_check=t2 - t1,
                            card_vs_cpu=t3 - t2, learning=t4 - t3))
     emit("train_done", part_s=out["part_s"], phase_s=t4 - t0)
     torch.cuda.empty_cache()
@@ -4411,7 +4384,8 @@ class CollectiveCount:
 
 
 def entry_state_bytes(state) -> int:
-    """The largest mesh entry's bytes of parameters plus optimizer state:
+    """The largest mesh entry's bytes of the ``ShardedTensor``s of ``state``
+    (parameters and optimizer state, or a decode cache):
     each entry's blocks of every leaf (a block several entries hold counts
     for each of them)."""
     from repro_torch.dist.sharding import ShardedTensor, tree_flatten_with_path
@@ -4873,6 +4847,320 @@ def train_mesh(dev) -> dict:
     return res
 
 
+# ---------------------------------------------------------------------------
+# phase 6g: serving over the port's Mesh
+# ---------------------------------------------------------------------------
+
+# qwen3-0.6b at full width and depth on (data 4, model 2) entries of the
+# card: 8 requests of 1,024 prompt tokens (one sequence pair a data
+# entry), then 16 greedy decode steps against a 1,040-slot cache (the
+# sequence over model: 520 slots an entry).  granite-moe-1b-a400m at full
+# width: one prefill and 4 decode steps.  Its capacity factor is raised to
+# n_experts / top_k (4.0) for this phase alone, where neither the meshed
+# _moe_a2a (per-shard capacity) nor the unmeshed dispatch (global
+# capacity) drops a routing: at the published 1.25 the two drop different
+# routings by design (ROADMAP.md §3 item 6), and the meshed drops are held
+# to the reference's on the CPU (tests/test_torch_serve_mesh.py).  In
+# bf16 its logits are printed against the seam contract, not gated: the
+# two paths round the residual stream differently (the meshed wo partials
+# are summed in bf16), and at these random weights a token's top-8 of 32
+# experts flips under such a rounding (the share of flipped routings a
+# layer is printed), which moves its logits past the contract (1.11x of
+# it on an H100 at seed 0).  The gate is the same run in float32 compute
+# (TF32 off), within SERVE_F32_CONTRACT.
+SERVE_MESH_SHAPE = (4, 2)
+SERVE_MESH_ARCH, SERVE_MESH_MOE = "qwen3-0.6b", "granite-moe-1b-a400m"
+SERVE_MESH_ROWS, SERVE_MESH_PROMPT = 8, 1024
+SERVE_MESH_NEW, SERVE_MESH_MOE_NEW = 16, 4
+SERVE_MESH_PROFILED = 8      # the decode step profiled (not timed)
+# The f32 check: qwen3 cut to 4 of 28 layers in float32 compute (TF32
+# off), 8 rows of 32 prompt tokens and 4 decode steps, meshed on the card
+# against meshed on the CPU.
+SERVE_MESH_F32_LAYERS, SERVE_MESH_F32_PROMPT = 4, 32
+SERVE_MESH_F32_TOL = 1e-4
+
+
+def serve_mesh_params(cfg, model, mesh):
+    """``model``'s weights as the reference's tree of ``ShardedTensor``s
+    laid out for serving (``shard_params(..., fsdp=False)``)."""
+    from repro_torch.dist.sharding import (shard_params, shard_tree,
+                                           shardings_from_specs)
+    from repro_torch.models.transformer import arrays_from_named
+
+    tree = arrays_from_named(dict(model.named_parameters()), cfg,
+                             on_device=True)
+    specs, _ = shard_params(tree, mesh, fsdp=False, heads={
+        "q": cfg.n_heads, "kv": cfg.n_kv_heads})
+    return shard_tree(tree, shardings_from_specs(specs, mesh))
+
+
+def serve_mesh_steps(cfg, mesh, rows: int):
+    from repro_torch.dist.sharding import (activation_rules,
+                                           bind_activation_rules)
+    from repro_torch.serve.steps import make_decode_step, make_prefill_step
+
+    return (bind_activation_rules(make_prefill_step(cfg), activation_rules(
+        cfg, mesh, batch=rows)),
+        bind_activation_rules(make_decode_step(cfg), activation_rules(
+            cfg, mesh, decode=True, batch=rows)))
+
+
+def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
+                     profile: bool = False, contract: float = SERVE_CONTRACT,
+                     gate: bool = True) -> dict:
+    """Phase 6g's run of one model: the unmeshed prefill and ``n_new``
+    greedy decode steps first, then the meshed steps over
+    ``SERVE_MESH_SHAPE`` of the card from the same weights, teacher-forced
+    on the unmeshed tokens (the counts set to 0 just before the meshed
+    run and read just after, where ``counters`` are given).  Each meshed
+    logits (the prefill's and every step's) within ``contract * max(1,
+    max |logits|)`` of the unmeshed ones where ``gate``, else printed
+    against it; the greedy tokens that agree are printed, not gated.  An
+    MoE model's prefill routings are compared token by token."""
+    from repro_torch.launch import mesh as mesh_mod
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe as moe_mod
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.steps import (extend_cache, make_decode_step,
+                                         make_prefill_step, sample_greedy)
+
+    rows, prompt = SERVE_MESH_ROWS, SERVE_MESH_PROMPT
+    s_max = prompt + n_new
+    t_start = time.perf_counter()
+    model = init_params(cfg, seed=0, device=dev)
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (rows, prompt), dtype=np.int32)).to(dev)
+    worst = []
+
+    def hold(got, want, what):
+        g = got.unshard() if not isinstance(got, torch.Tensor) else got
+        diff = float((g - want).abs().max())
+        atol = contract * max(1.0, float(want.abs().max()))
+        worst.append(diff / atol)
+        if gate and not diff <= atol:
+            raise AssertionError(f"meshed {cfg.name} {what}: logits "
+                                 f"{diff} from the unmeshed > {atol}")
+
+    real_route, routes = moe_mod._route, []
+
+    def route(*a, **k):
+        out = real_route(*a, **k)
+        routes.append(torch.sort(out[2], dim=-1).values.cpu())
+        return out
+
+    moe_mod._route = route
+    try:
+        with torch.no_grad():
+            u_logits, u_cache = make_prefill_step(cfg)(model,
+                                                       {"tokens": toks})
+    finally:
+        moe_mod._route = real_route
+    u_routes, routes = routes, []
+    with torch.no_grad():
+        u_cache = extend_cache(cfg, u_cache, prompt, s_max)
+        want_tokens = [sample_greedy(u_logits)]
+        u_steps = []
+        decode = make_decode_step(cfg)
+        for i in range(n_new):
+            lg, u_cache = decode(model, u_cache, {
+                "tokens": want_tokens[-1].to(dev), "cache_pos": prompt + i})
+            u_steps.append(lg)
+            want_tokens.append(sample_greedy(lg))
+        del u_cache
+    torch.cuda.empty_cache()
+    t_unmeshed = time.perf_counter()
+
+    n = int(np.prod(SERVE_MESH_SHAPE))
+    mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"),
+                     devices=[dev] * n)
+    params = serve_mesh_params(cfg, model, mesh)
+    del model
+    torch.cuda.empty_cache()
+    prefill, step = serve_mesh_steps(cfg, mesh, rows)
+    torch.cuda.synchronize()
+    t_sharded = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    if counters is not None:
+        for fn in counters.values():
+            fn.launches = 0
+    pre_count, ext_count, dec_count = (CollectiveCount() for _ in range(3))
+    t0 = time.perf_counter()
+    moe_mod._route = route
+    try:
+        with mesh_mod.recording(pre_count):
+            logits, cache = prefill(params, {"tokens": toks})
+        torch.cuda.synchronize()
+    finally:
+        moe_mod._route = real_route
+    prefill_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with mesh_mod.recording(ext_count):
+        cache = extend_cache(cfg, cache, prompt, s_max)
+    torch.cuda.synchronize()
+    extend_s = time.perf_counter() - t0
+    hold(logits, u_logits, "prefill")
+    del u_logits
+    agree = [int((sample_greedy(logits) == want_tokens[0]).sum())]
+    del logits
+    step_s, profile_out = [], None
+    for i in range(n_new):
+        batch = {"tokens": want_tokens[i].to(dev), "cache_pos": prompt + i}
+        if profile and i == SERVE_MESH_PROFILED:
+            profile_out = profiled_decode(step, params, cache, batch)
+            lg = profile_out.pop("logits")
+        else:
+            t0 = time.perf_counter()
+            with mesh_mod.recording(dec_count):
+                lg, cache = step(params, cache, batch)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+        hold(lg, u_steps[i], f"decode step {i}")
+        agree.append(int((sample_greedy(lg) == want_tokens[i + 1]).sum()))
+    launches = {k: fn.launches for k, fn in counters.items()} \
+        if counters is not None else None
+    peak = torch.cuda.max_memory_allocated()
+    out = dict(
+        card=smi, arch=cfg.name, mesh=list(SERVE_MESH_SHAPE),
+        n_layers=cfg.n_layers, d_model=cfg.d_model,
+        compute_dtype=cfg.compute_dtype, rows=rows, prompt=prompt,
+        s_max=s_max, decode_steps=n_new, prefill_s=prefill_s,
+        extend_cache_s=extend_s, decode_ms=[t * 1e3 for t in step_s],
+        decode_ms_median=float(np.median(step_s)) * 1e3,
+        largest_entry_cache_bytes=entry_state_bytes(cache),
+        peak_device_bytes=peak,
+        collectives_prefill=pre_count.per_step(1),
+        collectives_extend_cache=ext_count.per_step(1),
+        collectives_decode_step=dec_count.per_step(len(step_s)),
+        greedy_agree=agree, greedy_of=rows,
+        worst_logits_share_of_contract=max(worst), launches=launches,
+        profiled_decode_step=profile_out,
+        part_s=dict(unmeshed=t_unmeshed - t_start,
+                    shard=t_sharded - t_unmeshed,
+                    meshed=time.perf_counter() - t_sharded))
+    if cfg.moe is not None:
+        # each layer's routings: one call unmeshed, one a data entry
+        # meshed (rows in order)
+        per = len(routes) // len(u_routes)
+        flipped = [float((torch.cat(routes[i * per:(i + 1) * per])
+                          != u).any(dim=-1).float().mean())
+                   for i, u in enumerate(u_routes)]
+        out.update(capacity_factor=cfg.moe.capacity_factor,
+                   tokens_with_flipped_routing_by_layer=flipped,
+                   contract=contract, gated=gate)
+    del cache, params
+    torch.cuda.empty_cache()
+    return out
+
+
+def profiled_decode(step, params, cache, batch) -> dict:
+    """One meshed decode step under ``torch.profiler`` (CUDA activity
+    alone: the host's some 40,000 events a step would take longer to
+    collect than the step): its wall (timed inside the profiler), the
+    card's busy and idle share over it, and its longest kernels; the
+    step's logits under ``logits``."""
+    ((lg, _), wall), evs = profiled(lambda: timed(
+        lambda: step(params, cache, batch)), host=False)
+    return dict(device_summary(evs, wall, 6), logits=lg)
+
+
+def serve_mesh_f32(dev, smi: str) -> dict:
+    """qwen3 cut to ``SERVE_MESH_F32_LAYERS`` layers in float32 compute
+    (TF32 off): the meshed prefill and 4 decode steps on (4, 2) of the
+    card (the float32 flash kernel on each entry's heads) and on a CPU
+    mesh, from the same weights and tokens; every logits within
+    ``SERVE_MESH_F32_TOL * max |logits|``."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve.steps import extend_cache
+
+    cfg = dataclasses.replace(get_config(SERVE_MESH_ARCH),
+                              n_layers=SERVE_MESH_F32_LAYERS,
+                              compute_dtype="float32")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    prompt, n_new = SERVE_MESH_F32_PROMPT, 4
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, (SERVE_MESH_ROWS, prompt + n_new),
+        dtype=np.int32))
+    model = init_params(cfg, seed=0, device="cpu")
+    n = int(np.prod(SERVE_MESH_SHAPE))
+    got, secs = {}, {}
+    counters = reset_counters()
+    for where in (dev, torch.device("cpu")):
+        mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"),
+                         devices=[where] * n)
+        params = serve_mesh_params(cfg, model, mesh)
+        prefill, step = serve_mesh_steps(cfg, mesh, SERVE_MESH_ROWS)
+        t0 = time.perf_counter()
+        logits, cache = prefill(params, {"tokens": toks[:, :prompt].to(
+            where)})
+        out = [logits.unshard().cpu()]
+        cache = extend_cache(cfg, cache, prompt, prompt + n_new)
+        for i in range(prompt, prompt + n_new):
+            logits, cache = step(params, cache, {
+                "tokens": toks[:, i:i + 1].to(where), "cache_pos": i})
+            out.append(logits.unshard().cpu())
+        secs[where.type] = time.perf_counter() - t0
+        got[where.type] = out
+        if where.type == "cuda":
+            f32_launches = counters["flash_attention"].launches
+    rel = max(float((a - b).abs().max()) / float(b.abs().max())
+              for a, b in zip(got["cuda"], got["cpu"]))
+    res = dict(card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+               compute_dtype="float32", mesh=list(SERVE_MESH_SHAPE),
+               rows=SERVE_MESH_ROWS, prompt=prompt, decode_steps=n_new,
+               card_s=secs["cuda"], cpu_s=secs["cpu"],
+               max_rel_logits=rel, flash_f32_launches=f32_launches)
+    emit("serve_mesh_card_vs_cpu", **res)
+    if not (rel <= SERVE_MESH_F32_TOL
+            and f32_launches == cfg.n_layers * n):
+        raise AssertionError(f"meshed f32 serving, card against CPU: {res}")
+    return res
+
+
+def serve_mesh(dev) -> dict:
+    """Phase 6g: serving over the port's Mesh (module constants
+    ``SERVE_MESH_*``).  qwen3-0.6b at full width and depth, its counts
+    set to 0 just before the meshed run and read just after: one bf16
+    flash launch a layer and (data, model) entry of the prefill (28 x 8);
+    granite-moe-1b-a400m at full width; each held to its unmeshed logits;
+    then the float32 check, card against CPU."""
+    from repro_torch.configs import get_config
+
+    smi = nvidia_smi()
+    t0 = time.perf_counter()
+    torch.cuda.empty_cache()
+    counters = kernel_counters()
+    cfg = get_config(SERVE_MESH_ARCH)
+    dense = serve_mesh_model(dev, cfg, SERVE_MESH_NEW, smi, counters,
+                             profile=True)
+    emit("serve_mesh", **dense)
+    want = cfg.n_layers * int(np.prod(SERVE_MESH_SHAPE))
+    if dense["launches"]["flash_attention"] != want or any(
+            dense["launches"][k] for k in PH_KERNELS + OFF_PATH_KERNELS):
+        raise AssertionError(f"meshed serving launched "
+                             f"{dense['launches']}, not {want} flash "
+                             f"launches alone")
+    moe_cfg = get_config(SERVE_MESH_MOE)
+    moe_cfg = dataclasses.replace(moe_cfg, moe=dataclasses.replace(
+        moe_cfg.moe, capacity_factor=moe_cfg.moe.n_experts
+        / moe_cfg.moe.top_k))
+    moe = serve_mesh_model(dev, moe_cfg, SERVE_MESH_MOE_NEW, smi,
+                           gate=False)
+    emit("serve_mesh_moe", **moe)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    moe32 = serve_mesh_model(dev, dataclasses.replace(
+        moe_cfg, compute_dtype="float32"), SERVE_MESH_MOE_NEW, smi,
+        contract=SERVE_F32_CONTRACT)
+    emit("serve_mesh_moe_f32", **moe32)
+    f32 = serve_mesh_f32(dev, smi)
+    res = dict(dense=dense, moe=moe, moe_f32=moe32, f32=f32,
+               phase_s=time.perf_counter() - t0)
+    emit("serve_mesh_done", card=smi, phase_s=res["phase_s"])
+    torch.cuda.empty_cache()
+    return res
+
+
 def f32_sass_check(_build, ptxas) -> dict:
     """The float32 flash library holds IEEE FFMA products only: its SASS
     (``cuobjdump -sass``) has no matrix-multiply opcode (HMMA, HGMMA, IMMA,
@@ -4938,6 +5226,7 @@ def main() -> int:
     archs = lm_archs(dev)
     moe_trained = train_moe(dev)
     mesh_trained = train_mesh(dev)
+    mesh_served = serve_mesh(dev)
     ssm = ssm_archs(dev)
     vlm = vlm_audio(dev)
     tap, serial = RoundTap(CAPTURED_ROUNDS), SerialTap()
@@ -4978,6 +5267,9 @@ def main() -> int:
     lm_launches = {a: bf16(r["launches"]) for a, r in archs.items()}
     moe_train_launches = bf16(moe_trained["launches"])
     mesh_train_launches = bf16(mesh_trained["dense"]["launches"])
+    mesh_serve_launches = dict(
+        bf16(mesh_served["dense"]["launches"]),
+        flash_attention_f32=mesh_served["f32"]["flash_f32_launches"])
     family_launches = {a: bf16(r["launches"])
                        for a, r in mesh_trained["families"].items()}
     ssm_launches = {a: bf16(r["launches"]) for a, r in ssm.items()}
@@ -5023,6 +5315,7 @@ def main() -> int:
             lm_archs_launches={a: n[kname] for a, n in lm_launches.items()},
             train_moe_launches=moe_train_launches[kname],
             train_mesh_launches=mesh_train_launches[kname],
+            serve_mesh_launches=mesh_serve_launches[kname],
             train_mesh_families_launches={
                 a: n[kname] for a, n in family_launches.items()},
             ssm_archs_launches={a: n[kname] for a, n in ssm_launches.items()},

@@ -560,16 +560,29 @@ def batch_specs(shapes: Dict[str, Any], mesh) -> Dict[str, PartitionSpec]:
     return {k: one(k, v) for k, v in shapes.items()}
 
 
-def cache_specs(layers, mesh, seq_len: int, batch: int):
-    """Specs for the stacked decode cache: batch (axis 1) over data, the
-    seq-capacity axis over model (the decode kv_seq rule); recurrent states
-    (no seq axis) shard batch only.
+def cache_specs(layers, mesh, seq_len: int, batch: int, cfg):
+    """Specs for the port's per-layer decode cache (``init_cache``: one
+    tuple a layer of ``cfg``), each tensor's batch on axis 0: the batch over
+    the data axes, the sequence (axis 1) over ``model`` (the decode
+    ``kv_seq`` rule).
 
-    Mirrors the ``activation_rules`` decode fallback: when ``batch`` cannot
-    cover the data axes the cache batch stays unsharded and its seq axis
-    goes fully seq-parallel over (data..., model), so the stored sharding
-    matches the in-step kv_seq constraint instead of forcing a per-step
-    reshard."""
+    The reference's stacked cache carries its batch on axis 1 and finds
+    the sequence axis as the first one of length ``seq_len``; here the
+    layers are chosen by their kind (``layer_slots``), never by shape, as
+    ``serve/steps.py::extend_cache`` chooses them.  The sequence-bearing
+    tensors are self-attention's K and V, ``local_attn``'s and MLA's
+    latent and rotary key, and a decoder layer's first two slots; its
+    cross-attention K/V (the encoder's length) and the recurrent states
+    shard their batch only, so a state dimension equal to ``seq_len`` by
+    chance stays whole.
+
+    The reference's decode fallback holds: when ``batch`` cannot cover the
+    data axes the batch stays unsharded and the sequence goes fully
+    seq-parallel over (data..., model), so the stored sharding matches the
+    in-step ``kv_seq`` rule; a length that does not divide that falls back
+    to ``model`` alone, or to no split."""
+    from repro_torch.models.transformer import is_attention, layer_slots
+
     tp, data_axes = _mesh_axes(mesh)
     tp_n = _axis_size(mesh, tp)
     dp_n = _dp_size(mesh, data_axes)
@@ -585,18 +598,26 @@ def cache_specs(layers, mesh, seq_len: int, batch: int):
         seq_axes = (tp,) if tp and tp_n > 1 and seq_len % tp_n == 0 else ()
     seq_entry = (seq_axes[0] if len(seq_axes) == 1 else seq_axes) or None
 
-    def one(leaf) -> PartitionSpec:
-        shape = tuple(leaf.shape)
-        spec: List[Any] = [None] * len(shape)
-        if len(shape) >= 2 and batch_ok and shape[1] == batch:
-            spec[1] = dp
-        for i in range(2, len(shape)):
-            if seq_entry is not None and shape[i] == seq_len:
-                spec[i] = seq_entry
-                break
+    def one(leaf, seq: bool) -> PartitionSpec:
+        spec: List[Any] = [None] * len(tuple(leaf.shape))
+        if batch_ok:
+            spec[0] = dp
+        if seq:
+            spec[1] = seq_entry
         return P(*spec)
 
-    return _tree_map(one, layers)
+    slots = layer_slots(cfg)
+    layers = list(layers)
+    if len(layers) != len(slots):
+        raise ValueError(f"{len(layers)} cache layers for the "
+                         f"{len(slots)} layers of {cfg.name}")
+    out = []
+    for layer, slot in zip(layers, slots):
+        n_seq = 0
+        if is_attention(slot.kind):
+            n_seq = 2 if slot.kind == "dec_attn_mlp" else len(layer)
+        out.append(tuple(one(t, i < n_seq) for i, t in enumerate(layer)))
+    return out
 
 
 # ---------------------------------------------------------------------------

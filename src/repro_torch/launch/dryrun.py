@@ -27,7 +27,8 @@ would run it, and allocates nothing.  It records, per cell:
   weak reference (``StorageWeakRef``), so it leaves the sum when the step
   drops it;
 * collectives: count and bytes by kind, from the hook that
-  ``launch/mesh.py::recording`` arms (``psum`` is an all-reduce,
+  ``launch/mesh.py::recording`` arms (``psum`` and ``pmax`` are
+  all-reduces,
   ``all_gather`` and the FSDP ``gather_blocks`` all-gathers, ``all_to_all``
   an all-to-all, ``ppermute`` a collective-permute); a collective's bytes
   are those of the rows it is handed.
@@ -49,13 +50,17 @@ is its bytes over the HBM bandwidth, and the ICI and DCN terms are 0.
 
 **Meshes** (``mesh_kind``): ``"card"``, the unmeshed step on one device
 (a mesh of one entry), which is what the H100 runs; ``"entries"``, the
-meshed train step on ``(data 4, model 2)`` entries of one card, as
-``chip_smoke.py``'s ``train_mesh`` runs it.  The port's ``Mesh``
-dispatches its entries one after another, so a trace of the reference's
-256-chip meshes would cost 256x the host work and describe no machine the
-port runs on: ``"single"`` and ``"multi"`` refuse, as
-``launch/mesh.py::make_production_mesh`` does.  Serving cells run on one
-device only (``launch/specs.py``).
+meshed step on ``(data 4, model 2)`` entries of one card: the train step,
+as ``chip_smoke.py``'s ``train_mesh`` runs it, and the prefill and decode
+steps of the GQA and MoE decoders, as its ``serve_mesh`` runs them (their
+parameters laid out by ``shard_params(..., fsdp=False)``, the decode
+cache by ``cache_specs``); a serving cell of another family there is an
+error record naming ROADMAP.md item 12, and ``long_500k`` stays a skip,
+as the reference marks it.  The port's ``Mesh`` dispatches its entries
+one after another, so a trace of the reference's 256-chip meshes would
+cost 256x the host work and describe no machine the port runs on:
+``"single"`` and ``"multi"`` refuse, as
+``launch/mesh.py::make_production_mesh`` does.
 
 A record keeps the reference's keys: ``compile_s`` is 0.0 (eager has no
 compile step), ``lower_s`` the seconds of building and tracing the cell,
@@ -103,7 +108,8 @@ ARTIFACT_DIR = os.path.join(
     "artifacts_torch", "dryrun")
 
 # The port's collectives (launch/mesh.py) by the HLO kind they stand for
-_KINDS = {"psum": "all-reduce", "all_gather": "all-gather",
+_KINDS = {"psum": "all-reduce", "pmax": "all-reduce",
+          "all_gather": "all-gather",
           "all_to_all": "all-to-all", "ppermute": "collective-permute"}
 # Dispatched operations that move no bytes: allocations that write
 # nothing, and metadata (views are found by their schema)

@@ -12,9 +12,10 @@ card: the kernels launch on the current stream.
 
 The collectives the port's mesh programs run are the functions below,
 ``jax.lax``'s over a ``shard_map`` axis: :func:`all_gather`,
-:func:`ppermute`, :func:`psum` (all-reduce), :func:`all_to_all` and
-:func:`gather_blocks` (the FSDP gather of a parameter's blocks along one
-dimension).  Each calls the hook that :func:`recording` arms first, which
+:func:`ppermute`, :func:`psum` (all-reduce), :func:`pmax` (the all-reduce
+by maximum the meshed decode's softmax combine takes), :func:`all_to_all`
+and :func:`gather_blocks` (the FSDP gather of a parameter's blocks along
+one dimension).  Each calls the hook that :func:`recording` arms first, which
 is how ``repro_torch.analyze.collectives`` records a program's ordered
 schedule.  The last three are plain differentiable torch functions, so
 one autograd graph spans every entry of a meshed train step: the backward
@@ -42,7 +43,7 @@ DeviceSpec = Union[str, torch.device]
 
 __all__ = ["Mesh", "all_gather", "all_to_all", "gather_blocks",
            "make_data_mesh", "make_mesh", "make_production_mesh",
-           "mesh_device", "ppermute", "psum", "recording"]
+           "mesh_device", "pmax", "ppermute", "psum", "recording"]
 
 CollectiveHook = Callable[[str, "Mesh", str, list], None]
 
@@ -257,6 +258,23 @@ def psum(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]
     out = parts[0]
     for p in parts[1:]:
         out = out + p.to(dev)
+    return out
+
+
+def pmax(mesh: Mesh, axis: str, parts: Sequence[torch.Tensor]
+         ) -> torch.Tensor:
+    """``jax.lax.pmax`` over ``axis``: ``parts`` has one tensor an entry,
+    and their elementwise maximum comes back once, on entry 0's device."""
+    parts = list(parts)
+    if _hook is not None:
+        _hook("pmax", mesh, axis, parts)
+    if len(parts) != mesh.shape[axis]:
+        raise ValueError(f"pmax over {axis!r} takes one tensor an entry "
+                         f"({mesh.shape[axis]}), got {len(parts)}")
+    dev = parts[0].device
+    out = parts[0]
+    for p in parts[1:]:
+        out = torch.maximum(out, p.to(dev))
     return out
 
 

@@ -22,8 +22,12 @@ cell's tensors live on its first entry's device.  A mesh of one entry
 gives the unmeshed step (what one card runs); a mesh of several entries
 gives the meshed train step over a state that
 :func:`~repro_torch.train.train_step.shard_train_state` lays out as
-``ShardedTensor``s.  The port serves on one device only, so a prefill or
-decode cell on a mesh of several entries raises ``NotImplementedError``.
+``ShardedTensor``s, and the meshed prefill and decode steps of the GQA and
+MoE decoders over the reference's parameter tree laid out by
+``shard_params(..., fsdp=False)``; the decode cell's cache is laid out by
+``cache_specs`` (the reference's ``in_shardings`` and ``out_shardings``).
+A serving cell of another family on a mesh of several entries raises
+``NotImplementedError``, naming ROADMAP.md item 12.
 
 The port's decode step reads ``cache_pos`` on the host (``int()``), so
 the decode cell's ``cache_pos`` is a constant fake tensor: the last slot
@@ -44,12 +48,14 @@ from torch._subclasses.fake_tensor import FakeTensorMode
 from repro_torch.configs import SHAPES, get_config
 from repro_torch.dist.sharding import (NamedSharding, P, activation_rules,
                                        batch_specs, bind_activation_rules,
-                                       shard_params, shardings_from_specs,
+                                       cache_specs, shard_params, shard_tree,
+                                       shardings_from_specs,
                                        tree_flatten_with_path, tree_path_str,
                                        tree_unflatten)
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.transformer import (arrays_from_named, init_params,
+from repro_torch.models.transformer import (arrays_from_named,
+                                            check_meshed_serving, init_params,
                                             make_cache)
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import AdamW, warmup_cosine
@@ -296,25 +302,29 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
                     donate_argnums=(0,), fake_mode=mode, micro=micro)
 
     if meshed:
-        raise NotImplementedError(
-            f"a {kind} cell over a mesh of {mesh.devices.size} entries: the "
-            "port serves on one device (build it on a mesh of one entry); "
-            "serving over the port's Mesh is ROADMAP.md §1 item 12")
+        check_meshed_serving(cfg)
     pspecs, report = shard_params(param_shapes(cfg), mesh, fsdp=False,
                                   heads=heads)
     meta["sharding_report"] = report
     param_sh = shardings_from_specs(pspecs, mesh)
 
+    def served(model):
+        # the meshed steps take the reference's tree of ShardedTensors
+        if not meshed:
+            return model
+        return shard_tree(arrays_from_named(dict(model.named_parameters()),
+                                            cfg, on_device=True), param_sh)
+
     if kind == "prefill":
         step_fn = bind_activation_rules(make_prefill_step(cfg), act_rules)
         with mode:
-            model = init_params(cfg, 0, device)
+            params = served(init_params(cfg, 0, device))
             batch_shapes = input_specs(cfg, "prefill", seq_len, batch,
                                        device)
         batch_sh = shardings_from_specs(batch_specs(batch_shapes, mesh),
                                         mesh)
         return Cell(arch=arch, shape=shape, kind=kind, fn=step_fn,
-                    args=(model, batch_shapes),
+                    args=(params, batch_shapes),
                     in_shardings=(param_sh, batch_sh),
                     out_shardings=None, meta=meta, fake_mode=mode)
 
@@ -322,15 +332,25 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
     step_fn = bind_activation_rules(make_decode_step(cfg), act_rules)
     s_cache = seq_len // 2 if cfg.enc_dec else seq_len
     with mode:
-        model = init_params(cfg, 0, device)
+        params = served(init_params(cfg, 0, device))
         cshapes = cache_shapes(cfg, batch, seq_len, device)
         batch_shapes = input_specs(cfg, "decode", seq_len, batch, device)
         batch_shapes["cache_pos"] = torch.tensor(s_cache - 1,
                                                  dtype=torch.int32)
-    cache_sh = _replicated(cshapes, mesh)
+        if meshed:
+            layer_sh = shardings_from_specs(cache_specs(
+                cshapes["layers"], mesh, seq_len=s_cache, batch=batch,
+                cfg=cfg), mesh)
+            cshapes = {"layers": shard_tree(cshapes["layers"], layer_sh),
+                       "enc_out": None}
+    if meshed:
+        # enc_out is None: a P() prefix leaf, as the reference's
+        cache_sh = {"layers": layer_sh, "enc_out": NamedSharding(mesh, P())}
+    else:
+        cache_sh = _replicated(cshapes, mesh)
     batch_sh = shardings_from_specs(batch_specs(batch_shapes, mesh), mesh)
     return Cell(arch=arch, shape=shape, kind=kind, fn=step_fn,
-                args=(model, cshapes, batch_shapes),
+                args=(params, cshapes, batch_shapes),
                 in_shardings=(param_sh, cache_sh, batch_sh),
                 out_shardings=(None, cache_sh), meta=meta,
                 donate_argnums=(1,), fake_mode=mode)

@@ -44,11 +44,15 @@ into the cache in place (the reference returns an updated copy);
 :func:`attention_apply` and :func:`mla_apply` return the same cache
 tensors.
 
-The sharded trainer's forms sit at the end: :func:`attention_meshed`,
+The meshed forms sit at the end: :func:`attention_meshed`,
 :func:`mla_meshed` and :func:`cross_attention_meshed` run each data
 entry's rows with the heads split over ``model`` where they align, on the
 rotation tables and mask biases of :func:`attention_tables` (RoPE at MLA's
-rotary width, M-RoPE from ``positions3``, the encoder's not causal).
+rotary width, M-RoPE from ``positions3``, the encoder's not causal);
+:func:`attention_meshed` is the serving prefill's too, on the flash route,
+and :func:`attention_decode_meshed` the meshed decode against a
+sequence-sharded cache, its softmax combined over the blocks by
+log-sum-exp.
 """
 from __future__ import annotations
 
@@ -498,19 +502,27 @@ def _out_meshed(plan, wo, parts, q_split: bool, cdt):
 
 def attention_tables(cfg: ModelConfig, positions: torch.Tensor, windows,
                      causal: bool = True,
-                     positions3: Optional[torch.Tensor] = None) -> dict:
+                     positions3: Optional[torch.Tensor] = None,
+                     flash: bool = False) -> dict:
     """What every layer's meshed attention of one data entry shares: the
     mask bias of each window in ``windows`` (not causal for the encoder)
     and the rotation tables, computed once a forward: RoPE's
     (:func:`~repro_torch.models.layers.rope_tables`, at MLA's rotary
     width for MLA), or M-RoPE's by ``positions3`` (3, B, S), by default
     ``positions`` on all three grids
-    (:func:`~repro_torch.models.layers.mrope_tables`)."""
+    (:func:`~repro_torch.models.layers.mrope_tables`).
+
+    ``flash=True`` (the serving prefill, whose ``positions`` are
+    ``arange(S)``): the layers of a window other than 0 take the flash
+    route, which needs no bias, so only window 0 gets one."""
     from .layers import mrope_tables, rope_tables
 
-    out = {"positions": positions,
+    wins = sorted(set(windows))
+    if flash:
+        wins = [w for w in wins if w == 0]
+    out = {"positions": positions, "causal": causal, "flash": flash,
            "bias": {w: _mask_bias(positions, positions, w, causal)
-                    for w in sorted(set(windows))}}
+                    for w in wins}}
     if cfg.rope_kind == "rope":
         dim = cfg.mla.rope_head_dim if cfg.mla is not None \
             else cfg.head_dim_
@@ -523,23 +535,33 @@ def attention_tables(cfg: ModelConfig, positions: torch.Tensor, windows,
     return out
 
 
-def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
-    """The training form of :func:`attention_apply` (explicit positions,
-    :func:`_sdpa_masked`'s arithmetic, no cache) over ``plan``'s mesh:
-    ``xs`` has one tensor a data entry and ``tables`` its
-    :func:`attention_tables` (the encoder's not causal), ``p`` the
-    layer's sharded weights; returns the output of each data entry.
+def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int,
+                     kv_out: Optional[list] = None):
+    """The training and prefill form of :func:`attention_apply` (no cache)
+    over ``plan``'s mesh: ``xs`` has one tensor a data entry and
+    ``tables`` its :func:`attention_tables` (the encoder's not causal),
+    ``p`` the layer's sharded weights; returns the output of each data
+    entry.  Explicit positions take :func:`_sdpa_masked`'s arithmetic;
+    tables made with ``flash=True`` (positions ``arange(S)``) take the
+    flash route where ``window != 0``, each (data, model) entry running
+    :func:`_flash_prefill` on its own block of query heads, as the
+    unmeshed :func:`attention_apply` takes it.
 
     Aligned query heads (``wq`` column-parallel): model entry ``m`` runs
     its own block of heads end to end and its row-parallel ``wo``
     partial is ``psum``-ed.  Its keys and values are its own block of KV
     heads when they are aligned too (a query block's KV heads are the
     same block of the KV heads), else the whole K and V, each the
-    ``psum`` of the row-parallel partials over ``d_model``, with each
-    local query head's KV head picked out: no head is ever split.
-    Misaligned query heads: the whole attention once a data entry, then
-    ``wo`` column-parallel over ``d_model``, its blocks gathered
-    (:func:`_out_meshed`)."""
+    ``psum`` of the row-parallel partials over ``d_model``, normalised
+    and rotated once, with each local query head's KV head picked out:
+    no head is ever split.  Misaligned query heads: the whole attention
+    once a data entry, then ``wo`` column-parallel over ``d_model``, its
+    blocks gathered (:func:`_out_meshed`).
+
+    ``kv_out`` (a list; the serving prefill's cache): each data entry's
+    rotated keys and values are appended to it, one ``(K, V)`` a model
+    entry, its own block of KV heads where they align, else the whole K
+    and V (the same tensors on every model entry)."""
     from .layers import rotate
 
     cdt = cfg.cdtype
@@ -552,32 +574,192 @@ def attention_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
     for x, tab in zip(xs, tables):
         b, s, _ = x.shape
         x = x.to(cdt)
-        bias = tab["bias"][window]
-        k_whole = v_whole = None
+        flash = tab["flash"] and window != 0
+
+        def heads(w, norm, m, n):
+            t = _project(plan, x, p[w], m).reshape(b, s, n, hd)
+            if cfg.qk_norm:
+                t = rmsnorm(t, plan.local(p[norm]), cfg.norm_eps)
+            return rotate(t, *tab["rope"]) if "rope" in tab else t
+
         if not kv_split:
-            k_whole = _project(plan, x, p["wk"], 0).reshape(b, s, kv, hd)
+            k_whole = heads("wk", "k_norm", 0, kv)
             v_whole = _project(plan, x, p["wv"], 0).reshape(b, s, kv, hd)
-        parts = []
+        parts, kvs = [], []
         for m in range(tp):
-            q = _project(plan, x, p["wq"], m).reshape(b, s, h_l, hd)
+            q = heads("wq", "q_norm", m, h_l)
             if kv_split:
                 kv_l = kv // plan.tp
-                k = _project(plan, x, p["wk"], m).reshape(b, s, kv_l, hd)
+                k = heads("wk", "k_norm", m, kv_l)
                 v = _project(plan, x, p["wv"], m).reshape(b, s, kv_l, hd)
-            elif tp > 1:
-                # each local query head's KV head, so _sdpa pairs them 1:1
-                pick = torch.arange(m * h_l, (m + 1) * h_l,
-                                    device=x.device) // (h // kv)
-                k, v = k_whole[:, :, pick], v_whole[:, :, pick]
+                kvs.append((k, v))
             else:
+                kvs.append((k_whole, v_whole))
                 k, v = k_whole, v_whole
-            if cfg.qk_norm:
-                q = rmsnorm(q, plan.local(p["q_norm"]), cfg.norm_eps)
-                k = rmsnorm(k, plan.local(p["k_norm"]), cfg.norm_eps)
-            if "rope" in tab:
-                q, k = rotate(q, *tab["rope"]), rotate(k, *tab["rope"])
-            out = _sdpa_chunked(q, k, v, tab["positions"], bias)
+                if tp > 1:
+                    # each local query head's KV head, so they pair 1:1
+                    pick = torch.arange(m * h_l, (m + 1) * h_l,
+                                        device=x.device) // (h // kv)
+                    k, v = k_whole[:, :, pick], v_whole[:, :, pick]
+            if flash:
+                out = _flash_prefill(q, k, v, window, tab["causal"])
+            else:
+                out = _sdpa_chunked(q, k, v, tab["positions"],
+                                    tab["bias"][window])
             parts.append(out.reshape(b, s, h_l * hd).to(cdt))
+        outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
+        if kv_out is not None:
+            kv_out.append(kvs)
+    return outs
+
+
+def _heads_whole(plan, x, w, split: bool, n: int, hd: int):
+    """One data entry's projection to all ``n`` heads on every model entry
+    (the decode rule: heads whole): where ``w`` is column-parallel each
+    model entry's block of heads, gathered over ``model``; else
+    :func:`_project`'s whole output."""
+    from repro_torch.launch.mesh import all_gather
+
+    b, s, _ = x.shape
+    if not split:
+        return _project(plan, x, w, 0).reshape(b, s, n, hd)
+    rows = all_gather(plan.mesh, "model", [_project(plan, x, w, m)
+                                           for m in range(plan.tp)])
+    return rows.movedim(0, -2).reshape(b, s, n, hd)
+
+
+def _seq_blocks(plan, cache_t, di: int):
+    """The sequence blocks of a decode cache tensor (a ``ShardedTensor``
+    of (B, S_max, ...), its batch over the plan's data axes or whole, its
+    sequence over the axes of its spec's second entry) that data entry
+    ``di`` reads, in sequence order: ``(first position, [its distinct
+    block tensors])``, one a block; and those axes."""
+    from repro_torch.dist.sharding import _entry_axes
+
+    spec = tuple(cache_t.spec) + (None,) * 2
+    if _entry_axes(spec[0]) != tuple(plan.data_axes):
+        raise ValueError(f"a decode cache of spec {cache_t.spec!r} over "
+                         f"the data axes {plan.data_axes}: lay it out by "
+                         "cache_specs under the decode rules of its batch")
+    found: dict = {}
+    for i, blk in enumerate(cache_t.blocks):
+        if plan.coords(i)[0] != di:
+            continue
+        lo = cache_t.sharding.block_slices(cache_t.shape, i)[1].start
+        got = found.setdefault(lo, [])
+        if all(blk is not t for t in got):
+            got.append(blk)
+    return sorted(found.items()), _entry_axes(spec[1])
+
+
+def _decode_partial(qg, kb, vb, lo: int, pos: int, window: int, cdt):
+    """The softmax over one block of cache positions ``[lo, lo + len)``
+    for queries ``qg`` (B, 1, KV, G, D) at position ``pos``: the block's
+    largest masked score ``m``, its sum of ``exp(s - m)`` and its
+    unnormalised P·V, float32, each (B, KV, G, 1, ·).  The mask is
+    :func:`attention_apply`'s decode mask on the global positions; a block
+    wholly masked has ``m`` near ``NEG_INF``, which is finite, so its
+    weight ``exp(m - M)`` in :func:`_lse_combine` underflows to 0."""
+    f32 = torch.float32
+    k_pos = torch.arange(lo, lo + kb.shape[1], device=kb.device)
+    diff = pos - k_pos
+    ok = diff >= 0
+    if window >= 0:
+        ok &= diff < max(window, 1)
+    bias = torch.where(ok, 0.0, NEG_INF).to(f32)
+    scale = 1.0 / math.sqrt(qg.shape[-1])
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg.to(f32),
+                          kb.to(cdt).to(f32)) * scale + bias
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    acc = torch.einsum("bhgqk,bkhd->bhgqd", e.to(cdt).to(f32),
+                       vb.to(cdt).to(f32))
+    return m, e.sum(dim=-1, keepdim=True), acc
+
+
+def _lse_combine(mesh, axes, parts):
+    """The log-sum-exp combine of per-block softmax partials ``(m, l,
+    acc)`` over the mesh ``axes`` they lie along (major-to-minor, the
+    blocks in that order), innermost axis first: the largest ``m`` by a
+    ``pmax``, each partial rescaled by ``exp(m_j - M)``, then ``psum``-ed.
+    Returns the whole row's ``(M, L, ACC)``."""
+    from repro_torch.launch.mesh import pmax, psum
+
+    for a in reversed(axes):
+        n = mesh.shape[a]
+        nxt = []
+        for i in range(0, len(parts), n):
+            grp = parts[i:i + n]
+            big = pmax(mesh, a, [m for m, _, _ in grp])
+            w = [torch.exp(m - big.to(m.device)) for m, _, _ in grp]
+            nxt.append((big, psum(mesh, a, [l * wj for (_, l, _), wj
+                                            in zip(grp, w)]),
+                        psum(mesh, a, [acc * wj for (_, _, acc), wj
+                                       in zip(grp, w)])))
+        parts = nxt
+    if len(parts) != 1:
+        raise ValueError(f"{len(parts)} partials left after combining "
+                         f"over {axes}")
+    return parts[0]
+
+
+def attention_decode_meshed(plan, p, cfg: ModelConfig, xs, tables,
+                            window: int, cache, cache_pos: int):
+    """The decode form of :func:`attention_apply` over ``plan``'s mesh, by
+    the reference's decode rules: one token, heads whole, K and V
+    sequence-sharded.  ``cache`` is the layer's (K, V), each a
+    ``ShardedTensor`` of (B, S_max, KV, D) laid out by ``cache_specs``;
+    ``xs`` holds each data entry's (B_d, 1, d) rows and ``tables`` their
+    rotation tables at ``cache_pos``.
+
+    Each model entry gets all heads of q and of the new K and V (its
+    column block, gathered over ``model``; a row-parallel projection is
+    ``psum``-ed whole).  The new K and V are written in place into the
+    block that owns ``cache_pos``, on that entry alone.  Each entry then
+    takes the softmax over its block of positions
+    (:func:`_decode_partial`), and the partials are combined over the
+    sequence's axes by log-sum-exp (:func:`_lse_combine`): the result is
+    :func:`_sdpa` over the whole cache, in another summation order.
+    Under the batch fallback the sequence lies over the data entries too,
+    and every entry's block takes part.  The output projection is
+    :func:`_out_meshed`'s."""
+    from .layers import rotate
+
+    cdt = cfg.cdtype
+    ck, cv = cache
+    h, kv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim_
+    q_split = plan.split_model(p["wq"]) == 1
+    kv_split = plan.split_model(p["wk"]) == 1
+    h_l = h // plan.tp if q_split else h
+    outs = []
+    for di, (x, tab) in enumerate(zip(xs, tables)):
+        b = x.shape[0]
+        x = x.to(cdt)
+        q = _heads_whole(plan, x, p["wq"], q_split, h, hd)
+        k = _heads_whole(plan, x, p["wk"], kv_split, kv, hd)
+        v = _heads_whole(plan, x, p["wv"], kv_split, kv, hd)
+        if cfg.qk_norm:
+            q = rmsnorm(q, plan.local(p["q_norm"]), cfg.norm_eps)
+            k = rmsnorm(k, plan.local(p["k_norm"]), cfg.norm_eps)
+        if "rope" in tab:
+            q, k = rotate(q, *tab["rope"]), rotate(k, *tab["rope"])
+        k_blocks, axes = _seq_blocks(plan, ck, di)
+        v_blocks, _ = _seq_blocks(plan, cv, di)
+        qg = q.reshape(b, 1, kv, h // kv, hd)
+        partials = []
+        for (lo, kbs), (_, vbs) in zip(k_blocks, v_blocks):
+            if lo <= cache_pos < lo + kbs[0].shape[1]:
+                at = cache_pos - lo
+                for t in kbs:
+                    t[:, at:at + 1] = k.to(t.dtype)
+                for t in vbs:
+                    t[:, at:at + 1] = v.to(t.dtype)
+            partials.append(_decode_partial(qg, kbs[0], vbs[0], lo,
+                                            cache_pos, window, cdt))
+        _, tot, acc = _lse_combine(plan.mesh, axes, partials)
+        out = (acc / tot).permute(0, 3, 1, 2, 4).reshape(b, 1, h, hd)
+        parts = [out[:, :, m * h_l:(m + 1) * h_l].reshape(b, 1, h_l * hd)
+                 .to(cdt) for m in range(plan.tp if q_split else 1)]
         outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
     return outs
 

@@ -7,7 +7,8 @@ plain tensors; :class:`RMSNorm` and :class:`MLP` are the ``nn.Module``
 holders the transformer is built from.  ``constrain`` is dropped: the
 meshed forward lays its activations out itself.
 
-The meshed forward's layers (the sharded trainer) sit at the end:
+The meshed forward's layers (the sharded trainer's, and the meshed
+serving steps', under ``torch.no_grad()``) sit at the end:
 :class:`MeshPlan` (which entries run what, and the per-layer FSDP gather
 of a model entry's weights), :func:`mlp_meshed` (column-parallel
 ``w_up``/``w_gate``, row-parallel ``w_down``), :func:`embed_meshed` and
@@ -242,6 +243,33 @@ class MeshPlan:
 
     def device(self, di: int = 0) -> torch.device:
         return self.mesh.devices.flat[self.entry(di)]
+
+    def coords(self, entry: int) -> Tuple[int, int]:
+        """``(data entry, model entry)`` of the flat index ``entry``; every
+        other axis (one the batch is not split over) maps to data entry
+        0's work."""
+        mesh = self.mesh
+        at = dict(zip(mesh.axis_names,
+                      np.unravel_index(entry, mesh.devices.shape)))
+        di = 0
+        for a in self.data_axes:
+            di = di * mesh.shape[a] + int(at[a])
+        return di, int(at.get("model", 0))
+
+    def assemble(self, spec, shape, block):
+        """A :class:`~repro_torch.dist.sharding.ShardedTensor` of ``shape``
+        laid out by ``spec``, each entry's block ``block(di, m)`` for its
+        :meth:`coords` (entries of one ``(di, m)`` share the tensor)."""
+        from repro_torch.dist.sharding import NamedSharding, ShardedTensor
+
+        made: dict = {}
+        blocks = []
+        for i in range(self.mesh.devices.size):
+            key = self.coords(i)
+            if key not in made:
+                made[key] = block(*key)
+            blocks.append(made[key])
+        return ShardedTensor(NamedSharding(self.mesh, spec), blocks, shape)
 
     def split_model(self, st) -> Optional[int]:
         """The dimension of ``st`` split over ``model``, or ``None``."""

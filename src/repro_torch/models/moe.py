@@ -267,7 +267,9 @@ def moe_meshed(plan, p, cfg: ModelConfig, xs):
     them, the dispatch is :func:`_moe_a2a`, as the reference's; otherwise
     the single-device dispatch at the global capacity over the whole
     microbatch, its tokens gathered over the data entries and its output
-    split back.  Returns (each data entry's output, aux)."""
+    split back; so under the decode fallback (the batch rule ``None``,
+    the reference's GSPMD path).  Returns (each data entry's output,
+    aux)."""
     from repro_torch.dist.sharding import bound_axis
 
     from .layers import mlp_meshed
@@ -294,7 +296,12 @@ def moe_meshed(plan, p, cfg: ModelConfig, xs):
     batch_axes = bound_axis("batch") or ()
     dp_axes = (batch_axes,) if isinstance(batch_axes, str) \
         else tuple(batch_axes)
-    if bound_axis("expert") == "model" and plan.dp > 1 and t % plan.dp == 0:
+    # the reference's condition, over the bound batch axes: under the
+    # decode fallback (batch rule None) its dp is 1 and it takes the
+    # GSPMD path, _moe_global here
+    dp = int(np.prod([plan.mesh.shape[a] for a in dp_axes])) \
+        if dp_axes else 1
+    if bound_axis("expert") == "model" and dp > 1 and t % dp == 0:
         if dp_axes != plan.data_axes:
             raise NotImplementedError(
                 f"the expert-parallel dispatch runs over the bound batch "

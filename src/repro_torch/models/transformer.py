@@ -35,7 +35,11 @@ says where each sits in the reference's groups.  Entry points:
   ``Mesh``: the reference's parameter tree as per-entry blocks, each
   layer run once an entry, for every block kind (attention, MLA and
   cross-attention split by heads over ``model``, the recurrent blocks
-  once a data entry on whole weights).
+  once a data entry on whole weights);
+* :func:`prefill_meshed` and :func:`decode_meshed` — serving over the
+  port's ``Mesh`` for the GQA and MoE decoders (the flash prefill on each
+  entry's heads; decode against a sequence-sharded cache); any other
+  block kind raises, naming ROADMAP.md item 12.
 
 A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
 MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's
@@ -57,8 +61,10 @@ from torch import nn
 
 from repro_torch.device import DeviceLike, resolve_device, to_host
 
-from .attention import (MLA, Attention, CrossAttention, attention_tables,
-                        attn_params, cross_attn_params, mla_params)
+from .attention import (MLA, Attention, CrossAttention,
+                        attention_decode_meshed, attention_meshed,
+                        attention_tables, attn_params, cross_attn_params,
+                        mla_params)
 from .config import ModelConfig
 from .layers import (MLP, RMSNorm, _param, dense_init, embed,
                      neg_log_10000_over, rmsnorm as rmsnorm_,
@@ -730,7 +736,7 @@ def _layer_weights(params, cfg: ModelConfig, mesh) -> List[dict]:
 
 
 def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
-                  tables, enc_outs=None):
+                  tables, enc_outs=None, mixer=None):
     """:class:`Block`'s forward over the mesh on each data entry's ``xs``
     (the reference's ``_apply_block``).  Attention kinds: pre-norm
     self-attention (GQA or MLA; the encoder's tables are not causal), a
@@ -739,7 +745,9 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
     Recurrent kinds: the block of ``models/ssm.py`` once a data entry on
     its weights gathered whole (:meth:`MeshPlan.whole`: the FSDP gather,
     then the blocks over ``model``; the backward reduce-scatters), then
-    RG-LRU's pre-norm MLP.  Returns ``(xs, aux)``."""
+    RG-LRU's pre-norm MLP.  ``mixer`` stands in for the self-attention
+    (the serving steps' forms, called as :func:`attention_meshed` is).
+    Returns ``(xs, aux)``."""
     from .attention import (attention_meshed, cross_attention_meshed,
                             mla_meshed)
     from .layers import mlp_meshed
@@ -761,7 +769,9 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
         apply = RECURRENT[kind][0].apply_fn
         xs = [apply(w, cfg, x)[0] for x in xs]
     else:
-        mixer = mla_meshed if kind.startswith("mla") else attention_meshed
+        if mixer is None:
+            mixer = mla_meshed if kind.startswith("mla") \
+                else attention_meshed
         xs = add(mixer(plan, lp["attn"], cfg, pre_norm("ln1"), tables,
                        slot.window))
         if kind == "dec_attn_mlp":
@@ -799,6 +809,30 @@ def _encode_meshed(plan, params, cfg: ModelConfig, enc_embeds, slots,
     return [rmsnorm_(e, scale, cfg.norm_eps) for e in es]
 
 
+def _embed_meshed(params, cfg: ModelConfig, plan, batches):
+    """Each data entry's decoder input in the compute dtype: its ``tokens``
+    looked up vocab-parallel, or its ``embeds``."""
+    from .layers import embed_meshed
+
+    cdt = cfg.cdtype
+    if cfg.input_kind == "tokens":
+        return [x.to(cdt) for x in embed_meshed(
+            plan, params["embed"]["table"], [b["tokens"] for b in batches])]
+    return [b["embeds"].to(cdt) for b in batches]
+
+
+def _head_meshed(params, cfg: ModelConfig, plan, xs):
+    """``final_norm``, then the logits of each data entry's vocab blocks
+    (:func:`~repro_torch.models.layers.unembed_meshed`)."""
+    from .layers import unembed_meshed
+
+    plan.clear()
+    scale = plan.local(params["final_norm"]["scale"])
+    xs = [rmsnorm_(x, scale, cfg.norm_eps) for x in xs]
+    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
+    return unembed_meshed(plan, table, xs, cfg.cdtype)
+
+
 def forward_meshed(params, cfg: ModelConfig, plan, batches):
     """The training forward over ``plan``'s mesh (a
     :class:`~repro_torch.models.layers.MeshPlan`), for every family.
@@ -814,16 +848,10 @@ def forward_meshed(params, cfg: ModelConfig, plan, batches):
     checkpointing, as :func:`forward`'s.  Returns ``(logits, aux)``: for
     each data entry the float32 logits of each model entry's vocab block
     (a list), and the summed MoE router loss."""
-    from .layers import embed_meshed, unembed_meshed
-
     mesh = plan.mesh
     cdt = cfg.cdtype
     plan.clear()
-    if cfg.input_kind == "tokens":
-        xs = [x.to(cdt) for x in embed_meshed(
-            plan, params["embed"]["table"], [b["tokens"] for b in batches])]
-    else:
-        xs = [b["embeds"].to(cdt) for b in batches]
+    xs = _embed_meshed(params, cfg, plan, batches)
     slots = layer_slots(cfg)
     weights = _layer_weights(params, cfg, mesh)
     enc_outs = None
@@ -845,11 +873,140 @@ def forward_meshed(params, cfg: ModelConfig, plan, batches):
         xs, a = _checkpointed(fn, cfg.remat, xs, tables, enc_outs)
         if a is not None:
             aux = aux + a
+    return _head_meshed(params, cfg, plan, xs), aux
+
+
+# ---------------------------------------------------------------------------
+# Serving over the mesh
+# ---------------------------------------------------------------------------
+
+# The block kinds the meshed serving steps run: the GQA and MoE decoders
+SERVE_MESHED_KINDS = ("attn_mlp", "attn_moe")
+
+
+def check_meshed_serving(cfg: ModelConfig) -> None:
+    """Raise ``NotImplementedError`` (naming ROADMAP.md §1 item 12) unless
+    every layer of ``cfg`` is a kind the meshed serving steps run, on
+    token inputs."""
+    kinds = sorted({s.kind for s in layer_slots(cfg)}
+                   - set(SERVE_MESHED_KINDS))
+    if kinds or cfg.input_kind != "tokens":
+        what = f"its {', '.join(kinds)} layers" if kinds \
+            else f"its {cfg.input_kind} inputs"
+        raise NotImplementedError(
+            f"serving {cfg.name} over the port's Mesh: {what} wait for "
+            f"ROADMAP.md §1 item 12 (12.2); the GQA and MoE decoders "
+            f"({', '.join(SERVE_MESHED_KINDS)}) serve over it")
+
+
+def _batch_entry(plan):
+    axes = tuple(plan.data_axes)
+    return (axes[0] if len(axes) == 1 else axes) or None
+
+
+def _logits_sharded(plan, blocks, b: int):
+    """The logits of :func:`_head_meshed` (each data entry's vocab blocks)
+    as one ``ShardedTensor`` of (B, S, V): its batch over the data axes,
+    its vocab over ``model`` where it splits."""
+    from repro_torch.dist.sharding import P
+
+    split = len(blocks[0]) > 1
+    _, s, v = blocks[0][0].shape
+    return plan.assemble(P(_batch_entry(plan), None,
+                           "model" if split else None),
+                         (b, s, v * len(blocks[0])),
+                         lambda di, m: blocks[di][m if split else 0])
+
+
+def prefill_meshed(params, cfg: ModelConfig, plan, batch):
+    """The serving prefill over ``plan``'s mesh for the GQA and MoE
+    decoders (:func:`check_meshed_serving`): the reference's ``forward``
+    with ``return_caches``, partitioned as its prefill cell is.
+    ``params`` is the reference's parameter tree of ``ShardedTensor``s
+    (``shard_params(..., fsdp=False)``), ``batch`` the whole ``tokens``
+    (B, S) and optional ``positions`` (B, S), split over the plan's data
+    entries (the ``batch`` rule; none under the fallback).  Without
+    ``positions`` each (data, model) entry runs the flash kernel on its
+    block of query heads (:func:`attention_meshed`); with them
+    ``_sdpa_masked``'s arithmetic.
+
+    Returns ``(logits, aux, {"layers": [(K, V), ...], "enc_out": None})``:
+    the float32 logits (B, S, V) and each layer's K and V (B, S, KV, D) as
+    ``ShardedTensor``s, the batch over the data axes, the vocab and the
+    aligned KV heads over ``model`` (misaligned KV heads whole: the same
+    tensors on every model entry)."""
+    from repro_torch.dist.sharding import P
+    from repro_torch.train.train_step import split_micro
+
+    check_meshed_serving(cfg)
     plan.clear()
-    scale = plan.local(params["final_norm"]["scale"])
-    xs = [rmsnorm_(x, scale, cfg.norm_eps) for x in xs]
-    table = params["lm_head" if "lm_head" in params else "embed"]["table"]
-    return unembed_meshed(plan, table, xs, cdt), aux
+    batches = split_micro({k: batch[k] for k in ("tokens", "positions")
+                           if k in batch}, 1, plan.dp)[0]
+    xs = _embed_meshed(params, cfg, plan, batches)
+    b = batch["tokens"].shape[0]
+    s = xs[0].shape[1]
+    slots = layer_slots(cfg)
+    weights = _layer_weights(params, cfg, plan.mesh)
+    tables = []
+    for part, x in zip(batches, xs):
+        pos = part.get("positions")
+        flash = pos is None
+        if flash:
+            pos = torch.arange(s, device=x.device).expand(x.shape[0], s)
+        tables.append(attention_tables(cfg, pos, [sl.window for sl in slots],
+                                       flash=flash))
+    aux = torch.zeros((), dtype=torch.float32, device=plan.device())
+    caches = []
+    for slot, lp in zip(slots, weights):
+        kvs: list = []
+        mixer = functools.partial(attention_meshed, kv_out=kvs)
+        xs, a = _block_meshed(plan, cfg, slot, lp, xs, tables, mixer=mixer)
+        if a is not None:
+            aux = aux + a
+        split = len({id(k) for k, _ in kvs[0]}) > 1
+        kv, hd = cfg.n_kv_heads, cfg.head_dim_
+        spec = P(_batch_entry(plan), None, "model" if split else None, None)
+        caches.append(tuple(
+            plan.assemble(spec, (b, s, kv, hd),
+                          lambda di, m, j=j: kvs[di][m if split else 0][j])
+            for j in range(2)))
+    return (_logits_sharded(plan, _head_meshed(params, cfg, plan, xs), b),
+            aux, {"layers": caches, "enc_out": None})
+
+
+def decode_meshed(params, cfg: ModelConfig, plan, cache, batch):
+    """One-token serving step over ``plan``'s mesh for the GQA and MoE
+    decoders: the reference's ``decode_step`` under its decode rules.
+    ``cache`` holds each layer's (K, V) as ``ShardedTensor``s of (B,
+    S_max, KV, D) laid out by ``cache_specs`` (``extend_cache`` of a
+    meshed prefill's cache), ``batch`` the whole ``tokens`` (B, 1) and
+    ``cache_pos``.  Each layer's attention is
+    :func:`~repro_torch.models.attention.attention_decode_meshed` (heads
+    whole, the sequence over ``model``, or over the data axes and
+    ``model`` under the batch fallback, where the plan has no data axes
+    and the rest of the layer runs once); the K/V blocks are written in
+    place.  Returns ``(logits, cache)``, the float32 logits (B, 1, V) a
+    ``ShardedTensor`` as :func:`prefill_meshed` gives them."""
+    from repro_torch.train.train_step import split_micro
+
+    check_meshed_serving(cfg)
+    plan.clear()
+    pos = int(batch["cache_pos"])
+    batches = split_micro({"tokens": batch["tokens"]}, 1, plan.dp)[0]
+    xs = _embed_meshed(params, cfg, plan, batches)
+    b = batch["tokens"].shape[0]
+    slots = layer_slots(cfg)
+    weights = _layer_weights(params, cfg, plan.mesh)
+    tables = [attention_tables(cfg, torch.full((x.shape[0], 1), pos,
+                                               dtype=torch.int64,
+                                               device=x.device), [])
+              for x in xs]
+    for slot, lp, layer in zip(slots, weights, cache["layers"]):
+        mixer = functools.partial(attention_decode_meshed, cache=layer,
+                                  cache_pos=pos)
+        xs, _ = _block_meshed(plan, cfg, slot, lp, xs, tables, mixer=mixer)
+    return (_logits_sharded(plan, _head_meshed(params, cfg, plan, xs), b),
+            {"layers": cache["layers"], "enc_out": cache.get("enc_out")})
 
 
 def _checkpointed(fn, remat: str, *args):

@@ -369,3 +369,32 @@ def test_restore_refuses_shardings(tmp_path):
             assert np.array_equal(whole, np.asarray(want[k]))
     with pytest.raises(ValueError, match="one NamedSharding a leaf"):
         ckpt.restore(tree, shardings={"w": object()})
+
+
+def test_train_state_save_async_while_stepping(tmp_path):
+    """A train state (float32 parameters, m and v) through ``save_async``
+    while the next train step runs on the live state, then a verified
+    ``restore``: every leaf equal to the host copy that was handed to
+    ``save_async``, bit for bit, and not to the state after the step."""
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    opt = topt.AdamW(lr=topt.warmup_cosine(1e-3, 2, 10))
+    state = tts.init_train_state(cfg, opt, seed=0, device="cpu")
+    step = tts.make_train_step(cfg, opt)
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (2, 9)).astype(np.int32))
+    state, _ = step(state, {"tokens": tokens})
+    ckpt = Checkpointer(str(tmp_path), keep=2)
+    saved = tts.train_state_to_arrays(state)
+    ckpt.save_async(1, saved, metadata={"step": 1})
+    state, _ = step(state, {"tokens": tokens})
+    ckpt.wait()
+    restored, meta = ckpt.restore(saved, verify=True)
+    assert meta == {"step": 1} and ckpt.all_steps() == [1]
+    want = tree_flatten_with_path(saved)[0]
+    got = tree_flatten_with_path(restored)[0]
+    after = tree_flatten_with_path(tts.train_state_to_arrays(state))[0]
+    assert [kp for kp, _ in got] == [kp for kp, _ in want]
+    for (_, a), (_, b) in zip(want, got):
+        assert a.dtype == np.asarray(b).dtype and np.array_equal(a, b)
+    assert not all(np.array_equal(a, b) for (_, a), (_, b)
+                   in zip(want, after))

@@ -1,7 +1,7 @@
 """``repro_torch.launch.dryrun`` on fake tensors: the trip-weighted trace
 equals a full trace; an ``entries`` cell's FLOPs and collectives equal
 ``FlopCounterMode``'s and ``recording``'s around the same step run on
-real CPU tensors; the peak tracker; the refusals of the reference's
+real CPU tensors, the meshed prefill and decode cells' among them; the peak tracker; the refusals of the reference's
 production meshes; records with the reference's keys (read off
 ``src/repro/launch/dryrun.py``, which is not imported: it forces 512
 host devices when it is); ``main``; the flash kernel's custom operator
@@ -139,6 +139,56 @@ def test_entries_cell_counts_equal_a_real_step(tiny_cells):
         want[kind] = want.get(kind, 0) + 1
     assert counts == want
     assert rec["chips"] == 1 and rec["meta"]["entries"] == 8
+
+
+@pytest.mark.parametrize("shape", ["prefill_tiny", "decode_tiny"])
+def test_entries_serving_cell_counts_equal_a_real_step(tiny_cells, shape):
+    """``run_cell``'s ``entries`` record of a reduced qwen3 serving cell
+    (batch 2 on (data 4, model 2): the batch fallback, the decode cache's
+    32 slots over (data, model)) against ``FlopCounterMode`` and the
+    ``recording`` hook around the cell's own step on real CPU tensors:
+    the parameters and the cache laid out by the cell's ``in_shardings``,
+    ``cache_pos`` the cell's last slot."""
+    from repro_torch.dist.sharding import shard_tree
+    from repro_torch.models.transformer import (arrays_from_named,
+                                                init_params, make_cache)
+
+    rec = dryrun.run_cell("qwen3-0.6b", shape, "entries", device="cpu")
+    assert rec["status"] == "ok" and rec["kind"] == shape.split("_")[0]
+    mesh = _cpu_mesh(dryrun.ENTRIES, ("data", "model"))
+    cell = specs.build_cell("qwen3-0.6b", shape, mesh)
+    cfg = get_config("qwen3-0.6b", reduced=True)
+    model = init_params(cfg, 0, "cpu")
+    params = shard_tree(arrays_from_named(dict(model.named_parameters()),
+                                          cfg, on_device=True),
+                        cell.in_shardings[0])
+    gen = torch.Generator().manual_seed(0)
+    if shape == "prefill_tiny":
+        args = (params, {"tokens": torch.randint(
+            0, cfg.vocab_size, (2, 16), generator=gen, dtype=torch.int32)})
+    else:
+        cache = {"layers": shard_tree(make_cache(cfg, 2, 32, "cpu")["layers"],
+                                      cell.in_shardings[1]["layers"]),
+                 "enc_out": None}
+        args = (params, cache, {"tokens": torch.randint(
+            0, cfg.vocab_size, (2, 1), generator=gen, dtype=torch.int32),
+            "cache_pos": 31})
+    seen = []
+    with FlopCounterMode(display=False) as fc, \
+            recording(lambda name, *_: seen.append(name)):
+        cell.fn(*args)
+    assert rec["cost"]["per_device_flops"] == fc.get_total_flops() > 0
+    counts = {k[len("count_"):]: v for k, v in rec["collectives"].items()
+              if k.startswith("count_")
+              and k[len("count_"):] in dryrun._KINDS.values()}
+    want = {}
+    for name in seen:
+        kind = dryrun._KINDS[name]
+        want[kind] = want.get(kind, 0) + 1
+    assert counts == want and want["all-reduce"] > 0
+    if shape == "decode_tiny":
+        assert "pmax" in seen
+    assert rec["meta"]["entries"] == 8
 
 
 def test_peak_tracker_on_a_known_sequence():

@@ -32,6 +32,7 @@ from repro_torch.dist import compression as tcomp
 from repro_torch.dist import sharding as tsh
 from repro_torch.launch.mesh import (all_to_all, gather_blocks, make_mesh,
                                      psum)
+from repro_torch.models import transformer as ttf
 from repro_torch.models.layers import MeshPlan
 from repro_torch.models.moe import _moe_a2a
 from repro_torch.train.train_step import train_state_template
@@ -123,6 +124,11 @@ def test_activation_rules_equal_reference(arch, mesh):
 
 @pytest.mark.parametrize("mesh", sorted(MESHES))
 def test_batch_and_cache_specs_equal_reference(mesh):
+    """``batch_specs`` exactly the reference's; ``cache_specs`` in the
+    port's per-layer layout (each layer's tuple, batch on axis 0) the
+    reference's spec of the same layer's stacked leaf without its leading
+    repeats axis, for attention (GQA), MQA (one KV head) and MLA caches
+    (the decode fallback and the uneven lengths among the cases)."""
     shapes = {"tokens": np.zeros((8, 17), np.int32),
               "labels": np.zeros((8, 16), np.int32),
               "positions3": np.zeros((3, 8, 16), np.int32),
@@ -132,21 +138,60 @@ def test_batch_and_cache_specs_equal_reference(mesh):
     got = tsh.batch_specs(shapes, DuckMesh(mesh))
     assert {k: (tuple(v), repr(v)) for k, v in got.items()} == \
         {k: (tuple(v), repr(v)) for k, v in want.items()}
-    for seq_len, batch in ((64, 8), (64, 3), (12, 8), (7, 2)):
-        layers = [(np.broadcast_to(np.float32(0), (2, batch, seq_len, 2, 16)),
-                   np.broadcast_to(np.float32(0), (2, batch, seq_len, 2, 16))),
-                  (np.broadcast_to(np.float32(0), (1, batch, 32)),),
-                  {"c_kv": np.broadcast_to(np.float32(0),
-                                           (3, batch, seq_len, 32))}]
-        want = jax.tree.leaves(jsh.cache_specs(layers, DuckMesh(mesh),
-                                               seq_len, batch),
-                               is_leaf=lambda x: isinstance(
-                                   x, jax.sharding.PartitionSpec))
-        got = [s for _, s in tsh.tree_flatten_with_path(
-            tsh.cache_specs(layers, DuckMesh(mesh), seq_len, batch),
-            lambda x: isinstance(x, tsh.PartitionSpec))[0]]
-        assert [repr(s) for s in got] == [repr(s) for s in want], \
-            (seq_len, batch)
+    for arch in ("qwen3-0.6b", "granite-34b", "deepseek-v2-lite-16b"):
+        cfg = get_config(arch, reduced=True)
+        for seq_len, batch in ((64, 8), (64, 3), (12, 8), (7, 2)):
+            stacked = jax.eval_shape(lambda: jtf.init_cache(
+                jax_get_config(arch, reduced=True), batch, seq_len))
+            want = jsh.cache_specs(stacked, DuckMesh(mesh), seq_len, batch)
+            got = tsh.cache_specs(
+                ttf.init_cache(cfg, batch, seq_len, "cpu"), DuckMesh(mesh),
+                seq_len, batch, cfg)
+            for layer, slot in zip(got, ttf.layer_slots(cfg)):
+                ref = want[slot.group][slot.key]
+                assert [repr(tsh.P(*tuple(s)[1:])) for s in ref] == \
+                    [repr(s) for s in layer], (arch, seq_len, batch, slot)
+
+
+def _cache_case(case):
+    """(config, mesh, seq_len, batch) of one ``cache_specs`` unit case."""
+    arch = {"mqa": "granite-34b", "coincidence": "xlstm-1.3b"}.get(
+        case, "qwen3-0.6b")
+    seq_len, batch = {"divisible": (16, 8), "fallback": (16, 1),
+                      "uneven": (14, 1), "mqa": (16, 8),
+                      "coincidence": (32, 4)}[case]
+    return get_config(arch, reduced=True), DuckMesh("data4_model2"), \
+        seq_len, batch
+
+
+@pytest.mark.parametrize("case", ["divisible", "fallback", "uneven", "mqa",
+                                  "coincidence"])
+def test_cache_specs_per_layer_layout(case):
+    """``cache_specs`` on the port's per-layer cache at (data 4, model 2):
+    a batch that the data axes divide goes over ``data`` and the sequence
+    over ``model``; batch 1 falls back to the sequence over (data, model);
+    a length of 14 does not split 8 ways and goes over ``model`` alone;
+    an MQA cache (one KV head) is laid out as any other; and a recurrent
+    state whose dimension equals ``seq_len`` by chance (reduced xlstm's
+    mLSTM state, head dim 32) shards its batch only, its kind chosen by
+    the layer plan, never by its shape."""
+    cfg, mesh, seq_len, batch = _cache_case(case)
+    layers = ttf.init_cache(cfg, batch, seq_len, "cpu")
+    got = tsh.cache_specs(layers, mesh, seq_len, batch, cfg)
+    seq = {"fallback": ("data", "model"), "uneven": "model"}.get(case,
+                                                                 "model")
+    bat = "data" if batch % 4 == 0 else None
+    for layer, specs, slot in zip(layers, got, ttf.layer_slots(cfg)):
+        assert len(specs) == len(layer)
+        for t, spec in zip(layer, specs):
+            want = [bat] + [None] * (t.dim() - 1)
+            if ttf.is_attention(slot.kind):
+                want[1] = seq
+            assert tuple(spec) == tuple(want), (slot, tuple(t.shape))
+    if case == "coincidence":
+        assert any(seq_len in t.shape[1:] for t in layers[0])
+    with pytest.raises(ValueError, match="cache layers"):
+        tsh.cache_specs(layers[:-1], mesh, seq_len, batch, cfg)
 
 
 @pytest.mark.parametrize("spec", [(), (None,), ("data", None),

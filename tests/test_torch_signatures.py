@@ -733,6 +733,9 @@ def test_dist_exports_the_ported_part_of_the_references():
         if name == "compressed_psum_grads":
             # the port's collectives name their mesh
             assert port_params == ref_params + ["mesh"]
+        elif name == "cache_specs":
+            # the port chooses a cache's layers by the config's plan
+            assert port_params == ref_params + ["cfg"]
         else:
             assert port_params == ref_params, name
 

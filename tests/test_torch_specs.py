@@ -3,8 +3,9 @@ the reference's ``configs.cells`` and ``launch/specs.py``: the cells,
 parameter counts, model FLOPs, input specs and decode caches of all ten
 archs at their published widths, the microbatch count and activation
 rules on three meshes, and the cells the port builds, all on fake tensors
-(nothing is allocated).  Also: a fake full-width state shards over a
-mesh (``shard_train_state`` inside a ``FakeTensorMode``)."""
+(nothing is allocated), the meshed serving cells among them.  Also: a
+fake full-width state shards over a mesh (``shard_train_state`` inside a
+``FakeTensorMode``)."""
 import dataclasses
 
 import jax
@@ -174,9 +175,56 @@ def test_serving_cells_on_one_entry(shape):
 
 
 def test_serving_cell_over_entries_refuses():
-    with pytest.raises(NotImplementedError, match="item 12"):
-        specs.build_cell("qwen3-0.6b", "prefill_32k",
-                         _mesh((4, 2), ("data", "model")))
+    """Refused until ROADMAP item 12.1 was ported; now the accepted call:
+    qwen3-0.6b's meshed ``prefill_32k`` and ``decode_32k`` cells on (data
+    4, model 2) entries, with the reference's meta, the parameters as the
+    reference's tree of ``ShardedTensor``s of fake blocks laid out by
+    ``shard_params(..., fsdp=False)``, and the decode cache laid out by
+    ``cache_specs``: each layer's K and V the reference's spec of its
+    stacked leaf without the repeats axis, in ``in_shardings`` and
+    ``out_shardings`` alike."""
+    mesh = _mesh((4, 2), ("data", "model"))
+    ref_mesh = AbstractMesh((4, 2), ("data", "model"))
+    cfg = configs.get_config("qwen3-0.6b")
+    for shape in ("prefill_32k", "decode_32k"):
+        cell = specs.build_cell("qwen3-0.6b", shape, mesh)
+        assert cell.meta == _meta_want("qwen3-0.6b", shape, ref_mesh,
+                                       fsdp=False)
+        params, batch = cell.args[0], cell.args[-1]
+        leaves = [st for _, st in tree_flatten_with_path(params)[0]]
+        assert leaves and all(isinstance(st, ShardedTensor) and all(
+            isinstance(b, FakeTensor) for b in st.blocks) for st in leaves)
+        assert params["groups"][0]["attn_mlp_0"]["attn"]["wq"].spec == \
+            sharding.P(None, None, "model")
+        if shape == "prefill_32k":
+            assert batch["tokens"].shape == (32, 32768)
+            continue
+        want = ref_sharding.cache_specs(ref_specs.cache_shapes(
+            ref_configs.get_config("qwen3-0.6b"), 128, 32768)["layers"],
+            ref_mesh, seq_len=32768, batch=128)[0]["attn_mlp_0"]
+        layers = cell.args[1]["layers"]
+        assert len(layers) == cfg.n_layers
+        for k_v, sh in zip(layers, cell.in_shardings[1]["layers"]):
+            for st, ns, ref in zip(k_v, sh, want):
+                assert st.shape == (128, 32768, 8, 128)
+                assert tuple(st.spec) == tuple(ns.spec) == \
+                    tuple(ref)[1:] == ("data", "model", None, None)
+                assert st.blocks[0].shape == (32, 16384, 8, 128)
+        assert cell.out_shardings[1] is cell.in_shardings[1]
+        assert int(batch["cache_pos"]) == 32767 and \
+            cell.donate_argnums == (1,)
+
+
+@pytest.mark.parametrize("arch", ["deepseek-v2-lite-16b", "xlstm-1.3b",
+                                  "recurrentgemma-9b", "qwen2-vl-2b",
+                                  "whisper-small"])
+def test_serving_cell_of_a_later_family_over_entries_refuses(arch):
+    """MLA, the recurrent states, qwen2-vl's embeddings and whisper's
+    cross-attention cache wait for item 12.2: their meshed serving cells
+    raise, naming item 12."""
+    for shape in ("prefill_32k", "decode_32k"):
+        with pytest.raises(NotImplementedError, match="item 12"):
+            specs.build_cell(arch, shape, _mesh((4, 2), ("data", "model")))
 
 
 def test_fake_full_width_state_shards():
