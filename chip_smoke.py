@@ -4878,6 +4878,37 @@ SERVE_MESH_PROFILED = 8      # the decode step profiled (not timed)
 # against meshed on the CPU.
 SERVE_MESH_F32_LAYERS, SERVE_MESH_F32_PROMPT = 4, 32
 SERVE_MESH_F32_TOL = 1e-4
+# (d) serve_mesh_families: the other five families at published width on
+# (4, 2), cut in depth as train_mesh_families cuts them (MESH_FAMILIES),
+# 8 rows each and 4 decode steps, held to their unmeshed steps as qwen3 is.
+# Prompts (decoder positions): deepseek 512; recurrentgemma 2,304, past
+# its 2,048 window so that the window masks in the flash prefill and
+# across the decode cache's blocks, but short of 3,072, where the two
+# float32 logits of its 256,000-row vocabulary (unmeshed and meshed, 25 GB
+# each) would hold most of the card; xlstm 256, a multiple of its 64-token
+# chunk; qwen2-vl 512 laid out as MESH_VLM_* lays them out; whisper 224
+# over MESH_AUDIO_FRAMES.  deepseek runs at a capacity factor of
+# n_experts / top_k.  SERVE_MESH_F32_GATED's bf16 logits are printed
+# against the contract and their float32 run (TF32 off) is the gate, as
+# granite-moe's: deepseek's top-6 of 64 experts may flip under bf16
+# rounding; xlstm's bf16 prefill logits on the card move by about the
+# same as the meshed ones when the unmeshed prefill runs a data entry's
+# 2 rows a call in place of all 8 (the GEMMs' row count changes their
+# bf16 rounding, which its exponential gates amplify;
+# tools/serve_mesh_rounding_probe.py).  (e) The five reduced
+# copies (float32) join the f32 check, card against CPU: 8 rows of 32
+# prompt positions (qwen2-vl with a 1 x 4 x 4 image after 4 text
+# positions, whisper over 40 frames), 4 decode steps.
+SERVE_MESH_FAMILY_PROMPT = {"deepseek-v2-lite-16b": 512,
+                            "recurrentgemma-9b": 2304,
+                            "xlstm-1.3b": 256,
+                            "qwen2-vl-2b": 512,
+                            "whisper-small": 224}
+SERVE_MESH_FAMILY_NEW = 4
+SERVE_MESH_F32_GATED = ("deepseek-v2-lite-16b", "xlstm-1.3b")
+SERVE_MESH_F32_REDUCED = ("deepseek-v2-lite-16b", "xlstm-1.3b",
+                          "recurrentgemma-9b", "qwen2-vl-2b",
+                          "whisper-small")
 
 
 def serve_mesh_params(cfg, model, mesh):
@@ -4905,9 +4936,19 @@ def serve_mesh_steps(cfg, mesh, rows: int):
             cfg, mesh, decode=True, batch=rows)))
 
 
+def token_prompts(cfg, dev, rows: int, prompt: int):
+    """:func:`serve_mesh_model`'s default inputs: ``rows`` prompts of
+    ``prompt`` random tokens (seed 0); each decode step feeds the greedy
+    token."""
+    toks = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, (rows, prompt), dtype=np.int32)).to(dev)
+    return lambda model: ({"tokens": toks}, lambda tok, pos: {"tokens": tok})
+
+
 def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
                      profile: bool = False, contract: float = SERVE_CONTRACT,
-                     gate: bool = True) -> dict:
+                     gate: bool = True, prompt: int = SERVE_MESH_PROMPT,
+                     inputs=None) -> dict:
     """Phase 6g's run of one model: the unmeshed prefill and ``n_new``
     greedy decode steps first, then the meshed steps over
     ``SERVE_MESH_SHAPE`` of the card from the same weights, teacher-forced
@@ -4916,7 +4957,11 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     logits (the prefill's and every step's) within ``contract * max(1,
     max |logits|)`` of the unmeshed ones where ``gate``, else printed
     against it; the greedy tokens that agree are printed, not gated.  An
-    MoE model's prefill routings are compared token by token."""
+    MoE model's prefill routings are compared token by token.
+    ``inputs(model)`` gives the prefill batch of ``SERVE_MESH_ROWS`` rows
+    of ``prompt`` positions and a function of (the greedy token, its
+    position) to the decode step's batch (:func:`token_prompts` by
+    default); the meshed run takes the unmeshed run's decode batches."""
     from repro_torch.launch import mesh as mesh_mod
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.models import moe as moe_mod
@@ -4924,18 +4969,17 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     from repro_torch.serve.steps import (extend_cache, make_decode_step,
                                          make_prefill_step, sample_greedy)
 
-    rows, prompt = SERVE_MESH_ROWS, SERVE_MESH_PROMPT
+    rows = SERVE_MESH_ROWS
     s_max = prompt + n_new
     t_start = time.perf_counter()
     model = init_params(cfg, seed=0, device=dev)
-    toks = torch.from_numpy(np.random.default_rng(0).integers(
-        0, cfg.vocab_size, (rows, prompt), dtype=np.int32)).to(dev)
+    batch, to_step = (inputs or token_prompts(cfg, dev, rows, prompt))(model)
     worst = []
 
     def hold(got, want, what):
-        g = got.unshard() if not isinstance(got, torch.Tensor) else got
-        diff = float((g - want).abs().max())
-        atol = contract * max(1.0, float(want.abs().max()))
+        diff = sharded_max_diff(got, want)
+        lo, hi = torch.aminmax(want)   # no |want| copy of large logits
+        atol = contract * max(1.0, -float(lo), float(hi))
         worst.append(diff / atol)
         if gate and not diff <= atol:
             raise AssertionError(f"meshed {cfg.name} {what}: logits "
@@ -4951,22 +4995,22 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     moe_mod._route = route
     try:
         with torch.no_grad():
-            u_logits, u_cache = make_prefill_step(cfg)(model,
-                                                       {"tokens": toks})
+            u_logits, u_cache = make_prefill_step(cfg)(model, batch)
     finally:
         moe_mod._route = real_route
     u_routes, routes = routes, []
     with torch.no_grad():
         u_cache = extend_cache(cfg, u_cache, prompt, s_max)
         want_tokens = [sample_greedy(u_logits)]
-        u_steps = []
+        u_steps, steps_in = [], []
         decode = make_decode_step(cfg)
         for i in range(n_new):
-            lg, u_cache = decode(model, u_cache, {
-                "tokens": want_tokens[-1].to(dev), "cache_pos": prompt + i})
+            steps_in.append(dict(to_step(want_tokens[-1].to(dev),
+                                         prompt + i), cache_pos=prompt + i))
+            lg, u_cache = decode(model, u_cache, steps_in[-1])
             u_steps.append(lg)
             want_tokens.append(sample_greedy(lg))
-        del u_cache
+        del u_cache, to_step       # to_step may hold the model
     torch.cuda.empty_cache()
     t_unmeshed = time.perf_counter()
 
@@ -4988,7 +5032,7 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     moe_mod._route = route
     try:
         with mesh_mod.recording(pre_count):
-            logits, cache = prefill(params, {"tokens": toks})
+            logits, cache = prefill(params, batch)
         torch.cuda.synchronize()
     finally:
         moe_mod._route = real_route
@@ -5003,15 +5047,15 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     agree = [int((sample_greedy(logits) == want_tokens[0]).sum())]
     del logits
     step_s, profile_out = [], None
+    del batch
     for i in range(n_new):
-        batch = {"tokens": want_tokens[i].to(dev), "cache_pos": prompt + i}
         if profile and i == SERVE_MESH_PROFILED:
-            profile_out = profiled_decode(step, params, cache, batch)
+            profile_out = profiled_decode(step, params, cache, steps_in[i])
             lg = profile_out.pop("logits")
         else:
             t0 = time.perf_counter()
             with mesh_mod.recording(dec_count):
-                lg, cache = step(params, cache, batch)
+                lg, cache = step(params, cache, steps_in[i])
             torch.cuda.synchronize()
             step_s.append(time.perf_counter() - t0)
         hold(lg, u_steps[i], f"decode step {i}")
@@ -5052,6 +5096,24 @@ def serve_mesh_model(dev, cfg, n_new: int, smi: str, counters=None,
     return out
 
 
+def sharded_max_diff(got, want: torch.Tensor) -> float:
+    """The largest ``|got - want|``, ``got`` a tensor or a meshed step's
+    ``ShardedTensor``, taken a distinct block and a row at a time (no
+    whole copy of logits that may hold tens of GB)."""
+    if isinstance(got, torch.Tensor):
+        return float((got - want).abs().max())
+    worst, done = 0.0, set()
+    for i, blk in enumerate(got.blocks):
+        key = got.sharding.block_index(i)
+        if key in done:
+            continue
+        done.add(key)
+        w = want[got.sharding.block_slices(got.shape, i)]
+        for r in range(blk.shape[0]):
+            worst = max(worst, float((blk[r] - w[r]).abs().max()))
+    return worst
+
+
 def profiled_decode(step, params, cache, batch) -> dict:
     """One meshed decode step under ``torch.profiler`` (CUDA activity
     alone: the host's some 40,000 events a step would take longer to
@@ -5063,57 +5125,186 @@ def profiled_decode(step, params, cache, batch) -> dict:
     return dict(device_summary(evs, wall, 6), logits=lg)
 
 
-def serve_mesh_f32(dev, smi: str) -> dict:
-    """qwen3 cut to ``SERVE_MESH_F32_LAYERS`` layers in float32 compute
-    (TF32 off): the meshed prefill and 4 decode steps on (4, 2) of the
-    card (the float32 flash kernel on each entry's heads) and on a CPU
-    mesh, from the same weights and tokens; every logits within
-    ``SERVE_MESH_F32_TOL * max |logits|``."""
+def family_prompts(cfg, dev, rows: int, prompt: int):
+    """:func:`serve_mesh_model`'s inputs for ``cfg``'s input kind, drawn
+    from seed 0: tokens (:func:`token_prompts`), with whisper's
+    ``MESH_AUDIO_FRAMES`` encoder frames (seed 1) beside them; qwen2-vl's
+    embeddings of random text tokens (rows of the tied table) with one
+    image of ``MESH_VLM_GRID`` merged patches after
+    ``MESH_VLM_TEXT_BEFORE`` text positions, and their ``positions3``
+    (:func:`vlm_positions3`), each decode step feeding the table row of
+    the greedy token at the next text index on all three axes."""
+    if cfg.input_kind == "tokens":
+        make = token_prompts(cfg, dev, rows, prompt)
+        if not cfg.enc_dec:
+            return make
+        frames = torch.as_tensor(np.random.default_rng(1).standard_normal(
+            (rows, MESH_AUDIO_FRAMES, cfg.d_model), dtype=np.float32),
+            device=dev)
+
+        def with_frames(model):
+            batch, step = make(model)
+            return dict(batch, enc_embeds=frames), step
+        return with_frames
+    p3, nxt = vlm_positions3(rows, prompt, MESH_VLM_TEXT_BEFORE,
+                             MESH_VLM_GRID)
+    rng = np.random.default_rng(0)
+    text = torch.as_tensor(rng.integers(0, cfg.vocab_size, (rows, prompt)),
+                           device=dev)
+    n_img = int(np.prod(MESH_VLM_GRID))
+    img = torch.as_tensor(rng.standard_normal(
+        (rows, n_img, cfg.d_model), dtype=np.float32), device=dev)
+
+    def make(model):
+        with torch.no_grad():
+            embeds = model.embed[text]
+            embeds[:, MESH_VLM_TEXT_BEFORE:MESH_VLM_TEXT_BEFORE + n_img] = img
+
+        def step(tok, pos):
+            with torch.no_grad():
+                return {"embeds": model.embed[tok.long()],
+                        "positions3": torch.full((3, rows, 1),
+                                                 nxt + pos - prompt,
+                                                 device=dev)}
+        return {"embeds": embeds,
+                "positions3": torch.as_tensor(p3, device=dev)}, step
+    return make
+
+
+def serve_mesh_families(dev, smi: str, counters) -> dict:
+    """Phase 6g (d): ``SERVE_MESH_FAMILY_PROMPT``'s five families through
+    :func:`serve_mesh_model`, one after another, each freed before the
+    next, the counts set to 0 just before each meshed run and read just
+    after.  One line each (``serve_mesh_families``).  Gates: the logits
+    within the seam contract (``SERVE_MESH_F32_GATED``: the float32 run
+    within ``SERVE_F32_CONTRACT``, the bf16 run printed), one flash
+    launch an attention layer (whisper's encoder layers too) and (data,
+    model) entry of each meshed prefill (the bf16 kernel's; a float32
+    run's, the float32 kernel's), no PH kernel."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import is_attention, layer_slots
+
+    depth = {arch: layers for arch, layers, _ in MESH_FAMILIES}
+    n = int(np.prod(SERVE_MESH_SHAPE))
+    out = {}
+    for arch, prompt in SERVE_MESH_FAMILY_PROMPT.items():
+        cfg = dataclasses.replace(get_config(arch), n_layers=depth[arch])
+        if cfg.moe is not None:
+            cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+                cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
+        kinds = [sl.kind for sl in layer_slots(cfg)]
+        want = sum(is_attention(k) for k in kinds) * n
+        inputs = family_prompts(cfg, dev, SERVE_MESH_ROWS, prompt)
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        f32_gate = arch in SERVE_MESH_F32_GATED
+        runs = [("bf16", serve_mesh_model(
+            dev, cfg, SERVE_MESH_FAMILY_NEW, smi, counters,
+            gate=not f32_gate, prompt=prompt, inputs=inputs))]
+        if f32_gate:
+            torch.backends.cuda.matmul.allow_tf32 = False
+            runs.append(("f32", serve_mesh_model(
+                dev, dataclasses.replace(cfg, compute_dtype="float32"),
+                SERVE_MESH_FAMILY_NEW, smi, counters,
+                contract=SERVE_F32_CONTRACT, prompt=prompt, inputs=inputs)))
+        res = dict(runs[0][1], kinds=kinds, flash_expected=want,
+                   enc_frames=MESH_AUDIO_FRAMES if cfg.enc_dec else None,
+                   sub_phase_s=time.perf_counter() - t0)
+        if len(runs) > 1:
+            res["f32"] = runs[1][1]
+        emit("serve_mesh_families", **res)
+        for what, run in runs:
+            got = run["launches"]
+            if got["flash_attention"] != want or any(
+                    got[k] for k in PH_KERNELS + OFF_PATH_KERNELS):
+                raise AssertionError(f"meshed {arch} serving ({what}) "
+                                     f"launched {got}, not {want} flash "
+                                     f"launches alone")
+        out[arch] = res
+        torch.cuda.empty_cache()
+    return out
+
+
+def seq_part(key: str, v: np.ndarray, lo: int, hi: int) -> np.ndarray:
+    """Positions ``[lo, hi)`` of a serving input (``positions3`` (3, B, S);
+    ``tokens`` and ``embeds`` (B, S, ...))."""
+    return v[:, :, lo:hi] if key == "positions3" else v[:, lo:hi]
+
+
+def serve_mesh_f32(dev, smi: str, arch: Optional[str] = None) -> dict:
+    """The meshed prefill and 4 decode steps in float32 compute (TF32 off)
+    on (4, 2) of the card (the float32 flash kernel on each entry's
+    heads) and on a CPU mesh, from the same weights and inputs (seed 1);
+    every logits within ``SERVE_MESH_F32_TOL * max |logits|``.  The model:
+    qwen3 cut to ``SERVE_MESH_F32_LAYERS`` layers, or the reduced copy of
+    ``arch`` (qwen2-vl's embeddings with a 1 x 4 x 4 image grid in
+    ``positions3``; whisper's 40 encoder frames)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.mesh import make_mesh
-    from repro_torch.models.transformer import init_params
+    from repro_torch.models.transformer import (init_params, is_attention,
+                                                layer_slots)
     from repro_torch.serve.steps import extend_cache
 
-    cfg = dataclasses.replace(get_config(SERVE_MESH_ARCH),
-                              n_layers=SERVE_MESH_F32_LAYERS,
-                              compute_dtype="float32")
+    if arch is None:
+        cfg = dataclasses.replace(get_config(SERVE_MESH_ARCH),
+                                  n_layers=SERVE_MESH_F32_LAYERS,
+                                  compute_dtype="float32")
+    else:
+        cfg = dataclasses.replace(get_config(arch, reduced=True),
+                                  compute_dtype="float32")
     torch.backends.cuda.matmul.allow_tf32 = False
-    prompt, n_new = SERVE_MESH_F32_PROMPT, 4
-    toks = torch.from_numpy(np.random.default_rng(1).integers(
-        0, cfg.vocab_size, (SERVE_MESH_ROWS, prompt + n_new),
-        dtype=np.int32))
+    prompt, n_new, rows = SERVE_MESH_F32_PROMPT, 4, SERVE_MESH_ROWS
+    rng = np.random.default_rng(1)
+    if cfg.input_kind == "tokens":
+        seq = {"tokens": rng.integers(0, cfg.vocab_size,
+                                      (rows, prompt + n_new), dtype=np.int32)}
+    else:
+        seq = {"embeds": rng.standard_normal(
+                   (rows, prompt + n_new, cfg.d_model), dtype=np.float32),
+               "positions3": vlm_positions3(rows, prompt + n_new, 4,
+                                            (1, 4, 4))[0]}
+    fixed = {"enc_embeds": rng.standard_normal(
+        (rows, 40, cfg.d_model), dtype=np.float32)} if cfg.enc_dec else {}
+
+    def part(lo, hi, where, **more):
+        out = {k: torch.from_numpy(np.ascontiguousarray(
+            seq_part(k, v, lo, hi))).to(where) for k, v in seq.items()}
+        return dict(out, **more)
+
     model = init_params(cfg, seed=0, device="cpu")
     n = int(np.prod(SERVE_MESH_SHAPE))
-    got, secs = {}, {}
+    got, secs = [], []
     counters = reset_counters()
     for where in (dev, torch.device("cpu")):
         mesh = make_mesh(SERVE_MESH_SHAPE, ("data", "model"),
                          devices=[where] * n)
         params = serve_mesh_params(cfg, model, mesh)
-        prefill, step = serve_mesh_steps(cfg, mesh, SERVE_MESH_ROWS)
+        prefill, step = serve_mesh_steps(cfg, mesh, rows)
         t0 = time.perf_counter()
-        logits, cache = prefill(params, {"tokens": toks[:, :prompt].to(
-            where)})
+        logits, cache = prefill(params, part(0, prompt, where, **{
+            k: torch.from_numpy(v).to(where) for k, v in fixed.items()}))
         out = [logits.unshard().cpu()]
         cache = extend_cache(cfg, cache, prompt, prompt + n_new)
         for i in range(prompt, prompt + n_new):
-            logits, cache = step(params, cache, {
-                "tokens": toks[:, i:i + 1].to(where), "cache_pos": i})
+            logits, cache = step(params, cache, part(i, i + 1, where,
+                                                     cache_pos=i))
             out.append(logits.unshard().cpu())
-        secs[where.type] = time.perf_counter() - t0
-        got[where.type] = out
-        if where.type == "cuda":
+        secs.append(time.perf_counter() - t0)
+        got.append(out)
+        if where is dev:
             f32_launches = counters["flash_attention"].launches
     rel = max(float((a - b).abs().max()) / float(b.abs().max())
-              for a, b in zip(got["cuda"], got["cpu"]))
+              for a, b in zip(*got))
+    want = sum(is_attention(sl.kind) for sl in layer_slots(cfg)) * n
     res = dict(card=smi, arch=cfg.name, n_layers=cfg.n_layers,
+               reduced=arch is not None,
                compute_dtype="float32", mesh=list(SERVE_MESH_SHAPE),
-               rows=SERVE_MESH_ROWS, prompt=prompt, decode_steps=n_new,
-               card_s=secs["cuda"], cpu_s=secs["cpu"],
-               max_rel_logits=rel, flash_f32_launches=f32_launches)
+               rows=rows, prompt=prompt, decode_steps=n_new,
+               card_s=secs[0], cpu_s=secs[1],
+               max_rel_logits=rel, flash_f32_launches=f32_launches,
+               flash_f32_expected=want)
     emit("serve_mesh_card_vs_cpu", **res)
-    if not (rel <= SERVE_MESH_F32_TOL
-            and f32_launches == cfg.n_layers * n):
+    if not (rel <= SERVE_MESH_F32_TOL and f32_launches == want):
         raise AssertionError(f"meshed f32 serving, card against CPU: {res}")
     return res
 
@@ -5123,8 +5314,10 @@ def serve_mesh(dev) -> dict:
     ``SERVE_MESH_*``).  qwen3-0.6b at full width and depth, its counts
     set to 0 just before the meshed run and read just after: one bf16
     flash launch a layer and (data, model) entry of the prefill (28 x 8);
-    granite-moe-1b-a400m at full width; each held to its unmeshed logits;
-    then the float32 check, card against CPU."""
+    granite-moe-1b-a400m at full width; the other five families
+    (:func:`serve_mesh_families`); each held to its unmeshed logits; then
+    the float32 check, card against CPU, of qwen3 and of the five reduced
+    copies."""
     from repro_torch.configs import get_config
 
     smi = nvidia_smi()
@@ -5153,8 +5346,12 @@ def serve_mesh(dev) -> dict:
         moe_cfg, compute_dtype="float32"), SERVE_MESH_MOE_NEW, smi,
         contract=SERVE_F32_CONTRACT)
     emit("serve_mesh_moe_f32", **moe32)
+    families = serve_mesh_families(dev, smi, counters)
     f32 = serve_mesh_f32(dev, smi)
-    res = dict(dense=dense, moe=moe, moe_f32=moe32, f32=f32,
+    families_f32 = {a: serve_mesh_f32(dev, smi, a)
+                    for a in SERVE_MESH_F32_REDUCED}
+    res = dict(dense=dense, moe=moe, moe_f32=moe32, families=families,
+               f32=f32, families_f32=families_f32,
                phase_s=time.perf_counter() - t0)
     emit("serve_mesh_done", card=smi, phase_s=res["phase_s"])
     torch.cuda.empty_cache()
@@ -5272,6 +5469,10 @@ def main() -> int:
         flash_attention_f32=mesh_served["f32"]["flash_f32_launches"])
     family_launches = {a: bf16(r["launches"])
                        for a, r in mesh_trained["families"].items()}
+    serve_family_launches = {
+        a: dict(bf16(r["launches"]), flash_attention_f32=(
+            r["f32"]["launches"]["flash_attention"] if "f32" in r else 0))
+        for a, r in mesh_served["families"].items()}
     ssm_launches = {a: bf16(r["launches"]) for a, r in ssm.items()}
     vlm_launches = {a: bf16(r["launches"]) for a, r in vlm.items()}
 
@@ -5316,6 +5517,8 @@ def main() -> int:
             train_moe_launches=moe_train_launches[kname],
             train_mesh_launches=mesh_train_launches[kname],
             serve_mesh_launches=mesh_serve_launches[kname],
+            serve_mesh_families_launches={
+                a: n[kname] for a, n in serve_family_launches.items()},
             train_mesh_families_launches={
                 a: n[kname] for a, n in family_launches.items()},
             ssm_archs_launches={a: n[kname] for a, n in ssm_launches.items()},

@@ -52,11 +52,11 @@ is its bytes over the HBM bandwidth, and the ICI and DCN terms are 0.
 (a mesh of one entry), which is what the H100 runs; ``"entries"``, the
 meshed step on ``(data 4, model 2)`` entries of one card: the train step,
 as ``chip_smoke.py``'s ``train_mesh`` runs it, and the prefill and decode
-steps of the GQA and MoE decoders, as its ``serve_mesh`` runs them (their
-parameters laid out by ``shard_params(..., fsdp=False)``, the decode
-cache by ``cache_specs``); a serving cell of another family there is an
-error record naming ROADMAP.md item 12, and ``long_500k`` stays a skip,
-as the reference marks it.  The port's ``Mesh`` dispatches its entries
+steps of every family, as its ``serve_mesh`` runs them (their parameters
+laid out by ``shard_params(..., fsdp=False)``, the decode cache by
+``cache_specs``); ``long_500k`` runs for the sub-quadratic families
+(xlstm, recurrentgemma) and stays a skip for the others, as the reference
+marks it.  The port's ``Mesh`` dispatches its entries
 one after another, so a trace of the reference's 256-chip meshes would
 cost 256x the host work and describe no machine the port runs on:
 ``"single"`` and ``"multi"`` refuse, as

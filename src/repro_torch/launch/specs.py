@@ -22,12 +22,10 @@ cell's tensors live on its first entry's device.  A mesh of one entry
 gives the unmeshed step (what one card runs); a mesh of several entries
 gives the meshed train step over a state that
 :func:`~repro_torch.train.train_step.shard_train_state` lays out as
-``ShardedTensor``s, and the meshed prefill and decode steps of the GQA and
-MoE decoders over the reference's parameter tree laid out by
+``ShardedTensor``s, and the meshed prefill and decode steps of every
+family over the reference's parameter tree laid out by
 ``shard_params(..., fsdp=False)``; the decode cell's cache is laid out by
 ``cache_specs`` (the reference's ``in_shardings`` and ``out_shardings``).
-A serving cell of another family on a mesh of several entries raises
-``NotImplementedError``, naming ROADMAP.md item 12.
 
 The port's decode step reads ``cache_pos`` on the host (``int()``), so
 the decode cell's ``cache_pos`` is a constant fake tensor: the last slot
@@ -55,8 +53,7 @@ from repro_torch.dist.sharding import (NamedSharding, P, activation_rules,
 from repro_torch.launch.mesh import Mesh
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.transformer import (arrays_from_named,
-                                            check_meshed_serving, init_params,
-                                            make_cache)
+                                            init_params, make_cache)
 from repro_torch.serve.steps import make_decode_step, make_prefill_step
 from repro_torch.train.optimizer import AdamW, warmup_cosine
 from repro_torch.train.train_step import (init_train_state, make_train_step,
@@ -301,8 +298,6 @@ def build_cell(arch: str, shape: str, mesh: Mesh,
                     out_shardings=(state_sh, None), meta=meta,
                     donate_argnums=(0,), fake_mode=mode, micro=micro)
 
-    if meshed:
-        check_meshed_serving(cfg)
     pspecs, report = shard_params(param_shapes(cfg), mesh, fsdp=False,
                                   heads=heads)
     meta["sharding_report"] = report

@@ -748,12 +748,8 @@ def attention_decode_meshed(plan, p, cfg: ModelConfig, xs, tables,
         qg = q.reshape(b, 1, kv, h // kv, hd)
         partials = []
         for (lo, kbs), (_, vbs) in zip(k_blocks, v_blocks):
-            if lo <= cache_pos < lo + kbs[0].shape[1]:
-                at = cache_pos - lo
-                for t in kbs:
-                    t[:, at:at + 1] = k.to(t.dtype)
-                for t in vbs:
-                    t[:, at:at + 1] = v.to(t.dtype)
+            _write_at(kbs, lo, cache_pos, k)
+            _write_at(vbs, lo, cache_pos, v)
             partials.append(_decode_partial(qg, kbs[0], vbs[0], lo,
                                             cache_pos, window, cdt))
         _, tot, acc = _lse_combine(plan.mesh, axes, partials)
@@ -764,20 +760,27 @@ def attention_decode_meshed(plan, p, cfg: ModelConfig, xs, tables,
     return outs
 
 
-def mla_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
-    """The training form of :func:`mla_apply` (explicit positions,
-    :func:`_sdpa_masked`'s arithmetic at q·k ``nope + rope`` and P·V
-    ``v_head_dim``, no cache) over ``plan``'s mesh, as
-    :func:`attention_meshed` takes its arguments.  The latent ``c_kv``
-    and the rotary key are whole on every model entry: ``w_dkv`` and
-    ``w_krope`` fall to the generic 2-D rule (``d_model`` over
-    ``model``), so their row-parallel partials are ``psum``-ed, and
+def mla_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int,
+               kv_out: Optional[list] = None):
+    """The training and prefill form of :func:`mla_apply` (no cache) over
+    ``plan``'s mesh, as :func:`attention_meshed` takes its arguments.
+    Explicit positions take :func:`_sdpa_masked`'s arithmetic at q·k
+    ``nope + rope`` and P·V ``v_head_dim``; tables made with
+    ``flash=True`` take the flash route where ``window != 0``, each (data,
+    model) entry running :func:`_flash_prefill` on its own heads, the
+    values zero-padded to q's width, as :func:`mla_apply` takes it.  The
+    latent ``c_kv`` and the rotary key are whole on every model entry:
+    ``w_dkv`` and ``w_krope`` fall to the generic 2-D rule (``d_model``
+    over ``model``), so their row-parallel partials are ``psum``-ed, and
     ``kv_norm`` normalises the whole latent.  Aligned heads: ``wq`` and
     the up-projections ``w_uk`` / ``w_uv`` are column-parallel, so model
     entry ``m`` expands only its own heads' keys and values, and ``wo``
     is row-parallel and ``psum``-ed.  Misaligned heads: the whole MLA
     once a data entry on the gathered up-projections, then ``wo`` as
-    :func:`_out_meshed` takes it."""
+    :func:`_out_meshed` takes it.
+
+    ``kv_out`` (a list; the serving prefill's cache): each data entry's
+    ``(c_kv, k_rope)``, (B, S, r) and (B, S, rope), is appended to it."""
     from .layers import rotate
 
     cdt = cfg.cdtype
@@ -796,6 +799,7 @@ def mla_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
     for x, tab in zip(xs, tables):
         b, s, _ = x.shape
         x = x.to(cdt)
+        flash = tab["flash"] and window != 0
         c_kv = rmsnorm(_project(plan, x, p["w_dkv"], 0), kv_norm,
                        cfg.norm_eps)
         k_rope = rotate(_project(plan, x, p["w_krope"], 0)[:, :, None],
@@ -809,50 +813,189 @@ def mla_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int):
             val = (c_kv @ w_uv[m]).reshape(b, s, h_l, dv)
             k_full = torch.cat([k_nope, k_rope.expand(b, s, h_l, rope)],
                                dim=-1)
-            out = _sdpa_chunked(q_full, k_full, val, tab["positions"],
-                                tab["bias"][window])
+            if flash:
+                out = _flash_prefill(q_full, k_full, val, window, True)
+            else:
+                out = _sdpa_chunked(q_full, k_full, val, tab["positions"],
+                                    tab["bias"][window])
             parts.append(out.reshape(b, s, h_l * dv).to(cdt))
+        outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
+        if kv_out is not None:
+            kv_out.append((c_kv, k_rope[:, :, 0]))
+    return outs
+
+
+def _write_at(blocks, lo: int, pos: int, new: torch.Tensor) -> None:
+    """Write ``new`` (B, 1, ...) at global position ``pos`` into each of
+    ``blocks`` (one sequence block's tensors, from ``lo``) when the block
+    holds ``pos``."""
+    if lo <= pos < lo + blocks[0].shape[1]:
+        for t in blocks:
+            t[:, pos - lo:pos - lo + 1] = new.to(t.dtype)
+
+
+def _mla_partial(q_lat, q_rope, cb, kb, lo: int, pos: int, window: int,
+                 scale: float, cdt):
+    """:func:`_decode_partial` for MLA's absorbed decode: the softmax over
+    one block of latent cache positions ``[lo, lo + len)`` for the
+    absorbed queries ``q_lat`` (B, 1, H, r) and rotary queries ``q_rope``
+    (B, 1, H, rope), scored as ``q_lat·c + q_rope·k_rope`` in float32
+    (:func:`mla_apply`'s decode) against the block's ``c_kv`` ``cb`` (B,
+    L, r) and rotary keys ``kb`` (B, L, rope).  Returns the block's
+    largest masked score, its sum of ``exp(s - m)``, each (B, H, 1, 1),
+    and its unnormalised P·c (B, H, 1, r), float32."""
+    f32 = torch.float32
+    c = cb.to(cdt).to(f32)
+    k_pos = torch.arange(lo, lo + cb.shape[1], device=cb.device)
+    ok = k_pos <= pos
+    if window >= 0:
+        ok &= pos - k_pos < max(window, 1)
+    scores = (torch.einsum("bqhr,bkr->bhqk", q_lat.to(f32), c)
+              + torch.einsum("bqhd,bkd->bhqk", q_rope.to(f32),
+                             kb.to(cdt).to(f32))) * scale
+    scores = torch.where(ok, scores, NEG_INF)
+    m = scores.amax(dim=-1, keepdim=True)
+    e = torch.exp(scores - m)
+    acc = torch.einsum("bhqk,bkr->bhqr", e.to(cdt).to(f32), c)
+    return m, e.sum(dim=-1, keepdim=True), acc
+
+
+def mla_decode_meshed(plan, p, cfg: ModelConfig, xs, tables, window: int,
+                      cache, cache_pos: int):
+    """The absorbed decode of :func:`mla_apply` over ``plan``'s mesh, by
+    the reference's decode rules: one token, heads whole, the latent cache
+    sequence-sharded.  ``cache`` is the layer's ``(c_kv, k_rope)``, each a
+    ``ShardedTensor`` of (B, S_max, r) and (B, S_max, rope) laid out by
+    ``cache_specs``; ``xs`` and ``tables`` as
+    :func:`attention_decode_meshed` takes them.
+
+    Every model entry gets all heads of q (its column block of ``wq``,
+    gathered over ``model``), the whole new latent and rotary key (the
+    ``psum`` of the row-parallel partials, as :func:`mla_meshed`) and
+    the absorbed ``q_nope W_uk^T`` over the gathered ``w_uk``, rounded to
+    the compute dtype.  The new ``c_kv`` and rotary key are written in
+    place into the block that owns ``cache_pos``.  Each block gives its
+    masked maximum, its sum of exponentials and its unnormalised P·c in
+    float32 (:func:`_mla_partial`); :func:`_lse_combine` merges them over
+    the sequence's axes.  Then each model entry's heads of the latent
+    output, rounded to the compute dtype, times its heads of ``w_uv``
+    (the whole of it where the heads do not split), and ``wo`` as
+    :func:`_out_meshed` takes it."""
+    from .layers import rotate
+
+    cdt = cfg.cdtype
+    mc = cfg.mla
+    h = cfg.n_heads
+    nope, rope, dv = mc.nope_head_dim, mc.rope_head_dim, mc.v_head_dim
+    r = mc.kv_lora_rank
+    scale = 1.0 / math.sqrt(nope + rope)
+    c_cache, kr_cache = cache
+    q_split = plan.split_model(p["wq"]) == 1
+    tp = plan.tp if q_split else 1
+    h_l = h // tp
+    w_uk = plan.whole(p["w_uk"], cdt).reshape(r, h, nope)
+    w_uv = [plan.local(p["w_uv"], m, cdt) for m in range(tp)] if q_split \
+        else [plan.whole(p["w_uv"], cdt)]
+    kv_norm = plan.local(p["kv_norm"])
+    outs = []
+    for di, (x, tab) in enumerate(zip(xs, tables)):
+        b = x.shape[0]
+        x = x.to(cdt)
+        q = _heads_whole(plan, x, p["wq"], q_split, h, nope + rope)
+        q_nope, q_rope = q[..., :nope], rotate(q[..., nope:], *tab["rope"])
+        c_kv = rmsnorm(_project(plan, x, p["w_dkv"], 0), kv_norm,
+                       cfg.norm_eps)                        # (B, 1, r)
+        k_rope = rotate(_project(plan, x, p["w_krope"], 0)[:, :, None],
+                        *tab["rope"])[:, :, 0]              # (B, 1, rope)
+        q_lat = torch.einsum("bqhn,rhn->bqhr", q_nope, w_uk)   # cdt
+        c_blocks, axes = _seq_blocks(plan, c_cache, di)
+        kr_blocks, _ = _seq_blocks(plan, kr_cache, di)
+        partials = []
+        for (lo, cbs), (_, kbs) in zip(c_blocks, kr_blocks):
+            _write_at(cbs, lo, cache_pos, c_kv)
+            _write_at(kbs, lo, cache_pos, k_rope)
+            partials.append(_mla_partial(q_lat, q_rope, cbs[0], kbs[0], lo,
+                                         cache_pos, window, scale, cdt))
+        _, tot, acc = _lse_combine(plan.mesh, axes, partials)
+        lat = (acc / tot).permute(0, 2, 1, 3).to(cdt)       # (B, 1, H, r)
+        parts = [torch.einsum(
+            "bqhr,rhv->bqhv", lat[:, :, m * h_l:(m + 1) * h_l],
+            w_uv[m].reshape(r, h_l, dv)).reshape(b, 1, h_l * dv).to(cdt)
+            for m in range(tp)]
         outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
     return outs
 
 
-def cross_attention_meshed(plan, p, cfg: ModelConfig, xs, enc_outs):
-    """The training form of :func:`cross_attention_apply` over ``plan``'s
-    mesh: data entry ``d``'s decoder rows ``xs[d]`` attend to its own
-    encoder output ``enc_outs[d]``, unmasked.  ``wq``, ``wk``, ``wv``
-    and ``wo`` follow the head rules of self-attention: aligned, model
-    entry ``m`` projects, attends and out-projects its own heads (the
-    ``wo`` partials ``psum``-ed); where ``wk`` is not column-parallel (it
-    is then row-parallel on ``d_model``) K and V are whole (``psum``-ed
-    partials) and each model entry picks its heads;
-    misaligned, the whole attention once a data entry
-    (:func:`_out_meshed`)."""
+def _data_block(plan, st, di: int) -> torch.Tensor:
+    """Data entry ``di``'s block of ``st``, a ``ShardedTensor`` whose batch
+    (axis 0) lies over the plan's data axes, or is whole under the batch
+    fallback, and whose other axes are whole: a recurrent state or a
+    cross-attention K/V of the decode cache (``cache_specs``)."""
+    from repro_torch.dist.sharding import _entry_axes
+
+    spec = tuple(st.spec) + (None,)
+    if _entry_axes(spec[0]) != tuple(plan.data_axes) or any(
+            a is not None for a in spec[1:]):
+        raise ValueError(f"a decode cache tensor of spec {st.spec!r} over "
+                         f"the data axes {plan.data_axes}: lay it out by "
+                         "cache_specs under the decode rules of its batch")
+    return st.blocks[plan.entry(di)]
+
+
+def cross_attention_meshed(plan, p, cfg: ModelConfig, xs, enc_outs,
+                           kv_out: Optional[list] = None, cache=None):
+    """:func:`cross_attention_apply` over ``plan``'s mesh: data entry
+    ``d``'s decoder rows ``xs[d]`` attend to its own encoder output
+    ``enc_outs[d]``, unmasked.  ``wq``, ``wk``, ``wv`` and ``wo`` follow
+    the head rules of self-attention: aligned, model entry ``m``
+    projects, attends and out-projects its own heads (the ``wo`` partials
+    ``psum``-ed); where ``wk`` is not column-parallel (it is then
+    row-parallel on ``d_model``) K and V are whole (``psum``-ed partials)
+    and each model entry picks its heads; misaligned, the whole attention
+    once a data entry (:func:`_out_meshed`).
+
+    ``kv_out`` (a list; the serving prefill's cache): each data entry's
+    K and V are appended to it, one ``(xK, xV)`` a model entry, its own
+    heads where they split, else the whole K and V once.  ``cache`` (the
+    decode form): the layer's ``(xK, xV)``, ``ShardedTensor``s of (B,
+    S_enc, H, D) with the batch over the data axes and the rest whole
+    (``cache_specs``); each data entry attends to its own block, at the
+    encoder's length, never padded, and ``enc_outs`` is not read."""
     cdt = cfg.cdtype
     h, hd = cfg.n_heads, cfg.head_dim_
     q_split = plan.split_model(p["wq"]) == 1
-    kv_split = q_split and plan.split_model(p["wk"]) == 1
+    kv_split = cache is None and q_split and plan.split_model(p["wk"]) == 1
     tp = plan.tp if q_split else 1
     h_l = h // tp
     outs = []
-    for x, e in zip(xs, enc_outs):
+    for di, x in enumerate(xs):
         b, s, _ = x.shape
-        se = e.shape[1]
-        x, e = x.to(cdt), e.to(cdt)
-        if not kv_split:
-            k_whole = _project(plan, e, p["wk"], 0).reshape(b, se, h, hd)
-            v_whole = _project(plan, e, p["wv"], 0).reshape(b, se, h, hd)
+        x = x.to(cdt)
+        if cache is not None:
+            k_whole, v_whole = (_data_block(plan, t, di).to(cdt)
+                                for t in cache)
+            se = k_whole.shape[1]
+        else:
+            e = enc_outs[di].to(cdt)
+            se = e.shape[1]
+            if not kv_split:
+                k_whole = _project(plan, e, p["wk"], 0).reshape(b, se, h, hd)
+                v_whole = _project(plan, e, p["wv"], 0).reshape(b, se, h, hd)
         q_pos = torch.zeros((b, s), dtype=torch.int64, device=x.device)
         k_pos = torch.zeros((se,), dtype=torch.int64, device=x.device)
-        parts = []
+        parts, kvs = [], []
         for m in range(tp):
             q = _project(plan, x, p["wq"], m).reshape(b, s, h_l, hd)
             if kv_split:
                 k = _project(plan, e, p["wk"], m).reshape(b, se, h_l, hd)
                 v = _project(plan, e, p["wv"], m).reshape(b, se, h_l, hd)
+                kvs.append((k, v))
             else:
                 heads = slice(m * h_l, (m + 1) * h_l)
                 k, v = k_whole[:, :, heads], v_whole[:, :, heads]
             out = _sdpa_masked(q, k, v, q_pos, k_pos, -1, causal=False)
             parts.append(out.reshape(b, s, h_l * hd).to(cdt))
         outs.append(_out_meshed(plan, p["wo"], parts, q_split, cdt))
+        if kv_out is not None:
+            kv_out.append(kvs if kv_split else [(k_whole, v_whole)])
     return outs

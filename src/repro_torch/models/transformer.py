@@ -37,9 +37,9 @@ says where each sits in the reference's groups.  Entry points:
   cross-attention split by heads over ``model``, the recurrent blocks
   once a data entry on whole weights);
 * :func:`prefill_meshed` and :func:`decode_meshed` — serving over the
-  port's ``Mesh`` for the GQA and MoE decoders (the flash prefill on each
-  entry's heads; decode against a sequence-sharded cache); any other
-  block kind raises, naming ROADMAP.md item 12.
+  port's ``Mesh`` for every family (the flash prefill on each entry's
+  heads; decode against a sequence-sharded attention cache, the
+  recurrent states batch-only).
 
 A layer's cache is its kind's: (K, V) for attention and ``local_attn``,
 MLA's (c_kv, k_rope), mLSTM's (C, n, conv), sLSTM's (c, n, h), RG-LRU's
@@ -63,8 +63,9 @@ from repro_torch.device import DeviceLike, resolve_device, to_host
 
 from .attention import (MLA, Attention, CrossAttention,
                         attention_decode_meshed, attention_meshed,
-                        attention_tables, attn_params, cross_attn_params,
-                        mla_params)
+                        attention_tables, attn_params,
+                        cross_attention_meshed, cross_attn_params,
+                        mla_decode_meshed, mla_meshed, mla_params)
 from .config import ModelConfig
 from .layers import (MLP, RMSNorm, _param, dense_init, embed,
                      neg_log_10000_over, rmsnorm as rmsnorm_,
@@ -736,7 +737,8 @@ def _layer_weights(params, cfg: ModelConfig, mesh) -> List[dict]:
 
 
 def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
-                  tables, enc_outs=None, mixer=None):
+                  tables, enc_outs=None, mixer=None, cross=None,
+                  states=None, states_out: Optional[list] = None):
     """:class:`Block`'s forward over the mesh on each data entry's ``xs``
     (the reference's ``_apply_block``).  Attention kinds: pre-norm
     self-attention (GQA or MLA; the encoder's tables are not causal), a
@@ -744,12 +746,13 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
     ``enc_outs``, then, where the layer has one, the pre-norm MLP or MoE.
     Recurrent kinds: the block of ``models/ssm.py`` once a data entry on
     its weights gathered whole (:meth:`MeshPlan.whole`: the FSDP gather,
-    then the blocks over ``model``; the backward reduce-scatters), then
-    RG-LRU's pre-norm MLP.  ``mixer`` stands in for the self-attention
-    (the serving steps' forms, called as :func:`attention_meshed` is).
-    Returns ``(xs, aux)``."""
-    from .attention import (attention_meshed, cross_attention_meshed,
-                            mla_meshed)
+    then the blocks over ``model``; the backward reduce-scatters), from
+    ``states[d]``, data entry ``d``'s block of the layer's state (``None``
+    or none given: the zero state of the sequence form), each new state
+    appended to ``states_out`` where given; then RG-LRU's pre-norm MLP.
+    ``mixer`` and ``cross`` stand in for the self- and cross-attention
+    (the serving steps' forms, called as :func:`attention_meshed` and
+    :func:`cross_attention_meshed` are).  Returns ``(xs, aux)``."""
     from .layers import mlp_meshed
     from .moe import moe_meshed
 
@@ -767,7 +770,11 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
         w = {n: plan.whole(v) for n, v in lp.items()
              if n not in ("ln2", "ffn")}
         apply = RECURRENT[kind][0].apply_fn
-        xs = [apply(w, cfg, x)[0] for x in xs]
+        outs = [apply(w, cfg, x, None if states is None else states[di])
+                for di, x in enumerate(xs)]
+        xs = [o[0] for o in outs]
+        if states_out is not None:
+            states_out.extend(o[1] for o in outs)
     else:
         if mixer is None:
             mixer = mla_meshed if kind.startswith("mla") \
@@ -775,8 +782,8 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
         xs = add(mixer(plan, lp["attn"], cfg, pre_norm("ln1"), tables,
                        slot.window))
         if kind == "dec_attn_mlp":
-            xs = add(cross_attention_meshed(plan, lp["cross"], cfg,
-                                            pre_norm("ln_cross"), enc_outs))
+            xs = add((cross or cross_attention_meshed)(
+                plan, lp["cross"], cfg, pre_norm("ln_cross"), enc_outs))
     if "ffn" not in lp:
         return xs, None
     hs = pre_norm("ln2")
@@ -788,10 +795,13 @@ def _block_meshed(plan, cfg: ModelConfig, slot: LayerSlot, lp: dict, xs,
 
 
 def _encode_meshed(plan, params, cfg: ModelConfig, enc_embeds, slots,
-                   weights):
+                   weights, flash: bool = False):
     """:func:`_encode` over the mesh: each data entry's ``enc_embeds``
     plus the sinusoid, the ``enc_attn_mlp`` layers (not causal, positions
-    ``arange(S_enc)``), then ``enc_final_norm``."""
+    ``arange(S_enc)``), then ``enc_final_norm``.  ``flash`` (the serving
+    prefill's): the self-attention takes the flash route on each (data,
+    model) entry's heads, as :func:`_encode` takes it without explicit
+    positions."""
     cdt = cfg.cdtype
     es, tables = [], []
     for e in enc_embeds:
@@ -799,7 +809,8 @@ def _encode_meshed(plan, params, cfg: ModelConfig, enc_embeds, slots,
         es.append(e.to(cdt) + sinusoidal_positions(
             se, cfg.d_model, e.device).to(cdt)[None])
         pos = torch.arange(se, device=e.device).expand(b, se)
-        tables.append(attention_tables(cfg, pos, [-1], causal=False))
+        tables.append(attention_tables(cfg, pos, [-1], causal=False,
+                                       flash=flash))
     for slot, lp in zip(slots, weights):
         if slot.kind == "enc_attn_mlp":
             es, _ = _checkpointed(functools.partial(
@@ -880,133 +891,209 @@ def forward_meshed(params, cfg: ModelConfig, plan, batches):
 # Serving over the mesh
 # ---------------------------------------------------------------------------
 
-# The block kinds the meshed serving steps run: the GQA and MoE decoders
-SERVE_MESHED_KINDS = ("attn_mlp", "attn_moe")
-
-
-def check_meshed_serving(cfg: ModelConfig) -> None:
-    """Raise ``NotImplementedError`` (naming ROADMAP.md §1 item 12) unless
-    every layer of ``cfg`` is a kind the meshed serving steps run, on
-    token inputs."""
-    kinds = sorted({s.kind for s in layer_slots(cfg)}
-                   - set(SERVE_MESHED_KINDS))
-    if kinds or cfg.input_kind != "tokens":
-        what = f"its {', '.join(kinds)} layers" if kinds \
-            else f"its {cfg.input_kind} inputs"
-        raise NotImplementedError(
-            f"serving {cfg.name} over the port's Mesh: {what} wait for "
-            f"ROADMAP.md §1 item 12 (12.2); the GQA and MoE decoders "
-            f"({', '.join(SERVE_MESHED_KINDS)}) serve over it")
-
-
 def _batch_entry(plan):
     axes = tuple(plan.data_axes)
     return (axes[0] if len(axes) == 1 else axes) or None
 
 
-def _logits_sharded(plan, blocks, b: int):
-    """The logits of :func:`_head_meshed` (each data entry's vocab blocks)
-    as one ``ShardedTensor`` of (B, S, V): its batch over the data axes,
-    its vocab over ``model`` where it splits."""
+# The serving steps' batch keys, split over the data entries
+SERVE_BATCH_KEYS = ("tokens", "embeds", "positions", "positions3",
+                    "enc_embeds")
+
+
+def batch_rows(cfg: ModelConfig, batch) -> int:
+    """The rows of a serving batch: its ``tokens``', or its ``embeds``'
+    for an embedding-input model."""
+    return int(batch["tokens" if cfg.input_kind == "tokens"
+                     else "embeds"].shape[0])
+
+
+def _split_serving(plan, batch):
+    """Each data entry's rows of the batch's inputs (``positions3`` on
+    axis 1; none split under the batch fallback)."""
+    from repro_torch.train.train_step import split_micro
+
+    return split_micro({k: batch[k] for k in SERVE_BATCH_KEYS
+                        if batch.get(k) is not None}, 1, plan.dp)[0]
+
+
+def _entries_tensor(plan, per_entry, b: int):
+    """One ``ShardedTensor`` of a cache or logits tensor from its blocks:
+    ``per_entry[d]`` holds data entry ``d``'s, one a model entry where
+    they differ (split along axis 2 over ``model``: the heads, or the
+    logits' vocab), else one for every model entry (whole).  The batch
+    (axis 0, ``b`` rows) lies over the data axes."""
     from repro_torch.dist.sharding import P
 
-    split = len(blocks[0]) > 1
-    _, s, v = blocks[0][0].shape
-    return plan.assemble(P(_batch_entry(plan), None,
-                           "model" if split else None),
-                         (b, s, v * len(blocks[0])),
-                         lambda di, m: blocks[di][m if split else 0])
+    first = per_entry[0]
+    split = len({id(t) for t in first}) > 1
+    shape = [b] + list(first[0].shape[1:])
+    spec = [_batch_entry(plan)] + [None] * (len(shape) - 1)
+    if split:
+        spec[2] = "model"
+        shape[2] *= len(first)
+    return plan.assemble(P(*spec), tuple(shape),
+                         lambda di, m: per_entry[di][m if split else 0])
 
 
 def prefill_meshed(params, cfg: ModelConfig, plan, batch):
-    """The serving prefill over ``plan``'s mesh for the GQA and MoE
-    decoders (:func:`check_meshed_serving`): the reference's ``forward``
-    with ``return_caches``, partitioned as its prefill cell is.
-    ``params`` is the reference's parameter tree of ``ShardedTensor``s
-    (``shard_params(..., fsdp=False)``), ``batch`` the whole ``tokens``
-    (B, S) and optional ``positions`` (B, S), split over the plan's data
+    """The serving prefill over ``plan``'s mesh, for every family: the
+    reference's ``forward`` with ``return_caches``, partitioned as its
+    prefill cell is.  ``params`` is the reference's parameter tree of
+    ``ShardedTensor``s (``shard_params(..., fsdp=False)``), ``batch`` the
+    whole batch, as :func:`forward` takes it (``tokens`` (B, S) or
+    ``embeds`` (B, S, d); optional ``positions`` (B, S), ``positions3``
+    (3, B, S), ``enc_embeds`` (B, S_enc, d)), split over the plan's data
     entries (the ``batch`` rule; none under the fallback).  Without
     ``positions`` each (data, model) entry runs the flash kernel on its
-    block of query heads (:func:`attention_meshed`); with them
-    ``_sdpa_masked``'s arithmetic.
+    block of query heads (:func:`attention_meshed`, :func:`mla_meshed`;
+    whisper's encoder too, not causal); with them ``_sdpa_masked``'s
+    arithmetic.  The recurrent blocks run once a data entry from the zero
+    state.
 
-    Returns ``(logits, aux, {"layers": [(K, V), ...], "enc_out": None})``:
-    the float32 logits (B, S, V) and each layer's K and V (B, S, KV, D) as
-    ``ShardedTensor``s, the batch over the data axes, the vocab and the
-    aligned KV heads over ``model`` (misaligned KV heads whole: the same
-    tensors on every model entry)."""
-    from repro_torch.dist.sharding import P
-    from repro_torch.train.train_step import split_micro
-
-    check_meshed_serving(cfg)
+    Returns ``(logits, aux, {"layers": [...], "enc_out": enc_out})``: the
+    float32 logits (B, S, V) and each layer's cache, by kind, as
+    ``ShardedTensor``s with the batch over the data axes: (K, V) (B, S,
+    KV, D) for ``attn`` and ``local_attn``, the aligned KV heads over
+    ``model`` (misaligned ones whole: the same tensors on every model
+    entry); MLA's (c_kv, k_rope) (B, S, r) and (B, S, rope), whole on
+    every model entry; the post-prompt state of ``mlstm``, ``slstm`` and
+    ``rglru``; (K, V, xK, xV) for ``dec_attn_mlp``, the cross K/V (B,
+    S_enc, H, D) with their heads as the cross-attention split them;
+    ``()`` for an encoder layer.  ``enc_out`` (B, S_enc, d) is the
+    encoder's output (``None`` but for the encoder-decoder)."""
     plan.clear()
-    batches = split_micro({k: batch[k] for k in ("tokens", "positions")
-                           if k in batch}, 1, plan.dp)[0]
+    batches = _split_serving(plan, batch)
     xs = _embed_meshed(params, cfg, plan, batches)
-    b = batch["tokens"].shape[0]
+    b = batch_rows(cfg, batch)
     s = xs[0].shape[1]
     slots = layer_slots(cfg)
     weights = _layer_weights(params, cfg, plan.mesh)
+    flash = batch.get("positions") is None
+    enc_outs = None
+    if cfg.enc_dec:
+        enc_outs = _encode_meshed(plan, params, cfg,
+                                  [part["enc_embeds"] for part in batches],
+                                  slots, weights, flash=flash)
+        xs = [x + sinusoidal_positions(s, cfg.d_model, x.device).to(
+            cfg.cdtype)[None] for x in xs]
     tables = []
     for part, x in zip(batches, xs):
         pos = part.get("positions")
-        flash = pos is None
         if flash:
             pos = torch.arange(s, device=x.device).expand(x.shape[0], s)
         tables.append(attention_tables(cfg, pos, [sl.window for sl in slots],
+                                       positions3=part.get("positions3"),
                                        flash=flash))
     aux = torch.zeros((), dtype=torch.float32, device=plan.device())
     caches = []
     for slot, lp in zip(slots, weights):
+        if slot.kind == "enc_attn_mlp":
+            caches.append(())
+            continue
         kvs: list = []
-        mixer = functools.partial(attention_meshed, kv_out=kvs)
-        xs, a = _block_meshed(plan, cfg, slot, lp, xs, tables, mixer=mixer)
+        xkvs: list = []
+        states: list = []
+        mixer = functools.partial(
+            mla_meshed if slot.kind.startswith("mla") else attention_meshed,
+            kv_out=kvs)
+        cross = functools.partial(cross_attention_meshed, kv_out=xkvs)
+        xs, a = _block_meshed(plan, cfg, slot, lp, xs, tables, enc_outs,
+                              mixer=mixer, cross=cross, states_out=states)
         if a is not None:
             aux = aux + a
-        split = len({id(k) for k, _ in kvs[0]}) > 1
-        kv, hd = cfg.n_kv_heads, cfg.head_dim_
-        spec = P(_batch_entry(plan), None, "model" if split else None, None)
-        caches.append(tuple(
-            plan.assemble(spec, (b, s, kv, hd),
-                          lambda di, m, j=j: kvs[di][m if split else 0][j])
-            for j in range(2)))
-    return (_logits_sharded(plan, _head_meshed(params, cfg, plan, xs), b),
-            aux, {"layers": caches, "enc_out": None})
+        if slot.kind in RECURRENT:
+            layer = _layer_cache(plan, [[st] for st in states], b)
+        elif slot.kind.startswith("mla"):
+            layer = _layer_cache(plan, [[kv] for kv in kvs], b)
+        else:
+            layer = _layer_cache(plan, kvs, b)
+            if xkvs:
+                layer += _layer_cache(plan, xkvs, b)
+        caches.append(layer)
+    enc_out = None if enc_outs is None else _entries_tensor(
+        plan, [[e] for e in enc_outs], b)
+    return (_entries_tensor(plan, _head_meshed(params, cfg, plan, xs), b),
+            aux, {"layers": caches, "enc_out": enc_out})
+
+
+def _layer_cache(plan, per, b: int) -> tuple:
+    """A layer's cache tensors from ``per[d][m]``, data entry ``d``'s tuple
+    of blocks of model entry ``m`` (one for all, or the same tensors on
+    each, where they are whole), each slot laid out by
+    :func:`_entries_tensor`."""
+    n = len(per[0][0])
+    return tuple(_entries_tensor(plan, [[t[j] for t in row] for row in per],
+                                 b) for j in range(n))
 
 
 def decode_meshed(params, cfg: ModelConfig, plan, cache, batch):
-    """One-token serving step over ``plan``'s mesh for the GQA and MoE
-    decoders: the reference's ``decode_step`` under its decode rules.
-    ``cache`` holds each layer's (K, V) as ``ShardedTensor``s of (B,
-    S_max, KV, D) laid out by ``cache_specs`` (``extend_cache`` of a
-    meshed prefill's cache), ``batch`` the whole ``tokens`` (B, 1) and
-    ``cache_pos``.  Each layer's attention is
+    """One-token serving step over ``plan``'s mesh, for every family: the
+    reference's ``decode_step`` under its decode rules.  ``cache`` holds
+    each layer's cache, by kind, as ``ShardedTensor``s laid out by
+    ``cache_specs`` (``extend_cache`` of a meshed prefill's cache);
+    ``batch`` the whole ``tokens`` (B, 1), or ``embeds`` (B, 1, d), and
+    ``cache_pos``; optional ``positions3`` (3, B, 1), by default
+    ``cache_pos`` on all three grids.  The encoder-decoder adds the
+    sinusoid at ``cache_pos`` (:func:`_sinusoidal_at`).  Each layer by
+    kind: self-attention by
     :func:`~repro_torch.models.attention.attention_decode_meshed` (heads
     whole, the sequence over ``model``, or over the data axes and
     ``model`` under the batch fallback, where the plan has no data axes
-    and the rest of the layer runs once); the K/V blocks are written in
-    place.  Returns ``(logits, cache)``, the float32 logits (B, 1, V) a
-    ``ShardedTensor`` as :func:`prefill_meshed` gives them."""
-    from repro_torch.train.train_step import split_micro
+    and the rest of the layer runs once), MLA by
+    :func:`~repro_torch.models.attention.mla_decode_meshed`, each writing
+    its new entries in place; a decoder layer's cross-attention against
+    its cached xK/xV (:func:`cross_attention_meshed`'s cache form); the
+    recurrent blocks from each data entry's block of their state, their
+    new state returned.  Returns ``(logits, cache)``, the float32 logits
+    (B, 1, V) a ``ShardedTensor`` as :func:`prefill_meshed` gives
+    them."""
+    from .attention import _data_block
 
-    check_meshed_serving(cfg)
     plan.clear()
     pos = int(batch["cache_pos"])
-    batches = split_micro({"tokens": batch["tokens"]}, 1, plan.dp)[0]
+    b = batch_rows(cfg, batch)
+    batch = dict(batch)
+    dev = batch["tokens" if cfg.input_kind == "tokens" else "embeds"].device
+    if cfg.rope_kind == "mrope" and batch.get("positions3") is None:
+        batch["positions3"] = torch.full((3, b, 1), pos, dtype=torch.int64,
+                                         device=dev)
+    batches = _split_serving(plan, {k: batch.get(k) for k in
+                                    ("tokens", "embeds", "positions3")})
     xs = _embed_meshed(params, cfg, plan, batches)
-    b = batch["tokens"].shape[0]
+    if cfg.enc_dec:
+        xs = [x + _sinusoidal_at(pos, cfg.d_model, x.device).to(
+            cfg.cdtype)[None, None] for x in xs]
     slots = layer_slots(cfg)
     weights = _layer_weights(params, cfg, plan.mesh)
     tables = [attention_tables(cfg, torch.full((x.shape[0], 1), pos,
                                                dtype=torch.int64,
-                                               device=x.device), [])
-              for x in xs]
+                                               device=x.device), [],
+                               positions3=part.get("positions3"))
+              for part, x in zip(batches, xs)]
+    layers = []
     for slot, lp, layer in zip(slots, weights, cache["layers"]):
-        mixer = functools.partial(attention_decode_meshed, cache=layer,
-                                  cache_pos=pos)
-        xs, _ = _block_meshed(plan, cfg, slot, lp, xs, tables, mixer=mixer)
-    return (_logits_sharded(plan, _head_meshed(params, cfg, plan, xs), b),
-            {"layers": cache["layers"], "enc_out": cache.get("enc_out")})
+        kind = slot.kind
+        if kind == "enc_attn_mlp":
+            layers.append(layer)
+            continue
+        if kind in RECURRENT:
+            new: list = []
+            xs, _ = _block_meshed(
+                plan, cfg, slot, lp, xs, tables,
+                states=[tuple(_data_block(plan, t, di) for t in layer)
+                        for di in range(len(xs))], states_out=new)
+            layers.append(_layer_cache(plan, [[st] for st in new], b))
+            continue
+        mixer = functools.partial(
+            mla_decode_meshed if kind.startswith("mla")
+            else attention_decode_meshed, cache=layer[:2], cache_pos=pos)
+        cross = functools.partial(cross_attention_meshed, cache=layer[2:])
+        xs, _ = _block_meshed(plan, cfg, slot, lp, xs, tables, mixer=mixer,
+                              cross=cross)
+        layers.append(layer)
+    return (_entries_tensor(plan, _head_meshed(params, cfg, plan, xs), b),
+            {"layers": layers, "enc_out": cache.get("enc_out")})
 
 
 def _checkpointed(fn, remat: str, *args):

@@ -9,23 +9,27 @@ zero-padding the sequence axis of the attention-family layers
 rotary key); the recurrent layers' states, and a decoder layer's
 cross-attention K/V, pass through.
 
-**Over the port's Mesh** (the GQA and MoE decoders; other families raise,
-naming ROADMAP.md item 12).  A step given the reference's parameter tree
-of ``ShardedTensor``s (``shard_params(..., fsdp=False)`` laid out by
-``shard_tree``) takes the meshed route, with the activation rules bound
-around it by ``bind_activation_rules`` (``activation_rules(cfg, mesh,
-decode=..., batch=B)``; unbound, those rules): the prefill
+**Over the port's Mesh** (every family).  A step given the reference's
+parameter tree of ``ShardedTensor``s (``shard_params(..., fsdp=False)``
+laid out by ``shard_tree``) takes the meshed route, with the activation
+rules bound around it by ``bind_activation_rules`` (``activation_rules(cfg,
+mesh, decode=..., batch=B)``; unbound, those rules): the prefill
 (``models/transformer.py::prefill_meshed``) runs the flash kernel on each
-(data, model) entry's block of query heads and returns K/V with the heads
-over ``model``; :func:`extend_cache` pads each block's sequence and lays
-the cache out by ``cache_specs`` (the sequence over ``model``, or over
-the data axes and ``model`` under the batch fallback), one ``all_to_all``
-over ``model`` a tensor where the KV heads are split; the decode
-(``decode_meshed``) writes each new K/V into the block that owns
-``cache_pos`` and combines the blocks' softmax by log-sum-exp.  Both
-return their logits as a ``ShardedTensor``, which :func:`sample_greedy`
-takes.  The engine (``serve/engine.py``) takes no mesh, as the
-reference's does not.
+(data, model) entry's block of query heads (MLA's too; whisper's encoder
+not causal) and returns each layer's cache by kind, the attention K/V with
+the heads over ``model``, MLA's latent and rotary key whole, the recurrent
+states of each data entry's rows, a decoder layer's cross K/V beside its
+own; :func:`extend_cache` pads each sequence-bearing block and lays the
+cache out by ``cache_specs`` (the sequence over ``model``, or over the
+data axes and ``model`` under the batch fallback), one ``all_to_all``
+over ``model`` a tensor where the KV heads are split, gathers the cross
+K/V's heads at the encoder's length, and passes the recurrent states and
+``enc_out`` through; the decode (``decode_meshed``) writes each new K/V
+(MLA: latent and rotary key) into the block that owns ``cache_pos``,
+combines the blocks' softmax by log-sum-exp and returns the new recurrent
+states.  Both return their logits as a ``ShardedTensor``, which
+:func:`sample_greedy` takes.  The engine (``serve/engine.py``) takes no
+mesh, as the reference's does not.
 """
 from __future__ import annotations
 
@@ -40,8 +44,7 @@ from repro_torch.dist.sharding import (NamedSharding, ShardedTensor,
                                        tree_flatten_with_path)
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import MeshPlan
-from repro_torch.models.transformer import (Transformer,
-                                            check_meshed_serving,
+from repro_torch.models.transformer import (Transformer, batch_rows,
                                             decode_meshed, decode_step,
                                             forward, is_attention,
                                             layer_slots, prefill_meshed)
@@ -69,14 +72,15 @@ def _serve_plan(cfg: ModelConfig, leaf: ShardedTensor, batch,
     rules = bound_rules()
     if rules is None:
         rules = activation_rules(cfg, mesh, decode=decode,
-                                 batch=int(batch["tokens"].shape[0]))
+                                 batch=batch_rows(cfg, batch))
     return MeshPlan(mesh, _entry_axes(rules["batch"]))
 
 
 def make_prefill_step(cfg: ModelConfig) -> Callable:
     """prefill_step(model, batch) -> (logits, cache_dict); batch: tokens
     (B, S) | embeds (B, S, d), optional positions (B, S) (+ positions3 /
-    enc_embeds)."""
+    enc_embeds).  ``model`` is the module, or the reference's parameter
+    tree of ``ShardedTensor``s (the meshed prefill of any family)."""
 
     def prefill_step(model: Transformer, batch):
         leaf = _sharded_leaf(model)
@@ -93,7 +97,8 @@ def make_prefill_step(cfg: ModelConfig) -> Callable:
 
 def make_decode_step(cfg: ModelConfig) -> Callable:
     """decode_fn(model, cache, batch) -> (logits, new_cache); batch: tokens
-    (B, 1) | embeds (B, 1, d), cache_pos int."""
+    (B, 1) | embeds (B, 1, d), cache_pos int (+ positions3 (3, B, 1)).
+    ``model`` as :func:`make_prefill_step` takes it."""
 
     def decode_fn(model: Transformer, cache, batch):
         leaf = _sharded_leaf(model)
@@ -141,28 +146,44 @@ def extend_cache(cfg: ModelConfig, prefill_cache: Dict[str, Any],
 
 
 def _extend_meshed(cfg: ModelConfig, prefill_cache, s_max: int):
-    """:func:`extend_cache` of a meshed prefill's cache: each K and V
-    padded to ``s_max`` and laid out by ``cache_specs(seq_len=s_max,
-    batch)`` (:func:`_to_decode_layout`)."""
-    check_meshed_serving(cfg)             # every layer's cache is (K, V)
+    """:func:`extend_cache` of a meshed prefill's cache, each layer by its
+    kind, laid out by ``cache_specs(seq_len=s_max, batch)``
+    (:func:`_to_decode_layout`): the sequence-bearing tensors (K and V,
+    ``local_attn``'s, MLA's latent and rotary key, a decoder layer's first
+    two slots) padded to ``s_max``; a decoder layer's cross K/V at the
+    encoder's length, their heads gathered where the prefill split them;
+    the recurrent states, batch-only already, passed through, as is
+    ``enc_out``."""
     layers = prefill_cache["layers"]
     leaf = _sharded_leaf(layers)
     specs = cache_specs(layers, leaf.sharding.mesh, seq_len=s_max,
                         batch=leaf.shape[0], cfg=cfg)
-    out = [tuple(_to_decode_layout(t, sp, s_max) for t, sp in zip(layer, spec))
-           for layer, spec in zip(layers, specs)]
+    out = []
+    for layer, spec, slot in zip(layers, specs, layer_slots(cfg)):
+        if not is_attention(slot.kind):
+            for t, sp in zip(layer, spec):
+                if tuple(t.spec) != tuple(sp):
+                    raise ValueError(f"a recurrent state of spec {t.spec!r}"
+                                     f", not the decode cache's {sp!r}")
+            out.append(tuple(layer))
+            continue
+        n_self = 2 if slot.kind == "dec_attn_mlp" else len(layer)
+        out.append(tuple(
+            _to_decode_layout(t, sp, s_max if j < n_self else t.shape[1])
+            for j, (t, sp) in enumerate(zip(layer, spec))))
     return {"layers": out, "enc_out": prefill_cache.get("enc_out")}
 
 
-def _to_decode_layout(st: ShardedTensor, spec, s_max: int) -> ShardedTensor:
-    """A prefill K or V (B, S, KV, D), its heads over ``model`` or whole,
-    zero-padded to ``s_max`` and laid out by ``spec`` (decode's: the same
-    batch blocks, the sequence over its spec's axes, the heads whole).
-    Along each row of ``model`` entries: split heads take one
-    ``all_to_all`` over ``model`` (each entry sends its heads of every
-    sequence chunk and gathers all heads of its own chunk), or an
-    all-gather of the heads where the sequence stays whole; whole heads
-    are sliced."""
+def _to_decode_layout(st: ShardedTensor, spec, length: int) -> ShardedTensor:
+    """A prefill cache tensor (B, S, ...), (B, S, heads, D) with its heads
+    over ``model`` or whole, or MLA's (B, S, r), zero-padded along the
+    sequence to ``length`` (a decoder layer's cross K/V keep theirs) and
+    laid out by ``spec`` (decode's: the same batch blocks, the sequence
+    over its spec's axes, the heads whole).  Along each row of ``model``
+    entries: split heads take one ``all_to_all`` over ``model`` (each
+    entry sends its heads of every sequence chunk and gathers all heads of
+    its own chunk), or an all-gather of the heads where the sequence stays
+    whole; whole heads are sliced."""
     from repro_torch.launch.mesh import all_to_all, gather_blocks
 
     mesh = st.sharding.mesh
@@ -171,14 +192,14 @@ def _to_decode_layout(st: ShardedTensor, spec, s_max: int) -> ShardedTensor:
         raise ValueError(f"prefill batch spec {src[0]!r} is not the decode "
                          f"cache's {spec[0]!r}")
     target = NamedSharding(mesh, spec)
-    shape = (st.shape[0], s_max) + tuple(st.shape[2:])
+    shape = (st.shape[0], length) + tuple(st.shape[2:])
     heads_split = "model" in _entry_axes(src[2])
     seq_model = "model" in _entry_axes(spec[1])
     padded: Dict[int, torch.Tensor] = {}
 
     def pad(t):
         if id(t) not in padded:
-            extra = s_max - t.shape[1]
+            extra = length - t.shape[1]
             padded[id(t)] = t if extra <= 0 else torch.cat(
                 [t, t.new_zeros((t.shape[0], extra) + t.shape[2:])], dim=1)
         return padded[id(t)]

@@ -403,14 +403,26 @@ def test_extend_cache_moves_each_layer_by_one_all_to_all(world, case):
 
 
 def test_a_later_family_refuses_naming_item_12():
-    """deepseek's MLA waits for item 12.2: its meshed prefill raises."""
+    """Refused until ROADMAP item 12.2 was ported; now the accepted call:
+    deepseek's MLA serves over a (2, 2) mesh, its meshed prefill's logits
+    and latent cache within 1e-5 of the unmeshed prefill's on the same
+    weights (at a capacity factor of ``n_experts / top_k``; the five
+    later families against the reference:
+    ``tests/test_torch_serve_mesh_families.py``)."""
     cfg = get_config("deepseek-v2-lite-16b", reduced=True)
+    cfg = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=cfg.moe.n_experts / cfg.moe.top_k))
     mesh = _mesh((2, 2))
-    tree = ttf.params_to_arrays(ttf.init_params(cfg, seed=0, device="cpu"))
+    model = ttf.init_params(cfg, seed=0, device="cpu")
+    toks = torch.from_numpy(_tokens(cfg, 2)[:, :4])
     pre, _ = _steps(cfg, mesh, 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        pre(_sharded(cfg, mesh, tree),
-            {"tokens": torch.zeros((2, 4), dtype=torch.int32)})
+    logits, cache = pre(_sharded(cfg, mesh, ttf.params_to_arrays(model)),
+                        {"tokens": toks})
+    want, want_cache = tsteps.make_prefill_step(cfg)(model, {"tokens": toks})
+    np.testing.assert_allclose(logits.unshard().numpy(), want.numpy(), **TOL)
+    for got_l, want_l in zip(cache["layers"], want_cache["layers"]):
+        for g, w in zip(got_l, want_l):
+            np.testing.assert_allclose(g.unshard().numpy(), w.numpy(), **TOL)
 
 
 @pytest.mark.parametrize("case", ["4x2", "fallback"])

@@ -853,6 +853,17 @@ def test_dryrun_cell_signature_adds_device(name):
              else p.default) for p in got] == want + [("device", None)]
 
 
+def test_no_refusal_names_item_12():
+    """Item 12 (serving over the Mesh) is ported for every family: no
+    message of the port names it."""
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parent.parent / "src" / \
+        "repro_torch"
+    hits = [str(p) for p in root.rglob("*.py") if "item 12" in p.read_text()]
+    assert hits == []
+
+
 def test_no_refusal_names_item_11():
     """Item 11 is ported: no message of the port names it."""
     import pathlib

@@ -23,6 +23,7 @@ from repro_torch.dist import sharding
 from repro_torch.dist.sharding import ShardedTensor, tree_flatten_with_path
 from repro_torch.launch import specs
 from repro_torch.launch.mesh import make_mesh
+from repro_torch.models.transformer import layer_slots
 from repro_torch.train import AdamW, warmup_cosine
 from repro_torch.train.train_step import TrainState, init_train_state
 from repro_torch.train.train_step import shard_train_state
@@ -219,12 +220,65 @@ def test_serving_cell_over_entries_refuses():
                                   "recurrentgemma-9b", "qwen2-vl-2b",
                                   "whisper-small"])
 def test_serving_cell_of_a_later_family_over_entries_refuses(arch):
-    """MLA, the recurrent states, qwen2-vl's embeddings and whisper's
-    cross-attention cache wait for item 12.2: their meshed serving cells
-    raise, naming item 12."""
-    for shape in ("prefill_32k", "decode_32k"):
-        with pytest.raises(NotImplementedError, match="item 12"):
-            specs.build_cell(arch, shape, _mesh((4, 2), ("data", "model")))
+    """Refused until ROADMAP item 12.2 was ported; now the accepted call:
+    the meshed ``prefill_32k`` and ``decode_32k`` cells of MLA, the
+    recurrent families, qwen2-vl and whisper on (data 4, model 2) entries,
+    and ``long_500k`` of the sub-quadratic xlstm and recurrentgemma, with
+    the reference's meta, the parameters as ``ShardedTensor``s of fake
+    blocks, the prefill batch of the input kind, and the decode cache
+    laid out by ``cache_specs``: each tensor the reference's spec of its
+    stacked leaf without the repeats axis, but where the reference's
+    stacked ``cache_specs`` sequence-shards an axis by its length alone
+    (whisper's cross K/V, S_enc = S_dec in its cells), which the port
+    keeps batch-only (ROADMAP.md §3 item 6)."""
+    mesh = _mesh((4, 2), ("data", "model"))
+    ref_mesh = AbstractMesh((4, 2), ("data", "model"))
+    cfg = configs.get_config(arch)
+    shapes = ["prefill_32k", "decode_32k"] + (
+        ["long_500k"] if cfg.sub_quadratic else [])
+    for shape in shapes:
+        cell = specs.build_cell(arch, shape, mesh)
+        assert cell.meta == _meta_want(arch, shape, ref_mesh, fsdp=False)
+        params, batch = cell.args[0], cell.args[-1]
+        leaves = [st for _, st in tree_flatten_with_path(params)[0]]
+        assert leaves and all(isinstance(st, ShardedTensor) and all(
+            isinstance(b, FakeTensor) for b in st.blocks) for st in leaves)
+        spec = configs.SHAPES[shape]
+        rows, seq = spec["global_batch"], spec["seq_len"]
+        if shape == "prefill_32k":
+            key = "tokens" if cfg.input_kind == "tokens" else "embeds"
+            assert batch[key].shape[:2] == (
+                rows, seq // 2 if cfg.enc_dec else seq)
+            if cfg.enc_dec:
+                assert batch["enc_embeds"].shape == (rows, seq // 2,
+                                                     cfg.d_model)
+            if cfg.rope_kind == "mrope":
+                assert batch["positions3"].shape == (3, rows, seq)
+            continue
+        s_cache = seq // 2 if cfg.enc_dec else seq
+        ref_cache = ref_specs.cache_shapes(ref_configs.get_config(arch),
+                                           rows, seq)["layers"]
+        want = ref_sharding.cache_specs(ref_cache, ref_mesh,
+                                        seq_len=s_cache, batch=rows)
+        layers = cell.args[1]["layers"]
+        slots = layer_slots(cfg)
+        assert len(layers) == len(slots)
+        for layer, sh, slot in zip(layers, cell.in_shardings[1]["layers"],
+                                   slots):
+            ref = want[slot.group].get(slot.key, ())
+            for j, (st, ns) in enumerate(zip(layer, sh)):
+                assert tuple(st.spec) == tuple(ns.spec)
+                assert st.shape == tuple(ref_cache[slot.group][slot.key][
+                    j].shape[1:])
+                got = tuple(st.spec) + (None,) * (len(st.shape)
+                                                  - len(st.spec))
+                if slot.kind == "dec_attn_mlp" and j >= 2:
+                    assert got == (st.spec[0],) + (None,) * 3
+                    assert tuple(ref[j])[2] is not None
+                else:
+                    assert got == tuple(ref[j])[1:], (slot, j)
+        assert cell.out_shardings[1] is cell.in_shardings[1]
+        assert int(batch["cache_pos"]) == s_cache - 1
 
 
 def test_fake_full_width_state_shards():
